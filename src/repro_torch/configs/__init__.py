@@ -1,7 +1,7 @@
-"""Architecture configs the port serves (own copies of ``repro.configs``).
+"""Architecture configs the port runs (own copies of ``repro.configs``).
 
 Each module exposes ``CONFIG``; ``get_config(name)`` resolves by arch id.
-Slice 1 carries the dense Llama-2 family and TinyLlama; the other archs of
+The port carries the dense Llama-2 family and TinyLlama; the other archs of
 the JAX package arrive with ROADMAP Queue 1's breadth items.
 """
 from __future__ import annotations

@@ -1,11 +1,14 @@
-"""Carry parameters of the JAX package across to the port.
+"""Carry parameters and training state of the JAX package across to the
+port.
 
 ``params_from_jax_numpy(tree, cfg, device)`` takes the JAX parameter pytree
 already converted to numpy (``jax.tree_util.tree_map(np.asarray, params)``
 on the JAX side; bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays) and
 returns the port's parameters on ``device``: the stacked ``layers`` leaves
 become one dict per layer, so both packages compute the same function.
-This module reads numpy arrays only and never imports jax.
+``train_state_from_jax_numpy`` does the same for a whole JAX ``TrainState``
+(step, params, AdamW master/m/v, threshold state).  This module reads numpy
+arrays only and never imports jax.
 """
 from __future__ import annotations
 
@@ -43,3 +46,27 @@ def params_from_jax_numpy(tree, cfg: ModelConfig, device=None):
     out["layers"] = [_convert(tree["layers"], dev, index=i)
                      for i in range(cfg.n_layers)]
     return out
+
+
+def train_state_from_jax_numpy(state, cfg: ModelConfig, device=None):
+    """A JAX ``repro.train.TrainState`` with numpy leaves (``tree_map(
+    np.asarray, state)``: the named tuples keep their fields) -> the port's
+    ``train.TrainState`` on ``device``."""
+    from repro_torch.core import threshold
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import TrainState
+    dev = resolve_device(device)
+    opt, thr = state.opt, state.thr
+    return TrainState(
+        step=int(np.asarray(state.step)),
+        params=params_from_jax_numpy(state.params, cfg, dev),
+        opt=adamw.AdamWState(
+            step=int(np.asarray(opt.step)),
+            master=params_from_jax_numpy(opt.master, cfg, dev),
+            m=params_from_jax_numpy(opt.m, cfg, dev),
+            v=params_from_jax_numpy(opt.v, cfg, dev)),
+        thr=threshold.ThresholdState(
+            ratio_ema=tensor_from_numpy(thr.ratio_ema, dev),
+            sigma_q=tensor_from_numpy(thr.sigma_q, dev),
+            step=int(np.asarray(thr.step)),
+            crossed=tensor_from_numpy(thr.crossed, dev)))

@@ -10,13 +10,15 @@ port produces equals the reference bit for bit.
 
 RtN rounds half to even (``torch.round``).  Powers of two are built from
 their bit patterns, never with ``pow``/``exp2``, whose results are not
-guaranteed exact on every device.  ``counter_bits`` (the SR stream of the
-training GEMMs) arrives with the training slice.
+guaranteed exact on every device.  ``counter_bits`` is the reference's
+splitmix32 hash of (seed, flat index), the SR stream of the training GEMMs,
+held bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -138,3 +140,40 @@ def e8m0_floor(x: torch.Tensor) -> torch.Tensor:
     _, k = torch.frexp(x)
     e = torch.clamp(k - 1, -127, 127)
     return pow2(e)
+
+
+M32 = 0xFFFFFFFF
+
+
+def _mul32(z: torch.Tensor, c: int) -> torch.Tensor:
+    """(z * c) mod 2^32 for int64 z in [0, 2^32): the product is split at
+    bit 16 so no partial product reaches int64's sign bit (a full 32 x 32
+    bit product would overflow it)."""
+    lo = (z & 0xFFFF) * c                        # < 2^48
+    hi = ((z >> 16) * c) & 0xFFFF                # only 16 bits survive << 16
+    return (lo + (hi << 16)) & M32
+
+
+def counter_bits(seed: int, shape: Sequence[int],
+                 device=None) -> torch.Tensor:
+    """Counter-based random bits: the splitmix32-style hash of (seed, flat
+    index) of ``repro.core.formats.counter_bits``, bit for bit.
+
+    Computed in int64 holding uint32 values: every product goes through
+    ``_mul32`` (masked to 32 bits) and every value is masked before it is
+    shifted right, since torch's ``>>`` on int64 is arithmetic.  Returns
+    int32 holding the same 32-bit patterns (``uniform_from_bits`` and the
+    kernels read them as uint32)."""
+    n = math.prod(int(d) for d in shape)
+    z = _mul32(torch.arange(n, dtype=torch.int64, device=device), 0x9E3779B9)
+    z = (z + (int(seed) & M32)) & M32
+    z = _mul32(z ^ (z >> 16), 0x85EBCA6B)
+    z = _mul32(z ^ (z >> 13), 0xC2B2AE35)
+    z = z ^ (z >> 16)
+    # second mix round decorrelates consecutive indices fully
+    z = (z + 0x9E3779B9) & M32
+    z = _mul32(z ^ (z >> 15), 0x2C1B3C6D)
+    z = _mul32(z ^ (z >> 12), 0x297A2D39)
+    z = z ^ (z >> 15)
+    z = z - ((z >> 31) << 32)                    # uint32 pattern as int32
+    return z.to(torch.int32).reshape(tuple(int(d) for d in shape))

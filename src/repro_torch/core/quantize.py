@@ -98,10 +98,11 @@ def _tensor_scale(x_abs_max: torch.Tensor, spec: BlockQuantSpec
 
 
 def block_quantize(x: torch.Tensor, spec: BlockQuantSpec, *, axis: int = -1,
-                   u: Optional[torch.Tensor] = None) -> QuantizedTensor:
-    """Quantize x to (codes, scales, tscale) along ``axis``.  SR needs
-    explicit uniforms ``u`` of x's shape; key-driven SR and ``counter_bits``
-    arrive with the training slice."""
+                   u: Optional[torch.Tensor] = None,
+                   seed: Optional[int] = None) -> QuantizedTensor:
+    """Quantize x to (codes, scales, tscale) along ``axis``.  SR takes
+    uniforms ``u`` of x's shape, or draws them from ``counter_bits(seed)``
+    (threefry keys of the reference are not reproducible here)."""
     axis = axis % x.ndim
     orig_dtype = x.dtype
     xf = x.to(torch.float32)
@@ -113,9 +114,11 @@ def block_quantize(x: torch.Tensor, spec: BlockQuantSpec, *, axis: int = -1,
     denom = scales.unsqueeze(baxis) * tscale
     if spec.stochastic:
         if u is None:
-            raise NotImplementedError(
-                "SR without explicit uniforms arrives with the training "
-                "slice (ROADMAP Queue 1: counter_bits)")
+            if seed is None:
+                raise ValueError("stochastic rounding requires uniforms u "
+                                 "or a counter_bits seed")
+            u = formats.uniform_from_bits(
+                formats.counter_bits(seed, x.shape, device=x.device))
         codes = formats.quantize_sr_with_u(
             xb / denom, spec.data,
             _blocked(u.to(torch.float32), axis, spec.block))
@@ -127,9 +130,10 @@ def block_quantize(x: torch.Tensor, spec: BlockQuantSpec, *, axis: int = -1,
 
 
 def fake_quant(x: torch.Tensor, spec: BlockQuantSpec, *, axis: int = -1,
-               u: Optional[torch.Tensor] = None) -> torch.Tensor:
+               u: Optional[torch.Tensor] = None,
+               seed: Optional[int] = None) -> torch.Tensor:
     """Quantize-dequantize in one step."""
-    return block_quantize(x, spec, axis=axis, u=u).dequant()
+    return block_quantize(x, spec, axis=axis, u=u, seed=seed).dequant()
 
 
 # ---- packed storage -------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels (``csrc/``) and their plain PyTorch versions.
 
-  K4 ``fp4_matmul.packed_block_matmul``      every weight GEMM + lm_head
+  K1 ``fp4_matmul.fused_quant_matmul``       every training GEMM (fwd, dX, dW)
+  K4 ``fp4_matmul.packed_block_matmul``      every serving weight GEMM + lm_head
   K6 ``flash_attn.flash_attention_packed``   decode attention, packed cache
   K7 ``flash_attn.flash_attention``          prefill attention
 

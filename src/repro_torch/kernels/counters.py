@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Dict
 
 COUNTS: Dict[str, int] = {
+    "fused_quant_matmul": 0,
     "packed_block_matmul": 0,
     "flash_attention_packed": 0,
     "flash_attention": 0,

@@ -20,7 +20,9 @@
 //     the device -- no host sync; (2) a quantizer, one thread per A block,
 //     writing codes*scale in f32 (exact) to a workspace -- the same order of
 //     operations as the TPU kernel: raw = amax/(6*tsa), scale =
-//     RtN_e4m3(raw) or 1, codes = RtN_e2m1(x/(scale*tsa)); (3) a tiled
+//     RtN_e4m3(raw) or 1, codes = RtN_e2m1(x/(scale*tsa)); (1) and (2) are
+//     fp4::quantize_operand, shared with K1, so any A spec is taken; (3) a
+//     tiled
 //     f32 GEMM that reads each packed B tile once per output tile,
 //     unpacks nibbles and decodes the E4M3 scale bytes in shared memory,
 //     and scales the sum by tsA*tsB at the end.
@@ -32,69 +34,6 @@
 #include "fp4_common.cuh"
 
 namespace {
-
-__device__ __forceinline__ float load_a(const void* a, size_t i, int bf16) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(a)[i])
-              : static_cast<const float*>(a)[i];
-}
-
-__global__ void absmax_kernel(const void* __restrict__ a, int a_bf16,
-                              size_t n, unsigned int* __restrict__ out) {
-  float m = 0.f;
-  for (size_t i = blockIdx.x * size_t(blockDim.x) + threadIdx.x; i < n;
-       i += size_t(gridDim.x) * blockDim.x) {
-    m = fmaxf(m, fabsf(load_a(a, i, a_bf16)));
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  __shared__ float warp_max[32];
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_max[warp] = m;
-  __syncthreads();
-  if (warp == 0) {
-    int nw = blockDim.x >> 5;
-    m = lane < nw ? warp_max[lane] : 0.f;
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    // non-negative floats order like their bit patterns
-    if (lane == 0) atomicMax(out, __float_as_uint(m));
-  }
-}
-
-// One thread per A block of block_a elements along K.
-__global__ void quant_a_kernel(const void* __restrict__ a, int a_bf16,
-                               const uint32_t* __restrict__ rbits,
-                               int n_blocks, int block_a, int e8m0,
-                               int two_level,
-                               const unsigned int* __restrict__ amax_bits,
-                               float* __restrict__ tsa_out,
-                               float* __restrict__ aq) {
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n_blocks) return;
-  float tsa = two_level ? fp4::tensor_scale_from_amax(__uint_as_float(*amax_bits))
-                        : 1.0f;
-  if (idx == 0) *tsa_out = tsa;
-  size_t base = size_t(idx) * block_a;
-  float x[32];
-  float absmax = 0.f;
-  for (int i = 0; i < block_a; ++i) {
-    x[i] = load_a(a, base + i, a_bf16);
-    absmax = fmaxf(absmax, fabsf(x[i]));
-  }
-  const fp4::FmtParams e2m1 = fp4::e2m1_params();
-  float scale = e8m0 ? fp4::e8m0_block_scale(absmax, e2m1.emax)
-                     : fp4::generic_block_scale(absmax, e2m1.max,
-                                                fp4::e4m3_params(), tsa);
-  float denom = __fmul_rn(scale, tsa);
-  for (int i = 0; i < block_a; ++i) {
-    float scaled = __fdiv_rn(x[i], denom);
-    float code = rbits ? fp4::quantize_sr(
-                             scaled, e2m1,
-                             fp4::uniform_from_bits(rbits[base + i]))
-                       : fp4::quantize_rtn(scaled, e2m1);
-    aq[base + i] = __fmul_rn(code, scale);
-  }
-}
 
 template <int BM, int BN, int BK, int RM, int RN>
 __global__ void __launch_bounds__((BM / RM) * (BN / RN))
@@ -177,21 +116,13 @@ extern "C" int fp4_packed_matmul(const void* a, int a_bf16,
                                  const uint8_t* b_packed,
                                  const uint8_t* b_scales, const float* tsb,
                                  const uint32_t* a_rbits, int M, int N, int K,
-                                 int block_a, int block_b, int e8m0,
-                                 int two_level, unsigned int* amax_ws,
-                                 float* tsa_ws, float* aq_ws, void* out,
-                                 int out_bf16, cudaStream_t stream) {
-  if (two_level) {
-    cudaMemsetAsync(amax_ws, 0, sizeof(unsigned int), stream);
-    size_t n = size_t(M) * K;
-    size_t want = (n + 1023) / 1024;
-    int blocks = want < 1024 ? int(want) : 1024;
-    absmax_kernel<<<blocks, 256, 0, stream>>>(a, a_bf16, n, amax_ws);
-  }
-  int n_blocks = M * (K / block_a);
-  quant_a_kernel<<<(n_blocks + 255) / 256, 256, 0, stream>>>(
-      a, a_bf16, a_rbits, n_blocks, block_a, e8m0, two_level, amax_ws,
-      tsa_ws, aq_ws);
+                                 int block_a, int block_b,
+                                 const fp4::QuantParams* qa,
+                                 unsigned int* amax_ws, float* tsa_ws,
+                                 float* aq_ws, void* out, int out_bf16,
+                                 cudaStream_t stream) {
+  fp4::quantize_operand(a, a_bf16, a_rbits, size_t(M), size_t(K), block_a, 0,
+                        *qa, amax_ws, tsa_ws, aq_ws, stream);
   if (M <= 8) {
     constexpr int BM = 8, BN = 16, BK = 64;
     dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);

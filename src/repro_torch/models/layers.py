@@ -1,13 +1,17 @@
-"""Shared neural building blocks (PyTorch), the serving subset.
+"""Shared neural building blocks (PyTorch): the serving and training paths.
 
 Counterpart of ``repro.models.layers``.  Every weight GEMM goes through
-``QCtx.dense`` -> ``fqt.dense`` (the K4 kernel for packed weights); prefill
-attention is the K7 kernel, decode attention over a ``PackedKVCache`` the
-K6 kernel.  KV-cache writes quantize rows with ``kv_quant_rows`` in plain
-PyTorch, as the reference does in jnp, and write them into the
-preallocated cache IN PLACE (``index_copy_``) where JAX returns a new
-array.  The cache length and the (q_offset, kv_len) pair stay device
-tensors, so a decode step never syncs with the host.
+``QCtx.dense`` -> ``fqt.dense``: the K1 kernel in training, the K4 kernel
+for packed serving weights.  Serving prefill attention is the K7 kernel,
+decode attention over a ``PackedKVCache`` the K6 kernel.  Training
+attention (no cache) is ``attention_core``: dense f32 softmax for short
+sequences, else the chunked flash attention with its own backward, both in
+plain PyTorch as the reference has no Pallas kernel there.  KV-cache writes
+quantize rows with ``kv_quant_rows`` in plain PyTorch, as the reference does
+in jnp, and write them into the preallocated cache IN PLACE
+(``index_copy_``) where JAX returns a new array.  The cache length and the
+(q_offset, kv_len) pair stay device tensors, so a decode step never syncs
+with the host.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import fqt
+from repro_torch.core.formats import M32
 from repro_torch.core.fqt import QuantConfig
 from repro_torch.core.quantize import kv_quant_rows
 from repro_torch.kernels.flash_attn import (flash_attention,
@@ -29,14 +34,24 @@ _ROLLING = ("sliding-window (rolling) KV caches arrive with the "
 
 
 class QCtx:
-    """Quantization context of one layer: the static QuantConfig.  (The
-    per-call SR seed stream of the reference is training-only.)"""
+    """Quantization context: the static QuantConfig and a per-call SR seed
+    stream.  A fresh QCtx is made per (layer, step); each ``dense`` call
+    gets its own seed ``seed + n * 40503`` (uint32), in call order, so a
+    recomputed (rematerialised) layer draws the same streams."""
 
-    def __init__(self, qcfg: QuantConfig):
+    def __init__(self, qcfg: QuantConfig, seed: int = 0):
         self.qcfg = qcfg
+        self.seed = int(seed) & M32
+        self._n = 0
+
+    def fold(self, idx: int) -> "QCtx":
+        """Child context for layer/expert ``idx``."""
+        return QCtx(self.qcfg, (self.seed + int(idx) * 2654435761) & M32)
 
     def dense(self, x: torch.Tensor, w, b: Optional[torch.Tensor] = None):
-        return fqt.dense(x, w, b, cfg=self.qcfg)
+        s = (self.seed + self._n * 40503) & M32
+        self._n += 1
+        return fqt.dense(x, w, b, cfg=self.qcfg, seed=s)
 
 
 # ---- initializers -------------------------------------------------------------
@@ -110,14 +125,148 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     return out.to(x.dtype)
 
 
-# ---- attention --------------------------------------------------------------------
+# ---- training attention (plain PyTorch, as the reference's jnp) -----------------
+
+
+def _attn_dense(q, k, v, qpos, kpos, causal, window):
+    """Dense-softmax attention in f32 for short sequences.
+    q: (B, Sq, KVH, G, D); k/v: (B, Sk, KVH, D); *pos: (Sq,)/(Sk,)."""
+    f32 = torch.float32
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.to(f32), k.to(f32)) \
+        * (q.shape[-1] ** -0.5)
+    mask = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
+                      device=q.device)
+    if causal:
+        mask = mask & (kpos[None, :] <= qpos[:, None])
+    if window is not None:
+        mask = mask & (kpos[None, :] > qpos[:, None] - window)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(f32))
+
+
+def _flash_mask(qpch, kp, causal, window):
+    """(nq, qc, kc) mask, broadcast to (B, nq, h, g, q, k)."""
+    mask = torch.ones((qpch.shape[0], qpch.shape[1], kp.shape[0]),
+                      dtype=torch.bool, device=qpch.device)
+    if causal:
+        mask = mask & (kp[None, None, :] <= qpch[:, :, None])
+    if window is not None:
+        mask = mask & (kp[None, None, :] > qpch[:, :, None] - window)
+    return mask[None, :, None, None, :, :]
+
+
+def _dot32(eq, a, b):
+    """einsum of bf16 (or f32) operands with f32 accumulation."""
+    return torch.einsum(eq, a.to(torch.float32), b.to(torch.float32))
+
+
+def _flash_fwd_impl(q, k, v, qpos, kpos, causal, window, qc, kc):
+    """q blocks as a leading dim, kv chunks in a loop with running (max,
+    denom, acc).  Returns (out, m, l) blocked as (B, nq, qc, KVH, G, .)."""
+    B, Sq, KVH, G, D = q.shape
+    nq, nk = Sq // qc, k.shape[1] // kc
+    scale = D ** -0.5
+    qch = q.reshape(B, nq, qc, KVH, G, D)
+    qpch = qpos.reshape(nq, qc)
+    f32 = torch.float32
+    m = torch.full((B, nq, KVH, G, qc), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((B, nq, KVH, G, qc), dtype=f32, device=q.device)
+    acc = torch.zeros((B, nq, qc, KVH, G, D), dtype=f32, device=q.device)
+    for j in range(nk):
+        ki, vi = k[:, j * kc:(j + 1) * kc], v[:, j * kc:(j + 1) * kc]
+        kp = kpos[j * kc:(j + 1) * kc]
+        s = _dot32("bnqhgd,bkhd->bnhgqk", qch, ki) * scale
+        s = torch.where(_flash_mask(qpch, kp, causal, window), s,
+                        torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + torch.sum(p, dim=-1)
+        pv = _dot32("bnhgqk,bkhd->bnqhgd", p.to(ki.dtype), vi)
+        acc = acc * corr.permute(0, 1, 4, 2, 3)[..., None] + pv
+        m = m_new
+    denom = torch.clamp(l, min=1e-30).permute(0, 1, 4, 2, 3)[..., None]
+    return acc / denom, m, l
+
+
+class _AttnFlash(torch.autograd.Function):
+    """The reference's ``custom_vjp`` ``_attn_flash``: the backward
+    recomputes s and p per kv chunk from the saved (q, k, v, out, m, l)
+    (the flash-attention backward, O(B*S*H*D) residuals)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qpos, kpos, causal, window, qc, kc):
+        out, m, l = _flash_fwd_impl(q, k, v, qpos, kpos, causal, window,
+                                    qc, kc)
+        ctx.save_for_backward(q, k, v, qpos, kpos, out, m, l)
+        ctx.cfg = (causal, window, qc, kc)
+        return out.reshape(q.shape)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, qpos, kpos, out, m, l = ctx.saved_tensors
+        causal, window, qc, kc = ctx.cfg
+        B, Sq, KVH, G, D = q.shape
+        Sk = k.shape[1]
+        nq, nk = Sq // qc, Sk // kc
+        scale = D ** -0.5
+        f32 = torch.float32
+        qch = q.reshape(B, nq, qc, KVH, G, D)
+        qpch = qpos.reshape(nq, qc)
+        do = dout.reshape(B, nq, qc, KVH, G, D).to(f32)
+        l_safe = torch.clamp(l, min=1e-30)                   # (B,nq,h,g,qc)
+        dsum = torch.sum(do * out, dim=-1).permute(0, 1, 3, 4, 2)
+        dob = do.to(q.dtype)
+        dq = torch.zeros((B, nq, qc, KVH, G, D), dtype=f32, device=q.device)
+        dks, dvs = [], []
+        for j in range(nk):
+            ki, vi = k[:, j * kc:(j + 1) * kc], v[:, j * kc:(j + 1) * kc]
+            kp = kpos[j * kc:(j + 1) * kc]
+            s = _dot32("bnqhgd,bkhd->bnhgqk", qch, ki) * scale
+            s = torch.where(_flash_mask(qpch, kp, causal, window), s,
+                            torch.full_like(s, NEG_INF))
+            p = torch.exp(s - m[..., None]) / l_safe[..., None]
+            pb = p.to(q.dtype)
+            dvs.append(_dot32("bnhgqk,bnqhgd->bkhd", pb, dob))
+            dp = _dot32("bnqhgd,bkhd->bnhgqk", dob, vi)
+            dsb = (p * (dp - dsum[..., None]) * scale).to(q.dtype)
+            dq = dq + _dot32("bnhgqk,bkhd->bnqhgd", dsb, ki)
+            dks.append(_dot32("bnhgqk,bnqhgd->bkhd", dsb, qch))
+        dq = dq.reshape(B, Sq, KVH, G, D).to(q.dtype)
+        dk = torch.cat(dks, dim=1).to(k.dtype)
+        dv = torch.cat(dvs, dim=1).to(v.dtype)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   causal: bool = True,
-                   window: Optional[int] = None) -> torch.Tensor:
-    """GQA attention of a fresh sequence (positions 0..S-1): the K7 kernel.
-    q: (B, Sq, H, D), k/v: (B, Sk, KVH, D).
+                   qpos: torch.Tensor, kpos: torch.Tensor,
+                   causal: bool = True, window: Optional[int] = None,
+                   chunk: int = 1024) -> torch.Tensor:
+    """GQA training attention.  q: (B, Sq, H, D), k/v: (B, Sk, KVH, D).
+    Dense f32 softmax when Sq * Sk <= chunk^2 (or the lengths do not tile),
+    else the chunked flash attention; the reference's dispatch."""
+    B, Sq, H, D = q.shape
+    KVH = k.shape[2]
+    qg = q.reshape(B, Sq, KVH, H // KVH, D)
+    Sk = k.shape[1]
+    if Sq * Sk <= chunk * chunk or Sq % min(chunk, Sq) != 0 \
+            or Sk % chunk != 0:
+        o = _attn_dense(qg, k, v, qpos, kpos, causal, window)
+    else:
+        o = _AttnFlash.apply(qg, k, v, qpos, kpos, causal, window,
+                             min(chunk, Sq), chunk)
+    return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
+# ---- serving attention ----------------------------------------------------------
+
+
+def _attn_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """Attention of a fresh prompt (positions 0..S-1) into a cache: the K7
+    kernel.  q: (B, Sq, H, D), k/v: (B, Sk, KVH, D).
 
     The reference's serving prefill keeps p in f32 (``_attn_dense``), so
     K7 gets f32 operands (the bf16 upcast is exact) and then has no
@@ -132,24 +281,16 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _attn_decode_dense(q, k, v, pos, *, causal, window) -> torch.Tensor:
-    """Decode read of a bf16 cache: dense f32 softmax with the kv_len and
-    causal masks (the jnp ``_attn_dense`` of the reference, no kernel)."""
+    """Decode read of a bf16 cache: the dense f32 softmax with the kv_len
+    and causal masks (the jnp ``_attn_dense`` of the reference, no
+    kernel); rows at or past kv_len get a key position above any query."""
     B, Sq, H, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     qpos = pos[0] + torch.arange(Sq, dtype=torch.int32, device=q.device)
     kpos = torch.arange(Sk, dtype=torch.int32, device=q.device)
     kpos = torch.where(kpos < pos[1], kpos, torch.full_like(kpos, 2 ** 30))
-    qg = q.reshape(B, Sq, KVH, H // KVH, D).to(torch.float32)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(torch.float32)) \
-        * (D ** -0.5)
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = mask & (kpos[None, :] <= qpos[:, None])
-    if window is not None:
-        mask = mask & (kpos[None, :] > qpos[:, None] - window)
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
+    o = _attn_dense(q.reshape(B, Sq, KVH, H // KVH, D), k, v, qpos, kpos,
+                    causal, window)
     return o.reshape(B, Sq, H, D).to(q.dtype)
 
 
@@ -277,15 +418,16 @@ def _write_cache(cache, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def attn_apply(p, x: torch.Tensor, ctx: QCtx, *, n_heads: int, n_kv: int,
                hd: int, rope_theta: float, causal: bool = True,
-               window: Optional[int] = None, cache=None,
+               window: Optional[int] = None, chunk: int = 1024, cache=None,
                norm_eps: float = 1e-5):
     """Self-attention with an optional KV cache update (updated in place).
 
-    With a cache, x is the NEW tokens written at [cache.length,
-    cache.length + S): prefill (S > 1, from an empty cache) attends within
-    the fresh sequence through K7; decode (S == 1) attends the cache --
-    K6 for a ``PackedKVCache``, a dense read for the bf16 cache.
-    Returns (out, cache)."""
+    Without a cache (training) the sequence attends itself through
+    ``attention_core``.  With a cache, x is the NEW tokens written at
+    [cache.length, cache.length + S): prefill (S > 1, from an empty cache)
+    attends within the fresh sequence through K7; decode (S == 1) attends
+    the cache -- K6 for a ``PackedKVCache``, a dense read for the bf16
+    cache.  Returns (out, cache)."""
     B, S, _ = x.shape
     q = ctx.dense(x, p["wq"], p.get("bq")).reshape(B, S, n_heads, hd)
     k = ctx.dense(x, p["wk"], p.get("bk")).reshape(B, S, n_kv, hd)
@@ -300,12 +442,14 @@ def attn_apply(p, x: torch.Tensor, ctx: QCtx, *, n_heads: int, n_kv: int,
     q = apply_rope(q, cos[None], sin[None])
     k = apply_rope(k, cos[None], sin[None])
 
-    if cache is None or S > 1:
-        if cache is not None:
-            if window is not None:
-                raise NotImplementedError(_ROLLING)
-            _write_cache(cache, k, v)
-        o = attention_core(q, k, v, causal=causal, window=window)
+    if cache is None:
+        o = attention_core(q, k, v, qpos=positions, kpos=positions,
+                           causal=causal, window=window, chunk=chunk)
+    elif S > 1:
+        if window is not None:
+            raise NotImplementedError(_ROLLING)
+        _write_cache(cache, k, v)
+        o = _attn_prefill(q, k, v, causal=causal, window=window)
     else:
         if window is not None:
             raise NotImplementedError(_ROLLING)

@@ -1,6 +1,8 @@
-"""Uniform model API (PyTorch), the dense family of slice 1.
+"""Uniform model API (PyTorch), the dense family.
 
   init_params(cfg, seed=..., device=...)          -> params
+  loss_fn(params, cfg, qcfg, batch, seed, remat)  -> (loss, aux)
+  forward(params, cfg, qcfg, batch, seed, remat)  -> (logits, aux)
   make_decode_state(cfg, batch, max_len, ...)     -> per-layer caches
   prefill(params, cfg, qcfg, tokens, carry)       -> (last logits, carry)
   decode_step(params, cfg, qcfg, tokens, carry)   -> (logits, carry)
@@ -25,7 +27,7 @@ def _dense_only(cfg: ModelConfig):
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} arrives with the breadth families "
-            f"(ROADMAP Queue 1); slice 1 serves the dense family")
+            f"(ROADMAP Queue 1); the port runs the dense family")
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
@@ -39,6 +41,22 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
     return transformer.init(cfg, generator, dtype, device=dev)
+
+
+def loss_fn(params, cfg: ModelConfig, qcfg: QuantConfig, batch, *,
+            seed: int = 0, remat: bool = True):
+    """Next-token cross-entropy of ``batch["tokens"]``: (loss, aux)."""
+    _dense_only(cfg)
+    return transformer.loss_fn(params, cfg, qcfg, batch, seed=seed,
+                               remat=remat)
+
+
+def forward(params, cfg: ModelConfig, qcfg: QuantConfig, batch, *,
+            seed: int = 0, remat: bool = False):
+    """Full-sequence logits of ``batch["tokens"]``: (logits, aux)."""
+    _dense_only(cfg)
+    return transformer.forward(params, cfg, qcfg, batch["tokens"],
+                               seed=seed, remat=remat)
 
 
 def make_decode_state(cfg: ModelConfig, batch: int, max_len: int,
