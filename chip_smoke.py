@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU: serve and
-train.
+"""Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU: serve
+(lockstep and continuous batching) and train.
 
     python3 chip_smoke.py                    # every phase, one CUDA card
     python3 chip_smoke.py --phases env,kernels
@@ -19,6 +19,18 @@ Phases, each printing JSON lines; any failure exits non-zero:
            have run the expected number of times.  Outputs are checked for
            range and finiteness, and the same Engine at smoke size on the
            card is held to the plain versions on the CPU.
+  serve_continuous
+           the ContinuousEngine: (a) at smoke size on the card held to the
+           same engine on the CPU's plain versions (prefix cache + chunked
+           prefill, and speculative verify-k); (b) llama2-7b at full width
+           and depth from random packed NVFP4 weights over a paged nvfp4
+           KV pool, as two runs of 16 requests (2 arriving per tick, 32
+           new tokens each, greedy, no EOS): run A with the shared-prefix
+           cache and 64-token chunked prefill, run B with cold prefills
+           (K7) and speculative verify-k (k = 4, 16-layer draft).  The
+           launch counts are zeroed just before each run and must equal
+           the counts derived from the engine's program calls, which in
+           turn must agree with the scheduler's own records.
   train    one llama2-60m smoke train step (nvfp4_paper_config) on the
            card held to the same step on the CPU's plain versions (loss,
            per-leaf grads, parameter updates), the SR streams held bit for
@@ -50,7 +62,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PHASES = ("env", "kernels", "serve", "train", "times")
+PHASES = ("env", "kernels", "serve", "serve_continuous", "train", "times")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core peak
 SEED = 0
@@ -61,12 +73,35 @@ SEED = 0
 K4_WEIGHTS = ((4096, 4096, 4 * 32), (4096, 11008, 2 * 32), (11008, 4096, 32),
               (4096, 32000, 1))
 K4_SHAPES = tuple((m, k, n) for m in (4, 256) for k, n, _ in K4_WEIGHTS)
+# K4 on the continuous path: M = 1 (lm_head of a prefill program's last
+# prompt token), M = 8 (8-slot decode and the draft's steps), M = 32 (verify,
+# 8 slots x k = 4), M = 64 (suffix and chunk prefill, prefill_chunk 64) and
+# M = 192 (run B's cold-prefill pad); prefills apply no lm_head to the pad.
+K4_CONT_SHAPES = ((1, 4096, 32000),) + tuple(
+    (m, k, n) for m in (8, 32) for k, n, _ in K4_WEIGHTS) + tuple(
+    (m, k, n) for m in (64, 192) for k, n, _ in K4_WEIGHTS[:3])
 K6_CASES = (  # (B, H, KVH, D, Sk, kv_len): llama2-7b, then tinyllama (G = 8)
     (4, 32, 32, 128, 256, 65), (4, 32, 32, 128, 256, 80),
     (4, 32, 32, 128, 256, 96), (4, 32, 4, 64, 256, 96))
+# K5 at the continuous path's shapes: (label, B, Sq, H, KVH, D, page, pages,
+# per-slot lengths, q_offsets ("last": length - Sq), window).  The decode,
+# verify and window cases give one slot length 0 (an empty slot); the page
+# tables are shuffled and point every page past a slot's length at the trash
+# page, as the engine's do.
+K5_LENS = (0, 1, 17, 100, 256, 333, 497, 512)
+K5_CASES = (
+    ("decode", 8, 1, 32, 32, 128, 16, 32, K5_LENS, "last", None),
+    ("verify", 8, 4, 32, 32, 128, 16, 32, (0, 4, 20, 100, 256, 333, 497,
+                                           512), "last", None),
+    ("suffix", 1, 64, 32, 32, 128, 16, 32, (150,), (128,), None),
+    ("decode GQA", 8, 1, 32, 4, 64, 16, 32, K5_LENS, "last", None),
+    ("window", 8, 1, 32, 32, 128, 16, 8, (0, 5, 100, 128, 129, 200, 255,
+                                          300), "last", 100),
+)
 K7_CASES = (  # (B, S, H, KVH, D, dtype name)
     (4, 64, 32, 32, 128, "float32"), (4, 64, 32, 32, 128, "bfloat16"),
-    (4, 64, 32, 4, 64, "bfloat16"))
+    (4, 64, 32, 4, 64, "bfloat16"),
+    (1, 192, 32, 32, 128, "float32"))      # run B's cold prefill-into-slot
 # K1 on llama2-7b's training GEMMs at M = 4096 tokens (batch 4 x seq 1024):
 # (label, M, K, N, spec, SR on A, SR on B, input scale of A, of B) -- the
 # forward z = x @ W (RtN both), the backward dX = g @ W^T (SR on g) and the
@@ -159,6 +194,38 @@ def k6_inputs(B, H, KVH, D, Sk, kv_len, q_dtype, dev, fmt="nvfp4",
     return q, kc, ks, vc, vs, pos
 
 
+def k5_inputs(B, Sq, H, KVH, D, psz, n_pages, lengths, q_offsets, window,
+              fmt, q_dtype, dev, seed=SEED):
+    """q, the K/V page pools, a shuffled page table (pages past a linear
+    slot's length -> the trash page), kv_len (clamped to the slot buffer)
+    and q_offsets, all on ``dev``."""
+    import torch
+    from repro_torch.core.quantize import kv_quant_rows
+    from repro_torch.models.layers import TRASH_PAGE
+    g = gen(dev, seed)
+    P = 1 + B * n_pages
+    q = torch.randn((B, Sq, H, D), generator=g, device=dev).to(q_dtype)
+    kv = torch.randn((2, P, psz, KVH, D), generator=g, device=dev
+                     ).to(torch.bfloat16)
+    if fmt == "bf16":
+        ones = torch.ones((P, psz, KVH, 1), dtype=torch.bfloat16, device=dev)
+        pools = (kv[0].contiguous(), ones, kv[1].contiguous(), ones.clone())
+    else:
+        pools = kv_quant_rows(kv[0], fmt) + kv_quant_rows(kv[1], fmt)
+    perm = torch.randperm(P - 1, generator=gen("cpu", seed)) + 1
+    table = perm.reshape(B, n_pages).to(torch.int32)
+    buf = psz * n_pages
+    for b, n in enumerate(lengths):
+        if window is None:
+            table[b, -(-min(n, buf) // psz):] = TRASH_PAGE
+    kv_len = torch.tensor([min(n, buf) for n in lengths], dtype=torch.int32)
+    if q_offsets == "last":
+        q_offsets = [max(n - Sq, 0) for n in lengths]
+    q_off = torch.tensor(q_offsets, dtype=torch.int32)
+    return (q,) + tuple(pools) + (table.to(dev), kv_len.to(dev),
+                                  q_off.to(dev))
+
+
 def k7_inputs(B, S, H, KVH, D, dtype, dev, seed=SEED):
     import torch
     g = gen(dev, seed)
@@ -219,8 +286,8 @@ def phase_kernels(dev) -> dict:
     from repro_torch.core.quantize import NVFP4
     from repro_torch.kernels import flash_attn as fa
     from repro_torch.kernels import fp4_matmul as fm
-    worst = {fm.FUSED_NAME: 0.0, fm.NAME: 0.0, fa.PACKED_NAME: 0.0,
-             fa.DENSE_NAME: 0.0}
+    worst = {fm.FUSED_NAME: 0.0, fm.NAME: 0.0, fa.PAGED_NAME: 0.0,
+             fa.PACKED_NAME: 0.0, fa.DENSE_NAME: 0.0}
     failures = []
 
     def check(name, case, got, want):
@@ -245,7 +312,7 @@ def phase_kernels(dev) -> dict:
                   got, want)
         del a, b, ra, rb, got, want
 
-    for M, K, N in K4_SHAPES:
+    for M, K, N in K4_SHAPES + K4_CONT_SHAPES:
         a, w = k4_inputs(M, K, N, dev)
         for out_dtype in (torch.float32, torch.bfloat16):
             got = fm.packed_matmul(a, w, NVFP4, out_dtype=out_dtype)
@@ -268,6 +335,20 @@ def phase_kernels(dev) -> dict:
                 check(fa.PACKED_NAME,
                       f"B={B} H={H} KVH={KVH} D={D} Sk={Sk} kv_len={kv_len} "
                       f"{fmt} q {str(q_dtype)[6:]}", got, want)
+    for label, B, Sq, H, KVH, D, psz, npg, lens, qo, window in K5_CASES:
+        for fmt in ("nvfp4", "fp8", "bf16"):
+            for q_dtype in (torch.float32, torch.bfloat16):
+                args = k5_inputs(B, Sq, H, KVH, D, psz, npg, lens, qo,
+                                 window, fmt, q_dtype, dev)
+                got = fa.flash_attention_paged(*args, fmt=fmt, window=window)
+                want = fa.flash_attention_paged_plain(*args, fmt=fmt,
+                                                      window=window)
+                torch.cuda.synchronize(dev)
+                check(fa.PAGED_NAME,
+                      f"{label} B={B} Sq={Sq} H={H} KVH={KVH} D={D} "
+                      f"pages={npg}x{psz} {fmt} q {str(q_dtype)[6:]}",
+                      got, want)
+                del args, got, want
     for B, S, H, KVH, D, dt in K7_CASES:
         q, k, v = k7_inputs(B, S, H, KVH, D, getattr(torch, dt), dev)
         got = fa.flash_attention(q, k, v, causal=True)
@@ -346,6 +427,7 @@ def phase_serve(dev, batch=4, prompt_len=64, max_new=32, max_len=256):
     gemms = 7 * cfg.n_layers + 1          # q k v o gate up down, + lm_head
     want = {"fused_quant_matmul": 0,
             "packed_block_matmul": gemms * (1 + steps),
+            "flash_attention_paged": 0,
             "flash_attention": cfg.n_layers,
             "flash_attention_packed": cfg.n_layers * steps}
     ntok = sum(len(o) for o in out)
@@ -413,6 +495,249 @@ def serve_breakdown(eng, prompts, dev, steps=8) -> dict:
     return out
 
 
+# ---- continuous batching --------------------------------------------------------
+
+PROGRAMS = ("_prefill", "_prefill_suffix", "_prefill_chunk", "_decode",
+            "_verify")
+
+
+class ProgramLog:
+    """Counts and times (CUDA events, read after the run: no extra host
+    sync) the engine's five device programs by wrapping its methods.  Once
+    ``profile`` is set to (method, first call, calls), torch.profiler
+    records that many consecutive calls of the method into ``breakdown``."""
+
+    def __init__(self, eng):
+        import torch
+        self.calls = {n: 0 for n in PROGRAMS}
+        self.events = {n: [] for n in PROGRAMS}
+        self.profile = None               # (method, first call, calls)
+        self.breakdown = None
+        for name in PROGRAMS:
+            setattr(eng, name, self._wrap(name, getattr(eng, name), torch))
+
+    def _wrap(self, name, fn, torch):
+        def run(*a, **kw):
+            i = self.calls[name]
+            self.calls[name] += 1
+            prof = self.profile
+            if prof and prof[0] == name and i == prof[1]:
+                self._start(torch)
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = fn(*a, **kw)
+            e.record()
+            self.events[name].append((s, e))
+            if prof and prof[0] == name and i == prof[1] + prof[2] - 1:
+                self._stop(torch)
+            return out
+        return run
+
+    def _start(self, torch):
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        self._prof = profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA])
+        self._prof.__enter__()
+        self._t0 = time.perf_counter()
+
+    def _stop(self, torch):
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - self._t0) * 1e3
+        self._prof.__exit__(None, None, None)
+        name, first, n = self.profile
+        self.breakdown = {"profiled": f"{name} calls {first}..{first + n - 1}",
+                          "profiled_wall_ms": wall_ms,
+                          **device_time(self._prof, wall_ms, top=10)}
+
+    def ms(self) -> dict:
+        """{program: (median ms per call, total ms)} from the CUDA events."""
+        import torch
+        torch.cuda.synchronize()
+        out = {}
+        for n, ev in self.events.items():
+            if ev:
+                t = [s.elapsed_time(e) for s, e in ev]
+                out[n] = (statistics.median(t), sum(t))
+        return out
+
+
+def expected_launches(cfg, calls, draft_layers=0, spec_k=0) -> dict:
+    """Each kernel's launches from the engine's program calls: every GEMM of
+    every program is K4 (7 per layer, + lm_head where a program samples);
+    K5 reads the paged cache in decode, verify (and the draft's k - 1
+    decode steps), suffix and chunk prefill; K7 is cold prefill-into-slot
+    attention."""
+    L = cfg.n_layers
+    head = calls["_prefill"] + calls["_prefill_suffix"] + calls["_decode"] \
+        + calls["_verify"]
+    draft_steps = (spec_k - 1) * calls["_verify"]
+    return {"fused_quant_matmul": 0,
+            "packed_block_matmul": 7 * L * (head + calls["_prefill_chunk"])
+            + head + (7 * draft_layers + 1) * draft_steps,
+            "flash_attention_paged": L * (calls["_decode"] + calls["_verify"]
+                                          + calls["_prefill_suffix"]
+                                          + calls["_prefill_chunk"])
+            + draft_layers * draft_steps,
+            "flash_attention_packed": 0,
+            "flash_attention": L * calls["_prefill"]}
+
+
+def continuous_requests(vocab, n=16, shared=128, lens=(64, 192), max_new=32,
+                        seed=SEED):
+    """n requests, two arriving per tick: one shared ``shared``-token prefix
+    (0 for none) and a private part of lens[0]..lens[1] tokens."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    pre = rng.integers(0, vocab, shared)
+    return [Request(rid=i, prompt=np.concatenate(
+        [pre, rng.integers(0, vocab, int(rng.integers(lens[0],
+                                                      lens[1] + 1)))]
+    ).astype(np.int32), max_new=max_new, arrival=i // 2) for i in range(n)]
+
+
+def phase_serve_continuous(dev) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import counters
+    from repro_torch.models import registry
+    from repro_torch.serve import ContinuousEngine, ServeConfig
+
+    # (a) the same ContinuousEngine at smoke size: card (kernels) vs CPU
+    small = get_config("llama2-7b").smoke()
+    p_cpu = registry.init_params(small, seed=SEED, device="cpu")
+    for label, extra, shared in (
+            ("prefix cache + chunked prefill",
+             dict(prefix_cache=True, prefill_chunk=16), 32),
+            ("speculative verify-k", dict(spec_k=4), 0)):
+        scfg = ServeConfig(max_slots=4, max_len=128, page_size=16,
+                           decode_chunk=4, eos_id=-1, **extra)
+        reqs = continuous_requests(small.vocab_size, n=6, shared=shared,
+                                   lens=(8, 40), max_new=12)
+        ref = ContinuousEngine(small, p_cpu, scfg, device="cpu")
+        want = ref.run(reqs)
+        card = ContinuousEngine(small, p_cpu, scfg, device=dev).run(reqs)
+        checks = {r: _first_divergence_ok(card[r].tolist(), want[r].tolist(),
+                                          ref.margins[r]) for r in want}
+        emit({"phase": "serve_continuous", "check": "smoke-size card vs CPU "
+              "plain", "case": label, "arch": small.name,
+              "streams_ok": [c[0] for c in checks.values()],
+              "first_divergence": [c[1] for c in checks.values()]})
+        if sorted(card) != sorted(want) or \
+                not all(c[0] for c in checks.values()):
+            raise AssertionError(f"{label}: card and CPU streams differ at a "
+                                 f"decisive step")
+
+    # (b) llama2-7b at full width and depth
+    cfg = get_config("llama2-7b")
+    t0 = time.perf_counter()
+    params = registry.init_params(cfg, seed=SEED, device=dev)
+    base = dict(max_slots=8, max_len=512, page_size=16,
+                kv_cache_format="nvfp4", decode_chunk=8, eos_id=-1)
+    engines = {
+        "A": ContinuousEngine(cfg, params, ServeConfig(
+            **base, prefix_cache=True, prefill_chunk=64), device=dev),
+        "B": ContinuousEngine(cfg, params, ServeConfig(**base, spec_k=4),
+                              device=dev)}
+    del params
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    runs = {"A": continuous_requests(cfg.vocab_size),
+            "B": continuous_requests(cfg.vocab_size, shared=0)}
+    out = {"setup_s": setup_s, "launches": {k: 0 for k in counters.COUNTS}}
+    for name in ("A", "B"):
+        eng = engines.pop(name)
+        reqs = runs[name]
+        log = ProgramLog(eng)
+        torch.cuda.reset_peak_memory_stats(dev)
+        counters.reset()
+        t0 = time.perf_counter()
+        res = eng.run(reqs)
+        torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        launches = counters.snapshot()
+        calls = dict(log.calls)
+        sched, st = eng.scheduler, eng.scheduler.stats
+        want = expected_launches(cfg, calls, eng.draft_layers,
+                                 eng.scfg.spec_k or 0)
+        # the program calls as the scheduler's records count them: every
+        # admission's last prefill chunk (or its whole prompt) is one suffix
+        # (A) or cold (B) prefill, the other logged chunks are chunk calls,
+        # and each tick adds its decode steps (A) or its one verify (B)
+        sched_calls = ({"_prefill_chunk": len(sched.prefill_log)
+                        - st["admitted"], "_prefill_suffix": st["admitted"],
+                        "_decode": st["decode_steps"]} if name == "A" else
+                       {"_prefill": st["admitted"],
+                        "_verify": st["decode_steps"]})
+        summary = eng.metrics.summary()
+        ntok = sum(len(v) for v in res.values())
+        margins = np.concatenate([eng.margins[r] for r in res])
+        toks = np.concatenate([res[r] for r in res])
+        prog_ms = log.ms()
+        info = {"phase": "serve_continuous", "run": name, "arch": cfg.name,
+                "config": {k: getattr(eng.scfg, k) for k in (
+                    "max_slots", "max_len", "page_size", "kv_cache_format",
+                    "decode_chunk", "prefix_cache", "prefill_chunk",
+                    "spec_k")}, "draft_layers": eng.draft_layers,
+                "requests": len(reqs), "completed": st["completed"],
+                "tokens": ntok, "seconds": dt, "tokens_per_s": ntok / dt,
+                "ticks": summary["ticks"],
+                "wall_ms_per_tick": dt * 1e3 / summary["ticks"],
+                "program_calls": calls,
+                "program_ms_median": {k: v[0] for k, v in prog_ms.items()},
+                "program_ms_total": {k: v[1] for k, v in prog_ms.items()},
+                "ttft_ticks": summary["ttft_ticks"],
+                "tpot_ticks": summary["tpot_ticks"],
+                "prefix_hit_rate": sched.prefix_hit_rate,
+                "prefix_tokens_skipped": st["prefix_tokens_skipped"],
+                "preemptions": st["preemptions"],
+                "spec_accepted_per_tick_slot":
+                    summary.get("spec_accepted_per_tick_slot"),
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+                "kv_pool_bytes": sum(c.nbytes() for c in eng._carry),
+                "launches": launches, "expected_launches": want,
+                "scheduler_calls": sched_calls,
+                "first_tokens": [res[r][:8].tolist() for r in sorted(res)[:4]]}
+        # the device idle share, from a second, shorter run (8 other
+        # requests) in which the profiler records 8 consecutive decode calls
+        # (a tick of run A) or one verify call (a tick of run B) once every
+        # request has arrived: the profiler's cost stays out of the numbers
+        # above
+        prog, first, n = ("_decode", 8, 8) if name == "A" else ("_verify", 4,
+                                                                 1)
+        log.profile = (prog, calls[prog] + first, n)
+        eng.run(continuous_requests(cfg.vocab_size, n=8,
+                                    shared=128 if name == "A" else 0,
+                                    max_new=16, seed=SEED + 1))
+        if log.breakdown is None:
+            raise AssertionError(f"run {name}: the profiled run made too few "
+                                 f"{prog} calls")
+        info["breakdown"] = log.breakdown
+        emit(info)
+        out[name] = info
+        for k, v in launches.items():
+            out["launches"][k] += v
+        if launches != want:
+            raise AssertionError(f"run {name}: launch counts {launches} != "
+                                 f"{want}")
+        if any(calls[k] != v for k, v in sched_calls.items()):
+            raise AssertionError(f"run {name}: program calls {calls} "
+                                 f"disagree with the scheduler {sched_calls}")
+        if sorted(res) != [r.rid for r in reqs] or \
+                any(len(v) != 32 for v in res.values()):
+            raise AssertionError(f"run {name}: wrong outputs")
+        if ((toks < 0) | (toks >= cfg.vocab_size)).any():
+            raise AssertionError("token id outside the vocabulary")
+        if not np.isfinite(margins).all():
+            raise AssertionError("non-finite logits")
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
 def device_time(prof, wall_ms, top=15) -> dict:
     """Device busy time of a torch.profiler run: the union of the intervals
     of its device-side events (kernels, copies, sets; CUPTI's "Command
@@ -427,7 +752,8 @@ def device_time(prof, wall_ms, top=15) -> dict:
             continue
         t0, t1 = e.time_range.start, e.time_range.end      # microseconds
         spans.append((t0, t1))
-        by_name[e.name] = by_name.get(e.name, 0.0) + (t1 - t0) / 1e3
+        name = e.name if len(e.name) <= 100 else e.name[:97] + "..."
+        by_name[name] = by_name.get(name, 0.0) + (t1 - t0) / 1e3
     busy, end = 0.0, float("-inf")
     for t0, t1 in sorted(spans):
         if t1 > end:
@@ -671,7 +997,7 @@ def phase_times(dev) -> dict:
         return r
 
     with torch.no_grad():
-        for M, K, N in K4_SHAPES:
+        for M, K, N in K4_SHAPES + K4_CONT_SHAPES:
             a, w = k4_inputs(M, K, N, dev)
             wd = w.dequant()                        # bf16 (K, N), yardstick
             nbytes = M * K * 2 + K * N // 2 + K // 16 * N + 4 + M * N * 2
@@ -700,6 +1026,31 @@ def phase_times(dev) -> dict:
                                                            pos),
                    lambda: F.scaled_dot_product_attention(qt, kt, vt),
                    nbytes, 4 * B * H * kv_len * D)
+        # K5 at run A's decode shape: 8 slots of 256 cached tokens, nvfp4
+        B, H, D, psz, npg, kv_len = 8, 32, 128, 16, 32, 256
+        q, kc, ks, vc, vs, pt, kl, qo = k5_inputs(
+            B, 1, H, H, D, psz, npg, (kv_len,) * B, "last", None, "nvfp4",
+            torch.bfloat16, dev)
+        read = pt[:, :kv_len // psz].long()       # the pages that are read
+        kd = kv_dequant(kc[read].reshape(B, kv_len, H, D // 2),
+                        ks[read].reshape(B, kv_len, H, D // 16), "nvfp4")
+        vd = kv_dequant(vc[read].reshape(B, kv_len, H, D // 2),
+                        vs[read].reshape(B, kv_len, H, D // 16), "nvfp4")
+        kt, vt = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2
+                                                               ).contiguous()
+        qt = q.transpose(1, 2)
+        # q and out in bf16, the K/V rows below kv_len (codes + scales), the
+        # page table's read rows and the two int32 vectors
+        nbytes = (2 * B * H * D * 2 + 2 * B * kv_len * H * (D // 2 + D // 16)
+                  + B * (kv_len // psz) * 4 + 2 * B * 4)
+        record(fa.PAGED_NAME, (B, H, H, D, kv_len, "nvfp4"),
+               lambda: fa.flash_attention_paged(q, kc, ks, vc, vs, pt, kl,
+                                                qo),
+               lambda: fa.flash_attention_paged_plain(q, kc, ks, vc, vs, pt,
+                                                      kl, qo),
+               lambda: F.scaled_dot_product_attention(qt, kt, vt),
+               nbytes, 4 * B * H * kv_len * D)
+        del q, kc, ks, vc, vs, kd, vd, kt, vt
         for B, S, H, KVH, D, dt in K7_CASES:
             q, k, v = k7_inputs(B, S, H, KVH, D, getattr(torch, dt), dev)
             G = H // KVH
@@ -742,8 +1093,9 @@ def phase_times(dev) -> dict:
 
 
 # the representative case of each kernel in the summary line: the launch the
-# main path makes most often (K4: decode, wq/wk/wv/wo; K6: decode at the
-# middle of the run; K7: prefill, f32 operands as attention_core passes them)
+# main path makes most often (K4: decode, wq/wk/wv/wo; K5: run A's decode;
+# K6: decode at the middle of the run; K7: prefill, f32 operands as
+# attention_core passes them)
 SUMMARY = {
     "fused_quant_matmul": (("fwd", 4096, 4096, 4096), "cuda",
                            "src/repro_torch/kernels/csrc/fused_quant_matmul.cu",
@@ -751,6 +1103,10 @@ SUMMARY = {
     "packed_block_matmul": ((4, 4096, 4096), "cuda",
                             "src/repro_torch/kernels/csrc/fp4_matmul.cu",
                             "src/repro/kernels/fp4_matmul.py:309"),
+    "flash_attention_paged": ((8, 32, 32, 128, 256, "nvfp4"), "cuda",
+                              "src/repro_torch/kernels/csrc/"
+                              "flash_attn_paged.cu",
+                              "src/repro/kernels/flash_attn.py:417"),
     "flash_attention_packed": ((4, 32, 32, 128, 256, 80), "cuda",
                                "src/repro_torch/kernels/csrc/flash_attn.cu",
                                "src/repro/kernels/flash_attn.py:255"),
@@ -781,14 +1137,19 @@ def main(argv=None) -> int:
     for p in phases:
         t0 = time.perf_counter()
         results[p] = {"env": phase_env, "kernels": phase_kernels,
-                      "serve": phase_serve, "train": phase_train,
-                      "times": phase_times}[p](dev)
+                      "serve": phase_serve,
+                      "serve_continuous": phase_serve_continuous,
+                      "train": phase_train, "times": phase_times}[p](dev)
         emit({"phase": p, "done": True,
               "seconds": round(time.perf_counter() - t0, 3)})
     print(card_line(), flush=True)
-    if {"kernels", "serve", "train", "times"} <= set(phases):
-        # each kernel's launches on the main path that runs it
+    if set(PHASES) - {"env"} <= set(phases):
+        # each kernel's launches on the main path that runs it: K4, K6, K7
+        # in the lockstep serve, K5 over runs A and B of the continuous
+        # engine, K1 in training
         launches = dict(results["serve"]["launches"])
+        launches["flash_attention_paged"] = \
+            results["serve_continuous"]["launches"]["flash_attention_paged"]
         launches["fused_quant_matmul"] = \
             results["train"]["launches"]["fused_quant_matmul"]
         line = []

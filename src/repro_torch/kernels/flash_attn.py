@@ -1,15 +1,22 @@
-"""K6 ``flash_attention_packed`` and K7 ``flash_attention``.
+"""K5 ``flash_attention_paged``, K6 ``flash_attention_packed`` and K7
+``flash_attention``.
 
-K6 is decode attention over the contiguous block-quantized KV cache
-(``PackedKVCache``); K7 is bf16 prefill attention.  They replace the TPU
-kernels ``repro/kernels/flash_attn.py::flash_attention_packed`` and
-``::flash_attention``; the CUDA source is ``csrc/flash_attn.cu``.  Each
-wrapper launches its kernel on CUDA tensors and takes its plain PyTorch
-version only for CPU tensors.
+K5 is attention over the PAGED block-quantized KV pool of continuous
+batching (``PagedKVCache``), read through a page table with per-slot
+(q_offset, kv_len); K6 is decode attention over the contiguous
+block-quantized KV cache (``PackedKVCache``); K7 is bf16 prefill attention.
+They replace the TPU kernels ``repro/kernels/flash_attn.py::
+flash_attention_paged``, ``::flash_attention_packed`` and
+``::flash_attention``; the CUDA sources are ``csrc/flash_attn_paged.cu``
+(K5) and ``csrc/flash_attn.cu`` (K6, K7).  Each wrapper launches its kernel
+on CUDA tensors and takes its plain PyTorch version only for CPU tensors.
 
-The plain versions run the same online softmax over the same 32-key tiles
-as the kernels (``TILE_KV``), so the kernel's p rounding (K7 rounds p to
-V's dtype before the pv product) happens against the same running max.
+The plain versions of K6 and K7 run the same online softmax over the same
+32-key tiles as the kernels (``TILE_KV``), so the kernel's p rounding (K7
+rounds p to V's dtype before the pv product) happens against the same
+running max.  K5's plain version steps one page at a time, as the TPU
+kernel's grid does; p stays f32 there, so the tile grouping moves only
+f32 rounding.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from repro_torch.kernels import counters
 
 NEG_INF = -1e30
 TILE_KV = 32                      # keys per tile, kernels and plain versions
+PAGED_NAME = "flash_attention_paged"
 PACKED_NAME = "flash_attention_packed"
 DENSE_NAME = "flash_attention"
 _P = ctypes.c_void_p
@@ -186,6 +194,193 @@ def flash_attention_packed(q: torch.Tensor, k_codes: torch.Tensor,
         raise RuntimeError(f"{PACKED_NAME} kernel launch failed: "
                            f"cudaError_t {err}")
     counters.bump(PACKED_NAME)
+    return out
+
+
+# ---- K5 ------------------------------------------------------------------------
+
+PAGED_FORMATS = ("nvfp4", "fp8", "bf16")
+
+
+def _dequant_pages(codes, scales, fmt: str, block: int) -> torch.Tensor:
+    """Pages (..., page, KVH, Dc) -> (..., page, KVH, D) f32; the bf16 pool
+    passes through unscaled (its scales are a placeholder)."""
+    if fmt == "bf16":
+        return codes.to(torch.float32)
+    return _dequant_cache(codes, scales, fmt, block)
+
+
+def swa_kpos(lengths: torch.Tensor, buf: int) -> torch.Tensor:
+    """Absolute position held by each logical slot of a rolling buffer:
+    slot j holds the most recent token with pos % buf == j.  (B,) lengths
+    -> (B, buf); unwritten slots come out negative (Python floor modulo,
+    as the TPU kernel)."""
+    last = lengths[:, None] - 1
+    slot = torch.arange(buf, dtype=lengths.dtype, device=lengths.device)
+    return last - torch.remainder(torch.remainder(last, buf) - slot[None, :],
+                                  buf)
+
+
+def flash_attention_paged_plain(q, k_codes, k_scales, v_codes, v_scales,
+                                page_table, lengths, q_offsets, *,
+                                fmt: str = "nvfp4", block: int = 16,
+                                causal: bool = True,
+                                window: Optional[int] = None):
+    """Plain version of K5: one page per step for every slot, gathered
+    through ``page_table`` and dequantized, f32 online softmax.  A page
+    runs for a slot only where the TPU kernel runs it (some logical slot
+    below kv_len and, for a linear cache under the causal mask, at or
+    before the slot's last query position); a skipped page leaves the
+    running (m, l, acc) as they are."""
+    B, Sq, H, D = q.shape
+    _, psz, KVH, _ = k_codes.shape
+    n_pages = page_table.shape[1]
+    buf = n_pages * psz
+    G = H // KVH
+    dev = q.device
+    scale = _sm_scale(D)
+    pt = page_table.to(device=dev, dtype=torch.int64)
+    kv_len = torch.clamp(lengths.to(device=dev, dtype=torch.int32), max=buf)
+    q_off = q_offsets.to(device=dev, dtype=torch.int32)
+    qpos = q_off[:, None] + torch.arange(Sq, dtype=torch.int32, device=dev)
+    qf = q.to(torch.float32).reshape(B, Sq, KVH, G, D)
+    # absolute position of every logical slot: itself for a linear cache,
+    # the rolling rule relative to the block's last query row for a window
+    kpos_all = (torch.arange(buf, dtype=torch.int32, device=dev)[None, :]
+                .expand(B, -1) if window is None else swa_kpos(q_off + Sq,
+                                                               buf))
+    m = torch.full((B, KVH, G, Sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, KVH, G, Sq, D), dtype=torch.float32, device=dev)
+    for ki in range(n_pages):
+        j = ki * psz + torch.arange(psz, dtype=torch.int32, device=dev)
+        run = ki * psz < kv_len                                   # (B,)
+        if window is None and causal:
+            run = run & (ki * psz <= q_off + Sq - 1)
+        phys = pt[:, ki]
+        kf = _dequant_pages(k_codes[phys], k_scales[phys], fmt, block)
+        vf = _dequant_pages(v_codes[phys], v_scales[phys], fmt, block)
+        kpos = kpos_all[:, ki * psz:(ki + 1) * psz]               # (B, psz)
+        valid = ((j[None, :] < kv_len[:, None]) & (kpos >= 0))[:, None, :]
+        if causal:
+            valid = valid & (kpos[:, None, :] <= qpos[:, :, None])
+        if window is not None:
+            valid = valid & (kpos[:, None, :] > qpos[:, :, None] - window)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+        s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new.unsqueeze(-1))
+        l_new = l * corr + torch.sum(p, dim=-1)
+        acc_new = acc * corr.unsqueeze(-1) + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p, vf)
+        r = run[:, None, None, None]
+        m = torch.where(r, m_new, m)
+        l = torch.where(r, l_new, l)
+        acc = torch.where(r[..., None], acc_new, acc)
+    o = acc / torch.clamp(l, min=1e-30).unsqueeze(-1)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def _check_paged(q, k_codes, k_scales, v_codes, v_scales, page_table,
+                 lengths, q_offsets, fmt, block):
+    if q.ndim != 4 or k_codes.ndim != 4:
+        raise ValueError(f"q must be (B, Sq, H, D) and the pools "
+                         f"(P, page, KVH, Dc), got {tuple(q.shape)} and "
+                         f"{tuple(k_codes.shape)}")
+    B, Sq, H, D = q.shape
+    P, psz, KVH, Dc = k_codes.shape
+    if fmt not in PAGED_FORMATS:
+        raise ValueError(f"unknown paged KV format {fmt!r}")
+    want_dc = D // 2 if fmt == "nvfp4" else D
+    if Dc != want_dc or D % block:
+        raise ValueError(f"bad paged layout: codes last dim {Dc}, head dim "
+                         f"{D}, block {block}")
+    if H % KVH:
+        raise ValueError(f"GQA: H={H} not a multiple of KVH={KVH}")
+    if tuple(v_codes.shape) != tuple(k_codes.shape):
+        raise ValueError(f"v pool {tuple(v_codes.shape)} != k pool "
+                         f"{tuple(k_codes.shape)}")
+    for t in (k_scales, v_scales):
+        nb = t.shape[-1] if t.ndim == 4 else -1
+        if tuple(t.shape[:3]) != (P, psz, KVH) or \
+                (fmt != "bf16" and nb != D // block):
+            raise ValueError(f"scales shape {tuple(t.shape)} does not match "
+                             f"the pool {(P, psz, KVH)} x D/block")
+    if page_table.ndim != 2 or page_table.shape[0] != B:
+        raise ValueError(f"page_table must be (B={B}, n_pages), got "
+                         f"{tuple(page_table.shape)}")
+    for name, t in (("lengths", lengths), ("q_offsets", q_offsets)):
+        if tuple(t.shape) != (B,):
+            raise ValueError(f"{name} must be ({B},), got {tuple(t.shape)}")
+
+
+def flash_attention_paged(q: torch.Tensor, k_codes: torch.Tensor,
+                          k_scales: torch.Tensor, v_codes: torch.Tensor,
+                          v_scales: torch.Tensor, page_table: torch.Tensor,
+                          lengths: torch.Tensor, q_offsets: torch.Tensor, *,
+                          fmt: str = "nvfp4", block: int = 16,
+                          causal: bool = True,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """Attention of q (B, Sq, H, D) over a PAGED block-quantized KV pool.
+
+    Pools (P, page, KVH, Dc): nvfp4 uint8 nibble pairs + float8_e4m3fn
+    scales (P, page, KVH, D/block); fp8 float8_e4m3fn codes + bf16 scales;
+    bf16 codes with the scales ignored.  ``page_table`` (B, n_pages) int32
+    physical page per logical page; ``lengths`` (B,) valid tokens per slot
+    (kv_len, clamped to the slot buffer); ``q_offsets`` (B,) absolute
+    position of each slot's q row 0.  All three are device operands, so
+    the host never syncs on a length.  ``window``: sliding window over a
+    ROLLING buffer (slot j holds the latest pos with pos % buf == j).
+    Output in q's dtype.
+    """
+    _check_paged(q, k_codes, k_scales, v_codes, v_scales, page_table,
+                 lengths, q_offsets, fmt, block)
+    if q.device.type == "cpu":
+        return flash_attention_paged_plain(
+            q, k_codes, k_scales, v_codes, v_scales, page_table, lengths,
+            q_offsets, fmt=fmt, block=block, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    dev = q.device
+    B, Sq, H, D = q.shape
+    _, psz, KVH, _ = k_codes.shape
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError("q must be bf16 or f32")
+    code_dt = {"nvfp4": torch.uint8, "fp8": torch.float8_e4m3fn,
+               "bf16": torch.bfloat16}[fmt]
+    scale_dt = {"nvfp4": torch.float8_e4m3fn, "fp8": torch.bfloat16,
+                "bf16": torch.bfloat16}[fmt]
+    for t, dt in ((k_codes, code_dt), (v_codes, code_dt),
+                  (k_scales, scale_dt), (v_scales, scale_dt)):
+        if t.dtype != dt or t.device != dev:
+            raise ValueError(f"{fmt} pool operand must be {dt} on {dev}")
+    for t in (page_table, lengths, q_offsets):
+        if t.dtype != torch.int32 or t.device != dev:
+            raise ValueError("page_table, lengths and q_offsets must be "
+                             "int32 on q's device")
+    if block % 2 or D % 32 or D > 256:
+        raise ValueError(f"kernel takes even blocks and D in 32..256, "
+                         f"got block {block}, D {D}")
+    tensors = [t.contiguous() for t in (q, k_codes, k_scales, v_codes,
+                                        v_scales, page_table, lengths,
+                                        q_offsets)]
+    out = torch.empty_like(tensors[0])
+    from repro_torch.kernels import _build
+    fn = _build.library("flash_attn_paged").flash_attention_paged_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _I] + [_P] * 8 + [_I] * 12 + [ctypes.c_float, _P]
+        fn.restype = _I
+    err = fn(tensors[0].data_ptr(), int(q.dtype == torch.bfloat16),
+             *(t.data_ptr() for t in tensors[1:]), out.data_ptr(),
+             B, Sq, H, KVH, D, psz, page_table.shape[1],
+             k_scales.shape[-1], PAGED_FORMATS.index(fmt), block,
+             int(causal), int(window or 0), _sm_scale(D),
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{PAGED_NAME} kernel launch failed: "
+                           f"cudaError_t {err}")
+    counters.bump(PAGED_NAME)
     return out
 
 

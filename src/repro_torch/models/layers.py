@@ -9,9 +9,16 @@ sequences, else the chunked flash attention with its own backward, both in
 plain PyTorch as the reference has no Pallas kernel there.  KV-cache writes
 quantize rows with ``kv_quant_rows`` in plain PyTorch, as the reference does
 in jnp, and write them into the preallocated cache IN PLACE
-(``index_copy_``) where JAX returns a new array.  The cache length and the
-(q_offset, kv_len) pair stay device tensors, so a decode step never syncs
-with the host.
+(``index_copy_``/``index_put_``) where JAX returns a new array.  The cache
+length and the (q_offset, kv_len) pair stay device tensors, so a decode step
+never syncs with the host.
+
+The paged half (continuous batching): ``PagedKVCache`` keeps the physical
+page pool, a page table and per-slot lengths; every read of it -- batched
+decode, speculative verify, suffix and chunked prefill -- goes through the
+K5 kernel (``flash_attention_paged``), which the reference computes with jnp
+over ``gather_slots`` (``_attn_decode_paged``).  Cold prefill-into-slot
+attends within the fresh prompt through K7.
 """
 from __future__ import annotations
 
@@ -23,14 +30,18 @@ import torch
 from repro_torch.core import fqt
 from repro_torch.core.formats import M32
 from repro_torch.core.fqt import QuantConfig
-from repro_torch.core.quantize import kv_quant_rows
+from repro_torch.core.quantize import kv_dequant, kv_quant_rows
 from repro_torch.kernels.flash_attn import (flash_attention,
-                                            flash_attention_packed)
+                                            flash_attention_packed,
+                                            flash_attention_paged)
+# the rolling-window position rule lives beside K5, which applies it; it is
+# public here too, where the reference's models/layers.py keeps it
+from repro_torch.kernels.flash_attn import swa_kpos  # noqa: F401
 
 NEG_INF = -1e30
-_ROLLING = ("sliding-window (rolling) KV caches arrive with the "
-            "ContinuousEngine slice (ROADMAP Queue 1: K5 "
-            "flash_attention_paged and the rolling kpos rule)")
+_ROLLING = ("the rolling (sliding-window) write of the lockstep KVCache/"
+            "PackedKVCache is not ported (ROADMAP Queue 1); the paged cache "
+            "of ContinuousEngine rolls")
 
 
 class QCtx:
@@ -381,8 +392,19 @@ class PackedKVCache:
 
 def make_kv_cache(batch: int, buf: int, n_kv: int, hd: int,
                   dtype=torch.bfloat16, kv_format: str = "bf16",
-                  device=None):
-    """bf16 ``KVCache`` or block-quantized ``PackedKVCache``."""
+                  page_size: Optional[int] = None,
+                  total_pages: Optional[int] = None, device=None,
+                  page_table: Optional[torch.Tensor] = None,
+                  lengths: Optional[torch.Tensor] = None):
+    """bf16 ``KVCache``, block-quantized ``PackedKVCache``, or (``page_size``
+    set) a ``PagedKVCache`` over a shared page pool (``page_table`` and
+    ``lengths``: tensors shared with other layers, see
+    ``PagedKVCache.init``)."""
+    if page_size:
+        return PagedKVCache.init(batch, buf, n_kv, hd, fmt=kv_format,
+                                 page_size=page_size,
+                                 total_pages=total_pages, device=device,
+                                 page_table=page_table, lengths=lengths)
     if kv_format == "bf16":
         return KVCache.init(batch, buf, n_kv, hd, dtype, device=device)
     return PackedKVCache.init(batch, buf, n_kv, hd, fmt=kv_format,
@@ -392,6 +414,261 @@ def make_kv_cache(batch: int, buf: int, n_kv: int, hd: int,
 def _storage_view(t: torch.Tensor) -> torch.Tensor:
     """float8 storage as its bytes (a bit-preserving view for copies)."""
     return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+# ---- paged (continuous-batching) KV cache -----------------------------------------
+
+# Physical page 0 is reserved as the TRASH page: freed slots' page-table
+# rows point at it, so the batched decode can keep writing for inactive
+# slots without corrupting pages reallocated to other requests.
+TRASH_PAGE = 0
+
+
+def _kv_quant_any(x: torch.Tensor, fmt: str, block: int):
+    """``kv_quant_rows`` plus the bf16 passthrough (codes = values, scales a
+    (..., 1) placeholder) so paged caches treat all formats uniformly."""
+    if fmt == "bf16":
+        return (x.to(torch.bfloat16),
+                torch.ones(x.shape[:-1] + (1,), dtype=torch.bfloat16,
+                           device=x.device))
+    return kv_quant_rows(x, fmt, block)
+
+
+def _kv_dequant_any(codes, scales, fmt: str, block: int,
+                    dtype=torch.bfloat16) -> torch.Tensor:
+    if fmt == "bf16":
+        return codes.to(dtype)
+    return kv_dequant(codes, scales, fmt, block, dtype)
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Paged per-layer KV cache: pages allocated from a shared pool.
+
+      * ``k_codes``/``v_codes``: the PHYSICAL page pool (P, page, KVH, Dc),
+        Dc following ``fmt`` (nvfp4: D/2 uint8 nibble pairs, fp8: D float8
+        codes, bf16: D bf16 -- the escape hatch);
+      * ``k_scales``/``v_scales``: per-row block scales (P, page, KVH, nb);
+      * ``page_table``: (B, n_pages_slot) int32 physical page per logical
+        page of each slot; rows of freed slots point at ``TRASH_PAGE``;
+      * ``lengths``: (B,) int32 tokens written per slot.
+
+    Counterpart of ``repro.models.layers.PagedKVCache``, updated IN PLACE:
+    every writer mutates the pool and ``lengths`` and returns ``self``.
+    One ``page_table`` tensor serves every layer (the host writes all
+    layers' rows alike), and ``lengths`` may be a row of an (L, B) tensor.
+    A rolling (SWA) cache writes at logical ``pos % buf``.
+    """
+
+    k_codes: torch.Tensor
+    k_scales: torch.Tensor
+    v_codes: torch.Tensor
+    v_scales: torch.Tensor
+    page_table: torch.Tensor
+    lengths: torch.Tensor
+    fmt: str = "nvfp4"
+    block: int = 16
+    page_size: int = 16
+
+    @property
+    def n_slots(self) -> int:
+        return self.page_table.shape[0]
+
+    @property
+    def buf(self) -> int:
+        """Logical per-slot capacity in tokens."""
+        return self.page_table.shape[1] * self.page_size
+
+    @staticmethod
+    def init(slots: int, buf: int, n_kv: int, hd: int, fmt: str = "nvfp4",
+             block: int = 16, page_size: int = 16,
+             total_pages: Optional[int] = None, device=None,
+             page_table: Optional[torch.Tensor] = None,
+             lengths: Optional[torch.Tensor] = None) -> "PagedKVCache":
+        if buf % page_size:
+            raise ValueError(f"slot buffer {buf} not a multiple of "
+                             f"page_size {page_size}")
+        if fmt in ("nvfp4", "fp8") and (hd % block or hd % 2):
+            raise ValueError(
+                f"packed KV cache needs head_dim divisible by block={block} "
+                f"(and even), got head_dim={hd}")
+        n_pages_slot = buf // page_size
+        if total_pages is None:
+            total_pages = 1 + slots * n_pages_slot    # +1: the trash page
+        shape = (total_pages, page_size, n_kv)
+        if fmt == "nvfp4":
+            codes = torch.zeros(shape + (hd // 2,), dtype=torch.uint8,
+                                device=device)
+            scales = torch.ones(shape + (hd // block,), device=device
+                                ).to(torch.float8_e4m3fn)
+        elif fmt == "fp8":
+            codes = torch.zeros(shape + (hd,), device=device
+                                ).to(torch.float8_e4m3fn)
+            scales = torch.ones(shape + (hd // block,), dtype=torch.bfloat16,
+                                device=device)
+        elif fmt == "bf16":
+            codes = torch.zeros(shape + (hd,), dtype=torch.bfloat16,
+                                device=device)
+            scales = torch.ones(shape + (1,), dtype=torch.bfloat16,
+                                device=device)
+        else:
+            raise ValueError(f"unknown paged KV format {fmt!r}")
+        if page_table is None:
+            page_table = torch.full((slots, n_pages_slot), TRASH_PAGE,
+                                    dtype=torch.int32, device=device)
+        if lengths is None:
+            lengths = torch.zeros((slots,), dtype=torch.int32, device=device)
+        if tuple(page_table.shape) != (slots, n_pages_slot) or \
+                tuple(lengths.shape) != (slots,):
+            raise ValueError("shared page_table/lengths do not match the "
+                             "slot layout")
+        return PagedKVCache(codes, scales, codes.clone(), scales.clone(),
+                            page_table, lengths, fmt, block, page_size)
+
+    # ---- writes (in place) ------------------------------------------------
+
+    def _scatter(self, phys: torch.Tensor, off: torch.Tensor,
+                 k: torch.Tensor, v: torch.Tensor) -> None:
+        """Quantize rows k/v (idx..., KVH, D) and store them at pool rows
+        (phys, off).  Duplicate indices occur only on the trash page."""
+        idx = (phys.to(torch.int64), off.to(torch.int64))
+        kcod, ksc = _kv_quant_any(k, self.fmt, self.block)
+        vcod, vsc = _kv_quant_any(v, self.fmt, self.block)
+        for dst, src in ((self.k_codes, kcod), (self.k_scales, ksc),
+                         (self.v_codes, vcod), (self.v_scales, vsc)):
+            _storage_view(dst).index_put_(idx, _storage_view(src))
+
+    def write_prompt(self, slot: int, k: torch.Tensor, v: torch.Tensor,
+                     plen) -> "PagedKVCache":
+        """Prefill-into-slot: write a fresh (1, Sp, KVH, D) sequence at
+        logical positions [0, Sp) of ``slot`` and set its length to
+        ``plen`` (rows in [plen, Sp) are right-pad, masked at read)."""
+        if k.shape[1] > self.buf:
+            raise ValueError(f"prefill length {k.shape[1]} exceeds slot "
+                             f"capacity {self.buf}")
+        return self.write_prompt_at(slot, k, v, 0, plen)
+
+    def write_prompt_at(self, slot: int, k: torch.Tensor, v: torch.Tensor,
+                        start: int, plen) -> "PagedKVCache":
+        """Suffix prefill: write a fresh (1, Sp, KVH, D) sequence at logical
+        positions [start, start + Sp) of ``slot`` and set its length to
+        ``plen`` (the TOTAL length).  Right-pad positions past the slot
+        buffer go to the trash page."""
+        Sp = k.shape[1]
+        t = torch.arange(start, start + Sp, dtype=torch.int32,
+                         device=k.device)
+        page = torch.clamp(t // self.page_size, 0,
+                           self.page_table.shape[1] - 1)
+        phys = self.page_table[slot][page.to(torch.int64)]
+        phys = torch.where(t < self.buf, phys,
+                           torch.full_like(phys, TRASH_PAGE))
+        self._scatter(phys, t % self.page_size, k[0], v[0])
+        self.lengths[slot] = plen
+        return self
+
+    def write_token(self, k: torch.Tensor, v: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None) -> "PagedKVCache":
+        """Batched decode write: one (B, 1, KVH, D) token per slot at each
+        slot's own length, ROLLING (logical ``length % buf``).  ``mask``
+        ((B,) bool): slots with False write to the trash page and keep
+        their length."""
+        posl = self.lengths % self.buf
+        page = (posl // self.page_size).to(torch.int64)
+        phys = torch.gather(self.page_table, 1, page[:, None])[:, 0]
+        if mask is not None:
+            phys = torch.where(mask, phys, torch.full_like(phys, TRASH_PAGE))
+        self._scatter(phys, posl % self.page_size, k[:, 0], v[:, 0])
+        if mask is None:
+            self.lengths.add_(1)
+        else:
+            self.lengths.add_(mask.to(torch.int32))
+        return self
+
+    def write_tokens(self, k: torch.Tensor, v: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None) -> "PagedKVCache":
+        """Batched multi-token write: S tokens per slot at [len, len + S),
+        linear addressing; positions past the slot buffer AND every row of
+        masked-off slots go to the trash page, and masked slots keep their
+        length.  Rejected rows are later hidden by ``truncate_to``."""
+        B, S = k.shape[0], k.shape[1]
+        t = self.lengths[:, None] + torch.arange(S, dtype=torch.int32,
+                                                 device=k.device)[None, :]
+        page = torch.clamp(t // self.page_size, 0,
+                           self.page_table.shape[1] - 1).to(torch.int64)
+        phys = torch.gather(self.page_table, 1, page)
+        trash = torch.full_like(phys, TRASH_PAGE)
+        phys = torch.where(t < self.buf, phys, trash)
+        if mask is not None:
+            phys = torch.where(mask[:, None], phys, trash)
+        self._scatter(phys, t % self.page_size, k, v)
+        if mask is None:
+            self.lengths.add_(S)
+        else:
+            self.lengths.add_(mask.to(torch.int32) * S)
+        return self
+
+    def truncate_to(self, slot: Optional[int], new_len) -> "PagedKVCache":
+        """Exact rollback of rejected appends: shrink length(s) to
+        ``new_len`` without touching the pool.  ``slot=None``: batched,
+        ``new_len`` a (B,) tensor.  Never extends a slot."""
+        if slot is None:
+            self.lengths.copy_(torch.minimum(self.lengths, new_len))
+        elif isinstance(new_len, torch.Tensor):
+            self.lengths[slot] = torch.minimum(self.lengths[slot], new_len)
+        else:
+            self.lengths[slot:slot + 1].clamp_(max=int(new_len))
+        return self
+
+    # ---- reads (test oracles; the serving path reads through K5) ------------
+
+    def gather_slots(self):
+        """The logical (B, buf, KVH, .) packed views through the page
+        table."""
+        pt = self.page_table.to(torch.int64)
+
+        def g(pool):
+            return pool[pt].reshape((pt.shape[0], -1) + tuple(pool.shape[2:]))
+
+        return (g(self.k_codes), g(self.k_scales),
+                g(self.v_codes), g(self.v_scales))
+
+    def gather_slot(self, slot: int):
+        """ONE slot's logical (1, buf, KVH, .) packed views."""
+        row = self.page_table[slot].to(torch.int64)
+
+        def g(pool):
+            return pool[row].reshape((1, -1) + tuple(pool.shape[2:]))
+
+        return (g(self.k_codes), g(self.k_scales),
+                g(self.v_codes), g(self.v_scales))
+
+    def dequant(self, dtype=torch.bfloat16):
+        """Full logical (B, buf, KVH, D) reconstruction (test oracle)."""
+        kc, ks, vc, vs = self.gather_slots()
+        return (_kv_dequant_any(kc, ks, self.fmt, self.block, dtype),
+                _kv_dequant_any(vc, vs, self.fmt, self.block, dtype))
+
+    def nbytes(self) -> int:
+        """Stored pool bytes (codes + scales, k and v)."""
+        return int(sum(a.numel() * a.element_size() for a in
+                       (self.k_codes, self.k_scales,
+                        self.v_codes, self.v_scales)))
+
+
+def _attn_decode_paged(q: torch.Tensor, cache: PagedKVCache, *,
+                       q_offsets: torch.Tensor, kv_len: torch.Tensor,
+                       causal: bool, window: Optional[int],
+                       page_table: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Attention over a PAGED cache with per-slot (q_offset, kv_len): the
+    K5 kernel, reading the pool through the page table at packed width
+    (the reference's jnp ``_attn_decode_paged`` gathers the slots and runs
+    its fused scan; the port routes that read through K5)."""
+    pt = cache.page_table if page_table is None else page_table
+    return flash_attention_paged(
+        q, cache.k_codes, cache.k_scales, cache.v_codes, cache.v_scales, pt,
+        kv_len, q_offsets, fmt=cache.fmt, block=cache.block, causal=causal,
+        window=window)
 
 
 def _write_cache(cache, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -419,32 +696,63 @@ def _write_cache(cache, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def attn_apply(p, x: torch.Tensor, ctx: QCtx, *, n_heads: int, n_kv: int,
                hd: int, rope_theta: float, causal: bool = True,
                window: Optional[int] = None, chunk: int = 1024, cache=None,
+               slot: Optional[int] = None, plen=None,
+               pfx: Optional[int] = None,
+               write_mask: Optional[torch.Tensor] = None,
                norm_eps: float = 1e-5):
     """Self-attention with an optional KV cache update (updated in place).
 
     Without a cache (training) the sequence attends itself through
-    ``attention_core``.  With a cache, x is the NEW tokens written at
-    [cache.length, cache.length + S): prefill (S > 1, from an empty cache)
-    attends within the fresh sequence through K7; decode (S == 1) attends
-    the cache -- K6 for a ``PackedKVCache``, a dense read for the bf16
-    cache.  Returns (out, cache)."""
+    ``attention_core``.  With a lockstep cache, x is the NEW tokens written
+    at [cache.length, cache.length + S): prefill (S > 1, from an empty
+    cache) attends within the fresh sequence through K7; decode (S == 1)
+    attends the cache -- K6 for a ``PackedKVCache``, a dense read for the
+    bf16 cache.
+
+    With a ``PagedKVCache`` each batch row is a SLOT with its own length:
+      * ``slot`` and ``pfx`` (suffix or chunked prefill, B == 1): write the
+        rows at [pfx, pfx + S), set the length to ``plen`` and attend
+        THROUGH the paged cache (K5);
+      * ``slot`` only (prefill-into-slot): write at [0, S), length
+        ``plen``, attend within the fresh prompt (K7);
+      * S == 1 (batched decode): one token per slot at its own length,
+        ``write_mask`` freezing mid-prefill slots; K5 with per-slot
+        (q_offset, kv_len), the rolling kpos under a window;
+      * S > 1 (batched verify): S teacher-forced rows per slot, K5.
+    ``slot``, ``plen`` and ``pfx`` are host ints.  Returns (out, cache)."""
     B, S, _ = x.shape
+    dev = x.device
     q = ctx.dense(x, p["wq"], p.get("bq")).reshape(B, S, n_heads, hd)
     k = ctx.dense(x, p["wk"], p.get("bk")).reshape(B, S, n_kv, hd)
     v = ctx.dense(x, p["wv"], p.get("bv")).reshape(B, S, n_kv, hd)
-    base = cache.length if cache is not None else torch.zeros(
-        (), dtype=torch.int32, device=x.device)
-    positions = base + torch.arange(S, dtype=torch.int32, device=x.device)
+    paged = isinstance(cache, PagedKVCache)
+    if paged and slot is not None:
+        base = 0 if pfx is None else int(pfx)
+        positions = torch.arange(base, base + S, dtype=torch.int32,
+                                 device=dev)
+    elif paged:             # per-slot positions, (B, S)
+        positions = cache.lengths[:, None] + torch.arange(
+            S, dtype=torch.int32, device=dev)[None, :]
+    else:
+        base = cache.length if cache is not None else torch.zeros(
+            (), dtype=torch.int32, device=dev)
+        positions = base + torch.arange(S, dtype=torch.int32, device=dev)
     if "q_norm" in p:
         q = rmsnorm(q, p["q_norm"], norm_eps)
         k = rmsnorm(k, p["k_norm"], norm_eps)
     cos, sin = rope_tables(positions, hd, rope_theta)
-    q = apply_rope(q, cos[None], sin[None])
-    k = apply_rope(k, cos[None], sin[None])
+    if positions.ndim == 1:
+        cos, sin = cos[None], sin[None]
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
 
     if cache is None:
         o = attention_core(q, k, v, qpos=positions, kpos=positions,
                            causal=causal, window=window, chunk=chunk)
+    elif paged:
+        o = _attn_paged(q, k, v, cache, positions, causal=causal,
+                        window=window, slot=slot, plen=plen, pfx=pfx,
+                        write_mask=write_mask)
     elif S > 1:
         if window is not None:
             raise NotImplementedError(_ROLLING)
@@ -466,6 +774,53 @@ def attn_apply(p, x: torch.Tensor, ctx: QCtx, *, n_heads: int, n_kv: int,
                                    window=window)
     out = ctx.dense(o.reshape(B, S, n_heads * hd), p["wo"])
     return out, cache
+
+
+def _attn_paged(q, k, v, cache: PagedKVCache, positions, *, causal, window,
+                slot, plen, pfx, write_mask) -> torch.Tensor:
+    """The four paged branches of ``attn_apply`` (write, then read)."""
+    S = q.shape[1]
+    if slot is not None and pfx is not None:
+        # suffix / chunked prefill (B == 1): the slot's pages already hold
+        # [0, pfx); write the fresh rows at [pfx, pfx + S) and attend
+        # through the cache (right-pad rows land masked or on the trash
+        # page)
+        if window is not None:
+            raise NotImplementedError(
+                "shared-prefix suffix prefill needs a linear cache; SWA "
+                "rolling buffers rewrite shared pages")
+        cache.write_prompt_at(slot, k, v, pfx, S if plen is None else plen)
+        return _attn_decode_paged(
+            q, cache, q_offsets=positions[:1],
+            kv_len=cache.lengths[slot:slot + 1], causal=causal, window=None,
+            page_table=cache.page_table[slot:slot + 1])
+    if slot is not None:
+        # prefill-into-slot (B == 1): attend within the fresh tokens (right-
+        # pad rows are garbage queries whose outputs the caller drops)
+        cache.write_prompt(slot, k, v, S if plen is None else plen)
+        return _attn_prefill(q, k, v, causal=causal, window=window)
+    buf = cache.buf
+    if S == 1:
+        # batched decode.  A linear cache writes through ``write_tokens``,
+        # which sends a position past the slot buffer to the trash page:
+        # identical while lengths < buf (the scheduler's invariant), and a
+        # speculative draft writing ahead near the buffer end never wraps
+        # onto the slot's first page of the SHARED pool.
+        if window is None:
+            cache.write_tokens(k, v, mask=write_mask)
+        else:
+            cache.write_token(k, v, mask=write_mask)
+    else:
+        # batched verify (speculative decode, S == k): causal masking gives
+        # query row j exactly rows [0, len + j]
+        if window is not None:
+            raise NotImplementedError(
+                "speculative verify needs a linear paged cache; SWA "
+                "rolling buffers cannot roll back exactly")
+        cache.write_tokens(k, v, mask=write_mask)
+    kv_len = torch.clamp(cache.lengths, max=buf)
+    return _attn_decode_paged(q, cache, q_offsets=positions[:, 0],
+                              kv_len=kv_len, causal=causal, window=window)
 
 
 # ---- MLP block ------------------------------------------------------------------

@@ -6,6 +6,8 @@
   make_decode_state(cfg, batch, max_len, ...)     -> per-layer caches
   prefill(params, cfg, qcfg, tokens, carry)       -> (last logits, carry)
   decode_step(params, cfg, qcfg, tokens, carry)   -> (logits, carry)
+  prefill_slot / prefill_suffix / prefill_chunk   -> continuous batching
+  verify_k, draft_view                            -> speculative decoding
 
 Counterpart of ``repro.models.registry``.  Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``.  The moe, hybrid, ssm, encdec
@@ -61,11 +63,15 @@ def forward(params, cfg: ModelConfig, qcfg: QuantConfig, batch, *,
 
 def make_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       dtype=torch.bfloat16, kv_cache_format: str = "bf16",
-                      device=None):
-    """Empty per-layer KV caches: bf16, or block-quantized "nvfp4"/"fp8"."""
+                      page_size: Optional[int] = None,
+                      total_pages: Optional[int] = None, device=None):
+    """Empty per-layer KV caches: bf16, or block-quantized "nvfp4"/"fp8";
+    with ``page_size``, ``PagedKVCache``s over a shared page pool with
+    per-slot lengths (continuous batching; ``total_pages`` sizes the pool,
+    default one full reservation per slot plus the trash page)."""
     _dense_only(cfg)
     return transformer.init_cache(cfg, batch, max_len, dtype,
-                                  kv_cache_format,
+                                  kv_cache_format, page_size, total_pages,
                                   device=resolve_device(device))
 
 
@@ -76,6 +82,54 @@ def prefill(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, carry):
     return logits[:, -1], carry
 
 
-def decode_step(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, carry):
+def decode_step(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, carry,
+                *, seed: int = 0, write_mask=None):
+    """``write_mask`` ((B,) bool): paged caches only -- slots mid-chunked-
+    prefill write to the trash page and keep their length."""
     _dense_only(cfg)
-    return transformer.decode_step(params, cfg, qcfg, tokens, carry)
+    return transformer.decode_step(params, cfg, qcfg, tokens, carry,
+                                   seed=seed, write_mask=write_mask)
+
+
+def prefill_slot(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
+                 carry, slot: int, plen: int, *, seed: int = 0):
+    """Prefill ONE slot of a paged carry from a right-padded (1, Sp)
+    prompt.  Returns (logits (1, V), carry)."""
+    _dense_only(cfg)
+    return transformer.prefill_slot(params, cfg, qcfg, tokens, carry, slot,
+                                    plen, seed=seed)
+
+
+def prefill_suffix(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
+                   carry, slot: int, plen: int, pfx: int, *, seed: int = 0):
+    """Prefill ONE slot from a right-padded (1, Sp) prompt SUFFIX whose
+    first ``pfx`` tokens are cached in shared prefix pages.  Returns
+    (logits (1, V), carry)."""
+    _dense_only(cfg)
+    return transformer.prefill_suffix(params, cfg, qcfg, tokens, carry,
+                                      slot, plen, pfx, seed=seed)
+
+
+def prefill_chunk(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
+                  carry, slot: int, off: int, *, seed: int = 0):
+    """Write one FULL intermediate chunk (1, C) of a prompt into a paged
+    slot at [off, off + C).  Returns the carry."""
+    _dense_only(cfg)
+    return transformer.prefill_chunk(params, cfg, qcfg, tokens, carry, slot,
+                                     off, seed=seed)
+
+
+def verify_k(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, carry,
+             *, seed: int = 0, write_mask=None):
+    """Teacher-forced speculative verify of (B, k) tokens over the paged
+    carry.  Returns (logits (B, k, V), carry)."""
+    _dense_only(cfg)
+    return transformer.verify_k(params, cfg, qcfg, tokens, carry, seed=seed,
+                                write_mask=write_mask)
+
+
+def draft_view(params, carry, draft_layers: int):
+    """Self-draft truncation of the SAME weights and page pools to the
+    first ``draft_layers`` layers (the lengths are the draft's own).  Use
+    with ``dataclasses.replace(cfg, n_layers=draft_layers)``."""
+    return transformer.draft_view(params, carry, draft_layers)

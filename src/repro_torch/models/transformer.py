@@ -9,7 +9,8 @@ each layer body (the reference's ``nothing_saveable`` policy).
 """
 from __future__ import annotations
 
-from typing import List
+import dataclasses
+from typing import List, Optional
 
 import torch
 import torch.utils.checkpoint
@@ -17,9 +18,10 @@ import torch.utils.checkpoint
 from repro_torch.core.formats import M32
 from repro_torch.core.fqt import QuantConfig
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (QCtx, attn_apply, attn_params,
-                                       dense_init, embed_init, make_kv_cache,
-                                       mlp_apply, mlp_params, rmsnorm)
+from repro_torch.models.layers import (TRASH_PAGE, PagedKVCache, QCtx,
+                                       attn_apply, attn_params, dense_init,
+                                       embed_init, make_kv_cache, mlp_apply,
+                                       mlp_params, rmsnorm)
 
 _SEED_STRIDE = 0x9E3779B9                   # per-layer SR seed stride
 
@@ -62,13 +64,15 @@ def init(cfg: ModelConfig, gen: torch.Generator, dtype=torch.bfloat16,
 
 
 def _layer_apply(cfg: ModelConfig, lp, x, seed: int, *, cache,
-                 qcfg: QuantConfig):
+                 qcfg: QuantConfig, slot=None, plen=None, pfx=None,
+                 write_mask=None):
     ctx = QCtx(qcfg, seed)
     h, cache = attn_apply(
         lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps), ctx,
         n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
         rope_theta=cfg.rope_theta, window=cfg.sliding_window,
-        chunk=cfg.attn_chunk, cache=cache, norm_eps=cfg.norm_eps)
+        chunk=cfg.attn_chunk, cache=cache, slot=slot, plen=plen, pfx=pfx,
+        write_mask=write_mask, norm_eps=cfg.norm_eps)
     x = x + h
     y = mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps), ctx,
                   cfg.act)
@@ -76,12 +80,14 @@ def _layer_apply(cfg: ModelConfig, lp, x, seed: int, *, cache,
 
 
 def apply_layers(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed=0, *,
-                 caches=None, remat: bool = False):
+                 caches=None, remat: bool = False, slot=None, plen=None,
+                 pfx=None, write_mask=None):
     """Run the layers in order; caches (one per layer) update in place.
 
     ``remat``: each layer body runs under ``torch.utils.checkpoint`` and
     is recomputed in the backward; its QCtx is built inside the body, so
-    the recompute draws the same SR streams."""
+    the recompute draws the same SR streams.  ``slot``/``plen``/``pfx``/
+    ``write_mask``: the paged-cache operands of ``layers.attn_apply``."""
     for i, lp in enumerate(params["layers"]):
         s = (int(seed) + i * _SEED_STRIDE) & M32
         cache = None if caches is None else caches[i]
@@ -91,7 +97,9 @@ def apply_layers(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed=0, *,
                                                    qcfg=qcfg)[0],
                 x, use_reentrant=False)
         else:
-            x, _ = _layer_apply(cfg, lp, x, s, qcfg=qcfg, cache=cache)
+            x, _ = _layer_apply(cfg, lp, x, s, qcfg=qcfg, cache=cache,
+                                slot=slot, plen=plen, pfx=pfx,
+                                write_mask=write_mask)
     return x, caches
 
 
@@ -132,12 +140,27 @@ def loss_fn(params, cfg: ModelConfig, qcfg: QuantConfig, batch, *,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, kv_format: str = "bf16",
-               device=None) -> List:
+               page_size: Optional[int] = None,
+               total_pages: Optional[int] = None, device=None) -> List:
+    """One cache per layer.  With ``page_size``: ``PagedKVCache``s over one
+    pool per layer, the slot buffer rounded up to whole pages; every layer
+    shares ONE page-table tensor, and each layer's lengths are a row of
+    one (L, B) tensor."""
     buf = max_len if cfg.sliding_window is None else min(
         max_len, cfg.sliding_window)
+    shared = [{} for _ in range(cfg.n_layers)]
+    if page_size:
+        buf = -(-buf // page_size) * page_size
+        table = torch.full((batch, buf // page_size), TRASH_PAGE,
+                           dtype=torch.int32, device=device)
+        lengths = torch.zeros((cfg.n_layers, batch), dtype=torch.int32,
+                              device=device)
+        shared = [{"page_table": table, "lengths": lengths[i]}
+                  for i in range(cfg.n_layers)]
     return [make_kv_cache(batch, buf, cfg.n_kv_heads, cfg.hd, dtype,
-                          kv_format, device=device)
-            for _ in range(cfg.n_layers)]
+                          kv_format, page_size=page_size,
+                          total_pages=total_pages, device=device, **sh)
+            for sh in shared]
 
 
 def prefill(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, caches):
@@ -149,10 +172,82 @@ def prefill(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, caches):
     return _logits(params, cfg, qcfg, x), caches
 
 
-def decode_step(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, caches):
-    """One new token per sequence.  tokens: (B, 1).  Returns (logits,
-    caches)."""
+def prefill_slot(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
+                 caches, slot: int, plen: int, *, seed=0):
+    """Prefill ONE paged slot from a right-padded (1, Sp) prompt; ``plen``
+    is the true prompt length.  Returns (logits at the last prompt token
+    (1, V), caches)."""
     x = params["embed"][tokens]
-    x, caches = apply_layers(params, cfg, qcfg, x, caches=caches)
+    x, caches = apply_layers(params, cfg, qcfg, x, seed, caches=caches,
+                             slot=slot, plen=plen)
+    x = rmsnorm(x[:, plen - 1:plen], params["ln_f"], cfg.norm_eps)
+    return _logits(params, cfg, qcfg, x, seed)[:, 0], caches
+
+
+def prefill_suffix(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
+                   caches, slot: int, plen: int, pfx: int, *, seed=0):
+    """Prefill ONE paged slot from a right-padded (1, Sp) prompt SUFFIX
+    whose first ``pfx`` tokens are already cached in the slot's pages;
+    ``plen`` is the TOTAL prompt length.  The suffix rows are written at
+    [pfx, plen) and the queries attend through the paged cache (K5).
+    Returns (logits at the last prompt token (1, V), caches)."""
+    x = params["embed"][tokens]
+    x, caches = apply_layers(params, cfg, qcfg, x, seed, caches=caches,
+                             slot=slot, plen=plen, pfx=pfx)
+    x = rmsnorm(x[:, plen - pfx - 1:plen - pfx], params["ln_f"],
+                cfg.norm_eps)
+    return _logits(params, cfg, qcfg, x, seed)[:, 0], caches
+
+
+def prefill_chunk(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
+                  caches, slot: int, off: int, *, seed=0):
+    """Write ONE full intermediate (1, C) chunk of a prompt into a paged
+    slot at [off, off + C), attending through the paged cache (the suffix
+    machinery: chunking cannot change any value).  No logits.  Returns the
+    caches."""
+    x = params["embed"][tokens]
+    C = x.shape[1]
+    _, caches = apply_layers(params, cfg, qcfg, x, seed, caches=caches,
+                             slot=slot, plen=off + C, pfx=off)
+    return caches
+
+
+def decode_step(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, caches,
+                *, seed=0, write_mask=None):
+    """One new token per sequence.  tokens: (B, 1).  Returns (logits,
+    caches).  ``write_mask`` ((B,) bool, paged caches): slots mid-chunked-
+    prefill write to the trash page and keep their length."""
+    x = params["embed"][tokens]
+    x, caches = apply_layers(params, cfg, qcfg, x, seed, caches=caches,
+                             write_mask=write_mask)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
-    return _logits(params, cfg, qcfg, x), caches
+    return _logits(params, cfg, qcfg, x, seed), caches
+
+
+def verify_k(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, caches,
+             *, seed=0, write_mask=None):
+    """Teacher-forced verify over a speculative block: ``tokens`` (B, k),
+    written at each slot's [len, len + k) and attended with per-slot causal
+    positions, so row j's logits equal a sequential decode's.  Returns
+    (logits (B, k, V), caches); the caller rolls rejected rows back with
+    ``PagedKVCache.truncate_to``."""
+    return decode_step(params, cfg, qcfg, tokens, caches, seed=seed,
+                       write_mask=write_mask)
+
+
+def draft_view(params, caches, draft_layers: int):
+    """Self-draft view: the SAME weights and page pools truncated to the
+    first ``draft_layers`` layers.  The reference drafts on a copy of the
+    caches it then discards; here the draft shares the pools and page
+    table, and each layer gets its own clone of ``lengths``, so drafting
+    never advances the real lengths.  The rows it writes at [len, len +
+    k - 1) lie past every real length and are overwritten by the verify
+    pass before any read.  Returns (draft_params, draft_caches)."""
+    dp = dict(params)
+    dp["layers"] = params["layers"][:draft_layers]
+    if caches is None:
+        return dp, None
+    dc = [dataclasses.replace(c, lengths=c.lengths.clone())
+          if isinstance(c, PagedKVCache) else c
+          for c in caches[:draft_layers]]
+    return dp, dc
