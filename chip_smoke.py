@@ -11,7 +11,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
            build of every ``csrc/*.cu`` kernel from the checkout (nvcc).
   kernels  each hand-written kernel against its plain PyTorch version on the
            same card tensors, at the main path's shapes: f32 outputs at
-           rtol = atol = 1e-5, bf16 outputs to one bf16 ulp (+ 1e-5).
+           rtol = atol = 1e-5, bf16 outputs to one bf16 ulp (+ 1e-5), the
+           K2 quantizer's codes and scales bit for bit.
   serve    the lockstep Engine serving llama2-7b at full width from packed
            NVFP4 weights (random, seeded) with an nvfp4 KV cache: batch 4,
            prompt 64, 32 new tokens, greedy.  The launch counts are zeroed
@@ -38,6 +39,17 @@ Phases, each printing JSON lines; any failure exits non-zero:
            4 x seq 1024, remat, AdamW: 1 warm + 3 timed steps with finite
            metrics and K1's launches per step as the FQT dispatch rules
            derive them, peak memory and one profiled step's idle share.
+  ops      the kernel-level public API (``kernels/ops.py``) as a user calls
+           it: the unfused FQT GEMM at each forward GEMM shape of the
+           train phase's llama2-7b (M = 4096 tokens; (K, N) = (4096, 4096),
+           (4096, 11008), (11008, 4096), lm_head (4096, 32000)) under
+           nvfp4_paper_config's RtN forward specs, and once with SR on both
+           operands: K2 block_quantize(A) and block_quantize(B^T), K3
+           block_matmul, and K1 fused_quant_matmul on the same raw
+           operands.  The launch counts (zeroed just before) must be 2 K2
+           + 1 K3 + 1 K1 per GEMM; K2 must equal its plain version bit for
+           bit, K3 its plain version at rtol = atol = 1e-5, and the chain
+           K2 -> K2 -> K3 must equal K1 within 1e-5 of max |out|.
   times    median CUDA-event time of each kernel at the main paths' shapes
            (L2 flushed before every launch, as a step finds its operands
            cold), beside its bound, its plain version and one PyTorch call
@@ -62,7 +74,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PHASES = ("env", "kernels", "serve", "serve_continuous", "train", "times")
+PHASES = ("env", "kernels", "serve", "serve_continuous", "train", "ops",
+          "times")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core peak
 SEED = 0
@@ -115,6 +128,21 @@ K1_CASES = (
     ("dW mxfp4", 4096, 4096, 4096, "mxfp4", True, True, 1.0, 1e-4),
     ("ragged smoke", 200, 48, 72, "nvfp4", True, True, 1.0, 0.1),
 )
+# The unfused GEMM of phase ops at llama2-7b's forward GEMMs, M = 4096
+# tokens: (K, N) of wq/wk/wv/wo, w_gate/w_up, w_down and the lm_head.
+OPS_M = 4096
+OPS_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
+# K2's specs in phase kernels (tests/test_kernels.py:27-33): (name,
+# BlockQuantSpec fields)
+K2_SPECS = (
+    ("nvfp4", dict(scale_fmt="e4m3", block=16, two_level=True)),
+    ("mxfp4", dict(scale_fmt="e8m0", block=32, two_level=False)),
+    ("nvfp4 sr", dict(scale_fmt="e4m3", block=16, two_level=True,
+                      stochastic=True)),
+    ("mxfp4 sr", dict(scale_fmt="e8m0", block=32, two_level=False,
+                      stochastic=True)),
+    ("e3m4 b8", dict(scale_fmt="e3m4", block=8, two_level=False)))
+K2_SHAPES = ((4096, 4096), (4095, 4096))
 
 
 def emit(obj) -> None:
@@ -165,6 +193,19 @@ def compare(got, want) -> dict:
         ok = bool((err <= tol).all())
         rule = "1 bf16 ulp + 1e-5"
     return {"ok": ok, "max_abs_err": float(err.max()), "rule": rule}
+
+
+def compare_bits(got, want) -> dict:
+    """Quantizer outputs: the same bit patterns (so -0.0 and 0.0 differ)."""
+    import torch
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{got.dtype}{tuple(got.shape)} vs "
+                             f"{want.dtype}{tuple(want.shape)}")
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    ok = torch.equal(got.view(ints[got.dtype]), want.view(ints[want.dtype]))
+    return {"ok": ok,
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "rule": "bit for bit"}
 
 
 # ---- inputs at the main path's shapes -----------------------------------------------
@@ -233,6 +274,22 @@ def k7_inputs(B, S, H, KVH, D, dtype, dev, seed=SEED):
                  ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D)))
 
 
+def k3_inputs(M, K, N, dtype, dev, seed=SEED):
+    """Pre-quantized operands of K3 (codes in ``dtype``, from K2's plain
+    version) and tsA * tsB, all on ``dev``."""
+    import torch
+    from repro_torch.core.quantize import NVFP4
+    from repro_torch.kernels.nvfp4_quant import block_quantize_plain
+    from repro_torch.kernels.ref import tensor_scale_ref
+    g = gen(dev, seed)
+    a = torch.randn((M, K), generator=g, device=dev).to(dtype)
+    bt = (torch.randn((N, K), generator=g, device=dev) * 0.02).to(dtype)
+    ac, asc = block_quantize_plain(a, NVFP4)
+    bct, bsct = block_quantize_plain(bt, NVFP4)
+    ts = tensor_scale_ref(a, NVFP4) * tensor_scale_ref(bt, NVFP4)
+    return ac, asc, bct.T.contiguous(), bsct.T.contiguous(), ts
+
+
 def k1_inputs(M, K, N, fmt, sr_a, sr_b, scale_a, scale_b, dev, seed=SEED):
     """bf16 operands and, for SR operands, counter bits of their shapes."""
     import torch
@@ -283,15 +340,18 @@ def phase_env(dev) -> dict:
 def phase_kernels(dev) -> dict:
     """Each kernel against its plain version on the same card tensors."""
     import torch
-    from repro_torch.core.quantize import NVFP4
+    from repro_torch.core.formats import counter_bits
+    from repro_torch.core.quantize import NVFP4, BlockQuantSpec
     from repro_torch.kernels import flash_attn as fa
     from repro_torch.kernels import fp4_matmul as fm
-    worst = {fm.FUSED_NAME: 0.0, fm.NAME: 0.0, fa.PAGED_NAME: 0.0,
-             fa.PACKED_NAME: 0.0, fa.DENSE_NAME: 0.0}
+    from repro_torch.kernels import nvfp4_quant as nq
+    worst = {fm.FUSED_NAME: 0.0, nq.NAME: 0.0, fm.BLOCK_NAME: 0.0,
+             fm.NAME: 0.0, fa.PAGED_NAME: 0.0, fa.PACKED_NAME: 0.0,
+             fa.DENSE_NAME: 0.0}
     failures = []
 
-    def check(name, case, got, want):
-        r = compare(got, want)
+    def check(name, case, got, want, rule=compare):
+        r = rule(got, want)
         worst[name] = max(worst[name], r["max_abs_err"])
         emit({"phase": "kernels", "kernel": name, "case": case, **r})
         if not r["ok"]:
@@ -311,6 +371,37 @@ def phase_kernels(dev) -> dict:
                   f"sr={int(sr_a)}{int(sr_b)} {str(out_dtype)[6:]}",
                   got, want)
         del a, b, ra, rb, got, want
+
+    # K2: every spec x f32/bf16 x a given or computed tensor scale
+    for M, K in K2_SHAPES:
+        for name, fields in K2_SPECS:
+            spec = BlockQuantSpec(**fields)
+            rb = counter_bits(SEED + 3, (M, K), device=dev) \
+                if spec.stochastic else None
+            for dtype in (torch.float32, torch.bfloat16):
+                x = (torch.randn((M, K), generator=gen(dev, SEED), device=dev)
+                     * 3).to(dtype)
+                for ts in (None, torch.full((), 0.25, device=dev)):
+                    got = nq.block_quantize(x, spec, rbits=rb, tscale=ts)
+                    want = nq.block_quantize_plain(x, spec, rbits=rb,
+                                                   tscale=ts)
+                    torch.cuda.synchronize(dev)
+                    case = (f"M={M} K={K} {name} {str(dtype)[6:]} tscale="
+                            f"{'given' if ts is not None else 'computed'}")
+                    check(nq.NAME, case + " codes", got[0], want[0],
+                          compare_bits)
+                    check(nq.NAME, case + " scales", got[1], want[1],
+                          compare_bits)
+    # K3: bf16 and f32 codes at the unfused GEMM's shapes
+    for K, N in OPS_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = k3_inputs(OPS_M, K, N, dtype, dev)
+            got = fm.block_matmul(*args)
+            want = fm.block_matmul_plain(*args)
+            torch.cuda.synchronize(dev)
+            check(fm.BLOCK_NAME, f"M={OPS_M} K={K} N={N} codes "
+                  f"{str(dtype)[6:]}", got, want)
+            del args, got, want
 
     for M, K, N in K4_SHAPES + K4_CONT_SHAPES:
         a, w = k4_inputs(M, K, N, dev)
@@ -425,7 +516,7 @@ def phase_serve(dev, batch=4, prompt_len=64, max_new=32, max_len=256):
     launches = counters.snapshot()
     steps = eng.steps
     gemms = 7 * cfg.n_layers + 1          # q k v o gate up down, + lm_head
-    want = {"fused_quant_matmul": 0,
+    want = {"fused_quant_matmul": 0, "block_quantize": 0, "block_matmul": 0,
             "packed_block_matmul": gemms * (1 + steps),
             "flash_attention_paged": 0,
             "flash_attention": cfg.n_layers,
@@ -572,7 +663,7 @@ def expected_launches(cfg, calls, draft_layers=0, spec_k=0) -> dict:
     head = calls["_prefill"] + calls["_prefill_suffix"] + calls["_decode"] \
         + calls["_verify"]
     draft_steps = (spec_k - 1) * calls["_verify"]
-    return {"fused_quant_matmul": 0,
+    return {"fused_quant_matmul": 0, "block_quantize": 0, "block_matmul": 0,
             "packed_block_matmul": 7 * L * (head + calls["_prefill_chunk"])
             + head + (7 * draft_layers + 1) * draft_steps,
             "flash_attention_paged": L * (calls["_decode"] + calls["_verify"]
@@ -935,6 +1026,105 @@ def phase_train(dev, batch=4, seq=1024, n_layers=4, steps=3) -> dict:
     return info
 
 
+def phase_ops(dev) -> dict:
+    """The unfused FQT GEMM through ``kernels/ops.py`` at llama2-7b's forward
+    GEMM shapes, held to the plain versions and to K1."""
+    import torch
+    from repro_torch.core import fqt
+    from repro_torch.core.formats import counter_bits
+    from repro_torch.kernels import counters, ops, ref
+    from repro_torch.kernels.fp4_matmul import block_matmul_plain
+    from repro_torch.kernels.nvfp4_quant import block_quantize_plain
+
+    qcfg = fqt.nvfp4_paper_config()
+    cases = [(K, N, False) for K, N in OPS_SHAPES] + [OPS_SHAPES[0] + (True,)]
+
+    def inputs(K, N, sr):
+        """bf16 x (M, K) and W (K, N) of a forward GEMM, the paper's forward
+        specs (SR on both operands for sr), and SR bits of their shapes."""
+        g = gen(dev, SEED + K + N)
+        a = torch.randn((OPS_M, K), generator=g, device=dev).to(torch.bfloat16)
+        b = (torch.randn((K, N), generator=g, device=dev) * 0.02
+             ).to(torch.bfloat16)
+        sa, sb = qcfg.fwd_a.with_rounding(sr), qcfg.fwd_w.with_rounding(sr)
+        ra = counter_bits(SEED + 1, (OPS_M, K), device=dev) if sr else None
+        rb = counter_bits(SEED + 2, (K, N), device=dev) if sr else None
+        return a, b, sa, sb, ra, rb
+
+    def gemms(a, b, sa, sb, ra, rb):
+        """What a user of the API runs: K2 on A and on B^T (B's blocks run
+        along K), B's codes and scales transposed into K3's layout, K3;
+        then K1 on the same raw operands.  Events around K2 (both
+        operands), K3 and K1; the transposes lie outside them."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        bt = b.T.contiguous()
+        rbt = None if rb is None else rb.T.contiguous()
+        ev[0].record()
+        ac, asc = ops.block_quantize(a, sa, rbits=ra)
+        bct, bsct = ops.block_quantize(bt, sb, rbits=rbt)
+        ev[1].record()
+        bc, bsc = bct.T.contiguous(), bsct.T.contiguous()
+        ts = ref.tensor_scale_ref(a, sa) * ref.tensor_scale_ref(b, sb)
+        ev[2].record()
+        out = ops.block_matmul(ac, asc, bc, bsc, ts, block=sa.block)
+        ev[3].record()
+        fused = ops.fused_quant_matmul(a, b, sa, sb, a_rbits=ra, b_rbits=rb)
+        ev[4].record()
+        return (ac, asc), (bct, bsct), out, fused, ev
+
+    # warm-up at a small shape (first launches load the modules), not counted
+    gemms(*inputs(256, 128, True))
+    torch.cuda.synchronize(dev)
+
+    runs = []
+    counters.reset()
+    for K, N, sr in cases:
+        args = inputs(K, N, sr)
+        runs.append((K, N, sr, args) + gemms(*args))
+    torch.cuda.synchronize(dev)
+    launches = counters.snapshot()
+    n = len(cases)
+    want = {k: 0 for k in counters.COUNTS}
+    want.update(block_quantize=2 * n, block_matmul=n, fused_quant_matmul=n)
+    emit({"phase": "ops", "gemms": n, "launches": launches,
+          "expected_launches": want})
+    if launches != want:
+        raise AssertionError(f"ops: launch counts {launches} != {want}")
+
+    failures = []
+    for K, N, sr, (a, b, sa, sb, ra, rb), qa, qb, out, fused, ev in runs:
+        case = f"M={OPS_M} K={K} N={N} {'sr' if sr else 'rtn'}"
+        checks = {}
+        want_a = block_quantize_plain(a, sa, rbits=ra)
+        want_b = block_quantize_plain(
+            b.T.contiguous(), sb, rbits=None if rb is None else rb.T)
+        for what, got, want_q in (("A codes", qa[0], want_a[0]),
+                                  ("A scales", qa[1], want_a[1]),
+                                  ("B^T codes", qb[0], want_b[0]),
+                                  ("B^T scales", qb[1], want_b[1])):
+            checks["K2 " + what] = compare_bits(got, want_q)
+        ts = ref.tensor_scale_ref(a, sa) * ref.tensor_scale_ref(b, sb)
+        checks["K3"] = compare(out, block_matmul_plain(
+            qa[0], qa[1], qb[0].T, qb[1].T, ts))
+        # the chain against K1: rtol = atol = 1e-5 relative to max |out|
+        err = (out - fused).abs()
+        peak = float(fused.abs().max())
+        checks["chain vs K1"] = {
+            "ok": bool((err <= 1e-5 * (fused.abs() + peak)).all())
+            and bool(torch.isfinite(out).all()),
+            "max_abs_err": float(err.max()), "max_abs_out": peak,
+            "rule": "rtol = atol = 1e-5 of max |out|"}
+        emit({"phase": "ops", "case": case,
+              "k2_both_ms": ev[0].elapsed_time(ev[1]),
+              "k3_ms": ev[2].elapsed_time(ev[3]),
+              "k1_ms": ev[3].elapsed_time(ev[4]), "checks": checks})
+        failures += [(case, k) for k, v in checks.items() if not v["ok"]]
+    runs.clear()
+    if failures:
+        raise AssertionError(f"ops: checks failed: {failures}")
+    return {"launches": launches}
+
+
 def train_breakdown(train_step, state, data, step, dev) -> dict:
     """Device time by kernel and the device idle share of one profiled
     train step (torch.profiler)."""
@@ -982,6 +1172,7 @@ def phase_times(dev) -> dict:
     from repro_torch.core.quantize import NVFP4, kv_dequant
     from repro_torch.kernels import flash_attn as fa
     from repro_torch.kernels import fp4_matmul as fm
+    from repro_torch.kernels import nvfp4_quant as nq
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)  # 256 MB
     rows = {}
 
@@ -1089,17 +1280,46 @@ def phase_times(dev) -> dict:
             del a, b, ra, rb
         emit({"phase": "times", "kernel": fm.FUSED_NAME,
               "train_step_k1_ms": step_ms})
+        # K2 at (4096, 4096) f32, the forward spec (NVFP4 RtN, computed
+        # tensor scale): x read once, f32 codes and scales written.  Its
+        # f32 operations (~10 a value, 0.0025 ms at 67 TFLOP/s) lie far
+        # below the bytes; no single PyTorch call computes it.
+        M = K = 4096
+        x = torch.randn((M, K), generator=gen(dev, SEED), device=dev) * 3
+        record(nq.NAME, (M, K, "float32"),
+               lambda: nq.block_quantize(x, NVFP4),
+               lambda: nq.block_quantize_plain(x, NVFP4), None,
+               4 * M * K * 2 + 4 * M * K // 16, 0)
+        del x
+        # K3 at 4096^3 on f32 codes; the yardstick is torch.matmul on the
+        # bf16-dequantized operands
+        ac, asc, bc, bsc, ts = k3_inputs(M, K, K, torch.float32, dev)
+        ad = (ac * asc.repeat_interleave(16, dim=1)).to(torch.bfloat16)
+        bd = (bc * bsc.repeat_interleave(16, dim=0)).to(torch.bfloat16)
+        record(fm.BLOCK_NAME, (M, K, K),
+               lambda: fm.block_matmul(ac, asc, bc, bsc, ts),
+               lambda: fm.block_matmul_plain(ac, asc, bc, bsc, ts),
+               lambda: torch.matmul(ad, bd),
+               4 * (2 * M * K + M * K) + 4 * 2 * M * K // 16 + 4,
+               2 * M * K * K, reps=5)
     return rows
 
 
 # the representative case of each kernel in the summary line: the launch the
-# main path makes most often (K4: decode, wq/wk/wv/wo; K5: run A's decode;
+# main path makes most often (K2, K3: the unfused GEMM's square shape, K2 on
+# f32; K4: decode, wq/wk/wv/wo; K5: run A's decode;
 # K6: decode at the middle of the run; K7: prefill, f32 operands as
 # attention_core passes them)
 SUMMARY = {
     "fused_quant_matmul": (("fwd", 4096, 4096, 4096), "cuda",
                            "src/repro_torch/kernels/csrc/fused_quant_matmul.cu",
                            "src/repro/kernels/fp4_matmul.py:208"),
+    "block_quantize": ((4096, 4096, "float32"), "cuda",
+                       "src/repro_torch/kernels/csrc/block_quantize.cu",
+                       "src/repro/kernels/nvfp4_quant.py:101"),
+    "block_matmul": ((4096, 4096, 4096), "cuda",
+                     "src/repro_torch/kernels/csrc/block_matmul.cu",
+                     "src/repro/kernels/fp4_matmul.py:71"),
     "packed_block_matmul": ((4, 4096, 4096), "cuda",
                             "src/repro_torch/kernels/csrc/fp4_matmul.cu",
                             "src/repro/kernels/fp4_matmul.py:309"),
@@ -1139,19 +1359,22 @@ def main(argv=None) -> int:
         results[p] = {"env": phase_env, "kernels": phase_kernels,
                       "serve": phase_serve,
                       "serve_continuous": phase_serve_continuous,
-                      "train": phase_train, "times": phase_times}[p](dev)
+                      "train": phase_train, "ops": phase_ops,
+                      "times": phase_times}[p](dev)
         emit({"phase": p, "done": True,
               "seconds": round(time.perf_counter() - t0, 3)})
     print(card_line(), flush=True)
     if set(PHASES) - {"env"} <= set(phases):
         # each kernel's launches on the main path that runs it: K4, K6, K7
         # in the lockstep serve, K5 over runs A and B of the continuous
-        # engine, K1 in training
+        # engine, K1 in training, K2 and K3 in the unfused GEMMs of ops
         launches = dict(results["serve"]["launches"])
         launches["flash_attention_paged"] = \
             results["serve_continuous"]["launches"]["flash_attention_paged"]
         launches["fused_quant_matmul"] = \
             results["train"]["launches"]["fused_quant_matmul"]
+        for name in ("block_quantize", "block_matmul"):
+            launches[name] = results["ops"]["launches"][name]
         line = []
         for name, (case, route, src, replaces) in SUMMARY.items():
             row = results["times"][(name, case)]

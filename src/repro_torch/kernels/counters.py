@@ -11,6 +11,8 @@ from typing import Dict
 
 COUNTS: Dict[str, int] = {
     "fused_quant_matmul": 0,
+    "block_quantize": 0,
+    "block_matmul": 0,
     "packed_block_matmul": 0,
     "flash_attention_paged": 0,
     "flash_attention_packed": 0,

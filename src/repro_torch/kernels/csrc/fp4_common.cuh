@@ -1,8 +1,8 @@
 // Minifloat helpers shared by the port's CUDA kernels: the __device__
 // versions of the K0 helpers in repro/kernels/common.py (plain PyTorch
-// versions: repro_torch/kernels/common.py), and the block quantizer of a
-// GEMM operand that K1 and K4 share (absmax -> tensor scale -> block scales
-// -> codes, in the TPU kernels' order of operations).
+// versions: repro_torch/kernels/common.py), and the block quantizer that
+// K1, K2 and K4 share (absmax -> tensor scale -> block scales -> codes, in
+// the TPU kernels' order of operations).
 //
 // Bit-exactness rules, held by chip_smoke.py against the plain versions:
 //   * built without --use_fast_math: IEEE division (__fdiv_rn), no
@@ -157,9 +157,40 @@ struct QuantParams {
   float ts_denom;  // data_max * scale_max
 };
 
+// Quantize one block of `block` values x[base + i * stride] (RtN, or SR
+// from rbits at the same indices) in the TPU kernels' order of operations:
+// absmax, the block scale (E8M0, or RtN onto the scale format of
+// amax / (data_max * ts)), codes = Q(x / (scale * ts)).  Calls
+// store(j, code, scale) for each value and returns the block scale.
+template <class Store>
+__device__ __forceinline__ float quant_block(
+    const void* __restrict__ x, int x_bf16, const uint32_t* __restrict__ rbits,
+    size_t base, size_t stride, int block, const QuantParams& qp, float ts,
+    Store store) {
+  float absmax = 0.f;
+  for (int i = 0; i < block; ++i)
+    absmax = fmaxf(absmax, fabsf(load_f(x, base + i * stride, x_bf16)));
+  const FmtParams dp{qp.data_man_bits, qp.data_emin, qp.data_emax,
+                     qp.data_max};
+  const FmtParams sp{qp.scale_man_bits, qp.scale_emin, qp.scale_emax,
+                     qp.scale_max};
+  float scale = qp.e8m0 ? e8m0_block_scale(absmax, dp.emax)
+                        : generic_block_scale(absmax, dp.max, sp, ts);
+  float denom = __fmul_rn(scale, ts);
+  for (int i = 0; i < block; ++i) {
+    size_t j = base + i * stride;
+    float scaled = __fdiv_rn(load_f(x, j, x_bf16), denom);
+    float code = rbits ? quantize_sr(scaled, dp, uniform_from_bits(rbits[j]))
+                       : quantize_rtn(scaled, dp);
+    store(j, code, scale);
+  }
+  return scale;
+}
+
 // One thread per block of `block` values.  along_rows = 0: x is (R, C)
 // blocked along C (A); along_rows = 1: blocked along R (B), so
-// neighbouring threads read neighbouring addresses.
+// neighbouring threads read neighbouring addresses.  Writes code * scale
+// (exact in f32) to xq.
 __global__ void quant_blocks_kernel(const void* __restrict__ x, int x_bf16,
                                     const uint32_t* __restrict__ rbits,
                                     size_t n_blocks, int block, int cols,
@@ -178,23 +209,10 @@ __global__ void quant_blocks_kernel(const void* __restrict__ x, int x_bf16,
     base = (idx / cols) * block * size_t(cols) + idx % cols;
     stride = cols;
   }
-  float absmax = 0.f;
-  for (int i = 0; i < block; ++i)
-    absmax = fmaxf(absmax, fabsf(load_f(x, base + i * stride, x_bf16)));
-  const FmtParams dp{qp.data_man_bits, qp.data_emin, qp.data_emax,
-                     qp.data_max};
-  const FmtParams sp{qp.scale_man_bits, qp.scale_emin, qp.scale_emax,
-                     qp.scale_max};
-  float scale = qp.e8m0 ? e8m0_block_scale(absmax, dp.emax)
-                        : generic_block_scale(absmax, dp.max, sp, ts);
-  float denom = __fmul_rn(scale, ts);
-  for (int i = 0; i < block; ++i) {
-    size_t j = base + i * stride;
-    float scaled = __fdiv_rn(load_f(x, j, x_bf16), denom);
-    float code = rbits ? quantize_sr(scaled, dp, uniform_from_bits(rbits[j]))
-                       : quantize_rtn(scaled, dp);
-    xq[j] = __fmul_rn(code, scale);
-  }
+  quant_block(x, x_bf16, rbits, base, stride, block, qp, ts,
+              [xq](size_t j, float code, float scale) {
+                xq[j] = __fmul_rn(code, scale);
+              });
 }
 
 // Quantize a (rows, cols) operand in blocks of `block` along its columns

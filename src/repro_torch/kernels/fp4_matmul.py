@@ -1,10 +1,14 @@
-"""The block-scaled FP4 GEMMs: K1 ``fused_quant_matmul`` and K4
-``packed_block_matmul``.
+"""The block-scaled FP4 GEMMs: K1 ``fused_quant_matmul``, K3
+``block_matmul`` and K4 ``packed_block_matmul``.
 
   * K1, the training GEMM (forward, backward dX and update dW of
     ``core/fqt.py``): both raw operands are block-quantized on the fly.
     Replaces ``repro/kernels/fp4_matmul.py::fused_quant_matmul``; CUDA
     source ``csrc/fused_quant_matmul.cu``.
+  * K3, the GEMM of pre-quantized operands (codes and f32 block scales, as
+    K2 ``nvfp4_quant.block_quantize`` writes them), reached through
+    ``ops.block_matmul``.  Replaces ``repro/kernels/fp4_matmul.py::
+    block_matmul``; CUDA source ``csrc/block_matmul.cu``.
   * K4, the serving GEMM (every weight GEMM and the lm_head): quantize-A x
     packed-NVFP4-B.  Replaces ``repro/kernels/fp4_matmul.py::
     packed_block_matmul``; CUDA source ``csrc/fp4_matmul.cu``.
@@ -24,9 +28,12 @@ from repro_torch.core.quantize import (NVFP4, BlockQuantSpec,
                                        PackedQuantizedTensor, _tensor_scale)
 from repro_torch.kernels import common as c
 from repro_torch.kernels import counters
+from repro_torch.kernels.nvfp4_quant import (_QuantParams, quant_blocks,
+                                             rbits_ptr)
 
 NAME = "packed_block_matmul"
 FUSED_NAME = "fused_quant_matmul"
+BLOCK_NAME = "block_matmul"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -40,41 +47,11 @@ def _quantized_operand(x: torch.Tensor, spec: BlockQuantSpec,
     xf = x.to(torch.float32)
     if along_rows:
         xf = xf.T
-    R, C = xf.shape
-    B = spec.block
+        rbits = None if rbits is None else rbits.T
     ts = _tensor_scale(torch.amax(torch.abs(xf)), spec)
-    xb = xf.reshape(R, C // B, B)
-    absmax = torch.amax(torch.abs(xb), dim=-1)
-    data_p = c.FmtParams.of(spec.data)
-    if spec.scale_fmt == "e8m0":
-        scales = c.e8m0_block_scale_k(absmax, data_p.emax)
-    else:
-        scales = c.generic_block_scale_k(absmax, data_p.max,
-                                         c.FmtParams.of(spec.scale), ts)
-    scaled = xb / (scales.unsqueeze(-1) * ts)
-    if spec.stochastic:
-        u = c.uniform_from_bits_k(rbits.T if along_rows else rbits)
-        qv = c.quantize_sr_k(scaled, data_p, u.reshape(R, C // B, B))
-    else:
-        qv = c.quantize_rtn_k(scaled, data_p)
-    deq = (qv * scales.unsqueeze(-1)).reshape(R, C)
+    codes, scales = quant_blocks(xf, spec, ts, rbits)
+    deq = (codes * scales.unsqueeze(-1)).reshape(xf.shape)
     return (deq.T if along_rows else deq), ts
-
-
-class _QuantParams(ctypes.Structure):
-    """``fp4::QuantParams`` of csrc/fp4_common.cuh: one operand's spec."""
-    _fields_ = [("data_man_bits", _I), ("data_emin", _I), ("data_emax", _I),
-                ("data_max", ctypes.c_float), ("scale_man_bits", _I),
-                ("scale_emin", _I), ("scale_emax", _I),
-                ("scale_max", ctypes.c_float), ("e8m0", _I),
-                ("two_level", _I), ("ts_denom", ctypes.c_float)]
-
-    @classmethod
-    def of(cls, spec: BlockQuantSpec) -> "_QuantParams":
-        d, s = spec.data, spec.scale
-        return cls(d.man_bits, d.emin, d.emax, d.max, s.man_bits, s.emin,
-                   s.emax, s.max, int(spec.scale_fmt == "e8m0"),
-                   int(spec.two_level), d.max * s.max)
 
 
 def packed_block_matmul_plain(a: torch.Tensor, b_packed: torch.Tensor,
@@ -165,12 +142,8 @@ def packed_block_matmul(a: torch.Tensor, b_packed: torch.Tensor,
     for t in (b_packed, b_scales, b_tscale):
         if t.device != dev:
             raise ValueError("all operands must be on the same device")
-    rb_ptr = None
-    if spec_a.stochastic:
-        if a_rbits.dtype not in (torch.int32, torch.uint32) \
-                or not a_rbits.is_contiguous() or a_rbits.device != dev:
-            raise ValueError("a_rbits must be contiguous 32-bit on a's device")
-        rb_ptr = a_rbits.data_ptr()
+    rb_ptr = rbits_ptr("a_rbits", a_rbits, dev) if spec_a.stochastic \
+        else None
     amax_ws = torch.empty(1, dtype=torch.int32, device=dev)
     tsa_ws = torch.empty(1, dtype=torch.float32, device=dev)
     aq_ws = torch.empty((M, K), dtype=torch.float32, device=dev)
@@ -278,16 +251,9 @@ def fused_quant_matmul(a: torch.Tensor, b: torch.Tensor,
                 or not t.is_contiguous() or t.device != dev:
             raise ValueError(f"{name} must be contiguous bf16 or f32 on "
                              f"{dev}")
-    rb_ptrs = []
-    for name, spec, rb in (("a", spec_a, a_rbits), ("b", spec_b, b_rbits)):
-        if not spec.stochastic:
-            rb_ptrs.append(None)
-            continue
-        if rb.dtype not in (torch.int32, torch.uint32) \
-                or not rb.is_contiguous() or rb.device != dev:
-            raise ValueError(f"{name}_rbits must be contiguous 32-bit on "
-                             f"{dev}")
-        rb_ptrs.append(rb.data_ptr())
+    rb_ptrs = [rbits_ptr(f"{name}_rbits", rb, dev) if spec.stochastic
+               else None for name, spec, rb in (("a", spec_a, a_rbits),
+                                                ("b", spec_b, b_rbits))]
     ws_amax = torch.empty(2, dtype=torch.int32, device=dev)
     ws_ts = torch.empty(2, dtype=torch.float32, device=dev)
     aq_ws = torch.empty((M, K), dtype=torch.float32, device=dev)
@@ -305,4 +271,90 @@ def fused_quant_matmul(a: torch.Tensor, b: torch.Tensor,
         raise RuntimeError(f"{FUSED_NAME} kernel launch failed: cudaError_t "
                            f"{err}")
     counters.bump(FUSED_NAME)
+    return out
+
+
+# ---- K3: block_matmul ------------------------------------------------------------
+
+
+def block_matmul_plain(a_codes: torch.Tensor, a_scales: torch.Tensor,
+                       b_codes: torch.Tensor, b_scales: torch.Tensor,
+                       tscale, *, block: int = 16) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: (codes * repeated block
+    scales) of each operand, f32 matmul, times ``tscale``."""
+    ad = a_codes.to(torch.float32) * torch.repeat_interleave(
+        a_scales.to(torch.float32), block, dim=1)
+    bd = b_codes.to(torch.float32) * torch.repeat_interleave(
+        b_scales.to(torch.float32), block, dim=0)
+    ts = torch.as_tensor(tscale, dtype=torch.float32, device=ad.device)
+    return torch.matmul(ad, bd) * ts
+
+
+def _check_block(a_codes, a_scales, b_codes, b_scales, block):
+    if a_codes.ndim != 2 or b_codes.ndim != 2:
+        raise ValueError(f"operands must be 2-D, got {tuple(a_codes.shape)} "
+                         f"@ {tuple(b_codes.shape)}")
+    M, K = a_codes.shape
+    K2, N = b_codes.shape
+    if K != K2:
+        raise ValueError(f"contraction mismatch: {tuple(a_codes.shape)} @ "
+                         f"{tuple(b_codes.shape)}")
+    if K % block:
+        raise ValueError(f"K={K} not divisible by block={block}")
+    for name, t, shape in (("a_scales", a_scales, (M, K // block)),
+                           ("b_scales", b_scales, (K // block, N))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
+    return M, N, K
+
+
+def _block_lib():
+    from repro_torch.kernels import _build
+    fn = _build.library("block_matmul").fp4_block_matmul
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P]
+        fn.restype = _I
+    return fn
+
+
+def block_matmul(a_codes: torch.Tensor, a_scales: torch.Tensor,
+                 b_codes: torch.Tensor, b_scales: torch.Tensor,
+                 tscale: torch.Tensor, *, block: int = 16) -> torch.Tensor:
+    """(M, K) @ (K, N) of pre-quantized operands -> f32 (M, N) * tscale.
+
+    A codes (M, K) with f32 scales (M, K/block), B codes (K, N) with f32
+    scales (K/block, N), both blocked along K; codes f32 or bf16.  On the
+    card ``tscale`` is an f32 device scalar that the kernel reads in its
+    epilogue (no host sync) and every operand must be contiguous.
+    """
+    M, N, K = _check_block(a_codes, a_scales, b_codes, b_scales, block)
+    if a_codes.device.type == "cpu":
+        return block_matmul_plain(a_codes, a_scales, b_codes, b_scales,
+                                  tscale, block=block)
+    if a_codes.device.type != "cuda":
+        raise ValueError(f"unsupported device {a_codes.device}")
+    # ---- what the CUDA kernel takes ----
+    dev = a_codes.device
+    for name, t in (("a_codes", a_codes), ("b_codes", b_codes)):
+        if t.dtype not in (torch.bfloat16, torch.float32) \
+                or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name} must be contiguous bf16 or f32 on {dev}")
+    for name, t in (("a_scales", a_scales), ("b_scales", b_scales)):
+        if t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.device != dev:
+            raise ValueError(f"{name} must be contiguous f32 on {dev}")
+    if not isinstance(tscale, torch.Tensor) or tscale.dtype != torch.float32 \
+            or tscale.numel() != 1 or tscale.device != dev:
+        raise ValueError(f"tscale must be one f32 value on {dev}")
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    err = _block_lib()(
+        a_codes.data_ptr(), int(a_codes.dtype == torch.bfloat16),
+        a_scales.data_ptr(), b_codes.data_ptr(),
+        int(b_codes.dtype == torch.bfloat16), b_scales.data_ptr(),
+        tscale.data_ptr(), M, N, K, block, out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{BLOCK_NAME} kernel launch failed: cudaError_t "
+                           f"{err}")
+    counters.bump(BLOCK_NAME)
     return out

@@ -55,6 +55,7 @@ def test_no_jax_or_repro_import(path):
 def test_scan_sees_the_whole_port():
     names = {p.relative_to(PORT).as_posix() for p in FILES[:-1]}
     assert {"kernels/fp4_matmul.py", "kernels/flash_attn.py",
+            "kernels/ref.py", "kernels/nvfp4_quant.py", "kernels/ops.py",
             "serve/engine.py", "launch/serve.py", "convert.py"} <= names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
     assert not _forbidden("repro_torch.core")
