@@ -7,12 +7,25 @@
 
 Phases, each printing JSON lines; any failure exits non-zero:
 
-  env      torch/CUDA versions, the card's name and power limit, and the
-           build of every ``csrc/*.cu`` kernel from the checkout (nvcc).
+  env      torch/CUDA versions, the card's name and power limit, the
+           build of every ``csrc/*.cu`` kernel from the checkout (nvcc), and
+           the count of HGMMA (wgmma) instructions in the SASS of K1's and
+           K3's libraries (cuobjdump), which must not be 0.
   kernels  each hand-written kernel against its plain PyTorch version on the
            same card tensors, at the main path's shapes: f32 outputs at
            rtol = atol = 1e-5, bf16 outputs to one bf16 ulp (+ 1e-5), the
-           K2 quantizer's codes and scales bit for bit.
+           K2 quantizer's codes and scales bit for bit.  K1 and K3 run
+           their products on the tensor-core core (csrc/fp4_gemm.cuh),
+           whose wgmma sums in another order than the plain version's f32
+           matmul, so they are held to the forward-error bound of f32
+           summation of exact products in any order, truncation allowed:
+               |out - plain| <= (K/16 + 16) * 2^-23 * (|A'| @ |B'|)
+                                * tsA * tsB + 1e-5
+           elementwise, A' and B' the dequantized operands (code x block
+           scale), plus one bf16 ulp for bf16 outputs.  K1 in counter mode
+           (SR bits hashed in the kernel) must equal K1 given the same bits
+           as tensors bit for bit, and a spec pair that is not bf16-exact
+           (E3M4 data) takes K1's f32 route and the f32 rule above.
   serve    the lockstep Engine serving llama2-7b at full width from packed
            NVFP4 weights (random, seeded) with an nvfp4 KV cache: batch 4,
            prompt 64, 32 new tokens, greedy.  The launch counts are zeroed
@@ -48,12 +61,17 @@ Phases, each printing JSON lines; any failure exits non-zero:
            block_matmul, and K1 fused_quant_matmul on the same raw
            operands.  The launch counts (zeroed just before) must be 2 K2
            + 1 K3 + 1 K1 per GEMM; K2 must equal its plain version bit for
-           bit, K3 its plain version at rtol = atol = 1e-5, and the chain
-           K2 -> K2 -> K3 must equal K1 within 1e-5 of max |out|.
+           bit, K3 its plain version under the tensor-core rule of phase
+           kernels, and the chain K2 -> K2 -> K3 must equal K1 within 1e-5
+           of max |out|.
   times    median CUDA-event time of each kernel at the main paths' shapes
            (L2 flushed before every launch, as a step finds its operands
            cold), beside its bound, its plain version and one PyTorch call
-           computing the same function (a yardstick the port never calls).
+           computing the same function (a yardstick the port never calls);
+           K1 at every train GEMM with its SR operands in counter mode, as
+           the train step runs it; and the device time of each launch
+           inside one K1 call (absmax, quantizer, GEMM core) and one K3
+           call (pre-pass, GEMM core).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -208,6 +226,47 @@ def compare_bits(got, want) -> dict:
             "rule": "bit for bit"}
 
 
+def compare_tc(got, want, ad, bd, ts) -> dict:
+    """K1 and K3 on the tensor-core core against their plain versions: the
+    forward-error bound of f32 summation of exact products in any order,
+    truncation allowed, |got - want| <= (K/16 + 16) * 2^-23 * (|A'| @ |B'|)
+    * ts + 1e-5 elementwise (A' (M, K), B' (K, N) the dequantized operands,
+    ts = tsA * tsB), plus one bf16 ulp for bf16 outputs."""
+    import torch
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{got.dtype}{tuple(got.shape)} vs "
+                             f"{want.dtype}{tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError("kernel output is not finite")
+    K = ad.shape[1]
+    tol = ((K / 16 + 16) * 2.0 ** -23
+           * torch.matmul(ad.abs(), bd.abs()) * ts + 1e-5)
+    rule = "(K/16+16) 2^-23 |A'|@|B'| ts + 1e-5"
+    if got.dtype == torch.bfloat16:
+        tol = tol + bf16_ulp(torch.maximum(g.abs(), w.abs()))
+        rule += " + 1 bf16 ulp"
+    err = (g - w).abs()
+    return {"ok": bool((err <= tol).all()), "max_abs_err": float(err.max()),
+            "max_err_over_tol": float((err / tol).max()), "rule": rule}
+
+
+def k1_operands(a, b, spec_a, spec_b, ra, rb):
+    """K1's dequantized operands A' (M, K) and B' (K, N) in f32 and tsA *
+    tsB, as its plain version computes them."""
+    from repro_torch.kernels import fp4_matmul as fm
+    ad, tsa = fm._quantized_operand(a, spec_a, ra, along_rows=False)
+    bd, tsb = fm._quantized_operand(b, spec_b, rb, along_rows=True)
+    return ad, bd, tsa * tsb
+
+
+def k3_operands(ac, asc, bc, bsc, ts, block=16):
+    """K3's dequantized operands A' (M, K) and B' (K, N) in f32, and ts."""
+    ad = ac.float() * asc.repeat_interleave(block, dim=1)
+    bd = bc.float() * bsc.repeat_interleave(block, dim=0)
+    return ad, bd, ts
+
+
 # ---- inputs at the main path's shapes -----------------------------------------------
 
 
@@ -290,8 +349,12 @@ def k3_inputs(M, K, N, dtype, dev, seed=SEED):
     return ac, asc, bct.T.contiguous(), bsct.T.contiguous(), ts
 
 
-def k1_inputs(M, K, N, fmt, sr_a, sr_b, scale_a, scale_b, dev, seed=SEED):
-    """bf16 operands and, for SR operands, counter bits of their shapes."""
+def k1_inputs(M, K, N, fmt, sr_a, sr_b, scale_a, scale_b, dev, seed=SEED,
+              a_transposed=False):
+    """bf16 operands and, for SR operands, counter bits of their shapes as
+    tensors and as K1's counters (seed, row_stride, col_stride).  With
+    a_transposed, A's bits are those of its (K, M) transpose, as the update
+    GEMM's x^T takes them."""
     import torch
     from repro_torch.core.formats import counter_bits
     from repro_torch.core.quantize import MXFP4, NVFP4
@@ -302,12 +365,43 @@ def k1_inputs(M, K, N, fmt, sr_a, sr_b, scale_a, scale_b, dev, seed=SEED):
          ).to(torch.bfloat16)
     base = NVFP4 if fmt == "nvfp4" else MXFP4
     spec_a, spec_b = base.with_rounding(sr_a), base.with_rounding(sr_b)
-    ra = counter_bits(seed + 1, (M, K), device=dev) if sr_a else None
-    rb = counter_bits(seed + 2, (K, N), device=dev) if sr_b else None
-    return a, b, spec_a, spec_b, ra, rb
+    ra = rb = ca = cb = None
+    if sr_a and a_transposed:
+        ra = counter_bits(seed + 1, (K, M), device=dev).T.contiguous()
+        ca = (seed + 1, 1, M)
+    elif sr_a:
+        ra, ca = counter_bits(seed + 1, (M, K), device=dev), (seed + 1, K, 1)
+    if sr_b:
+        rb, cb = counter_bits(seed + 2, (K, N), device=dev), (seed + 2, N, 1)
+    return a, b, spec_a, spec_b, ra, rb, ca, cb
 
 
 # ---- phases ------------------------------------------------------------------------
+
+
+def cuobjdump() -> str:
+    """The toolkit's cuobjdump, or the copy Triton's package carries."""
+    import importlib.util
+    import shutil
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    cands = [Path("/usr/local/cuda/bin/cuobjdump")]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.submodule_search_locations:
+        cands += [Path(p) / "backends" / "nvidia" / "bin" / "cuobjdump"
+                  for p in spec.submodule_search_locations]
+    for c in cands:
+        if c.exists():
+            return str(c)
+    raise RuntimeError("cuobjdump not found")
+
+
+def hgmma_count(lib: Path) -> int:
+    """HGMMA (wgmma) instructions in the SASS of a built library."""
+    r = subprocess.run([cuobjdump(), "-sass", str(lib)], capture_output=True,
+                       text=True, timeout=300, check=True)
+    return sum("HGMMA" in ln for ln in r.stdout.splitlines())
 
 
 def phase_env(dev) -> dict:
@@ -326,14 +420,19 @@ def phase_env(dev) -> dict:
     spills = {k: [ln.strip() for ln in v.splitlines()
                   if "spill" in ln and "0 bytes spill" not in ln]
               for k, v in ptxas.items()}
+    hgmma = {stem: hgmma_count(_build.library_path(stem))
+             for stem in ("fused_quant_matmul", "block_matmul")}
     info = {"phase": "env", "python": sys.version.split()[0],
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "card": card_line(), "kind": torch.cuda.get_device_name(dev),
             "count": torch.cuda.device_count(),
             "libraries": sorted(libs), "build_s": round(build_s, 3),
             "nvcc_seconds": round(_build.build_seconds, 3),
-            "spilling_kernels": {k: v for k, v in spills.items() if v}}
+            "spilling_kernels": {k: v for k, v in spills.items() if v},
+            "hgmma_instructions": hgmma}
     emit(info)
+    if not all(hgmma.values()):
+        raise AssertionError(f"no HGMMA in the SASS of {hgmma}")
     return info
 
 
@@ -358,8 +457,13 @@ def phase_kernels(dev) -> dict:
             failures.append((name, case))
 
     for label, M, K, N, fmt, sr_a, sr_b, sc_a, sc_b in K1_CASES:
-        a, b, spec_a, spec_b, ra, rb = k1_inputs(M, K, N, fmt, sr_a, sr_b,
-                                                 sc_a, sc_b, dev)
+        a, b, spec_a, spec_b, ra, rb, ca, cb = k1_inputs(
+            M, K, N, fmt, sr_a, sr_b, sc_a, sc_b, dev,
+            a_transposed=label.startswith("dW"))
+        route = fm.k1_route(spec_a, spec_b)
+        if route != "core":
+            failures.append((fm.FUSED_NAME, f"{label}: route {route}"))
+        operands = k1_operands(a, b, spec_a, spec_b, ra, rb)
         for out_dtype in (torch.float32, torch.bfloat16):
             got = fm.fused_quant_matmul(a, b, spec_a, spec_b, a_rbits=ra,
                                         b_rbits=rb, out_dtype=out_dtype)
@@ -367,10 +471,38 @@ def phase_kernels(dev) -> dict:
                                                a_rbits=ra, b_rbits=rb,
                                                out_dtype=out_dtype)
             torch.cuda.synchronize(dev)
-            check(fm.FUSED_NAME, f"{label} M={M} K={K} N={N} {fmt} "
-                  f"sr={int(sr_a)}{int(sr_b)} {str(out_dtype)[6:]}",
-                  got, want)
-        del a, b, ra, rb, got, want
+            case = (f"{label} M={M} K={K} N={N} {fmt} sr={int(sr_a)}"
+                    f"{int(sr_b)} {str(out_dtype)[6:]} route {route}")
+            check(fm.FUSED_NAME, case,
+                  got, want, lambda g, w: compare_tc(g, w, *operands))
+            if sr_a or sr_b:
+                # the same bits hashed in the kernel (counter mode)
+                hashed = fm.fused_quant_matmul(
+                    a, b, spec_a, spec_b, out_dtype=out_dtype, a_counter=ca,
+                    b_counter=cb)
+                torch.cuda.synchronize(dev)
+                check(fm.FUSED_NAME, case + " counter mode vs bits", hashed,
+                      got, compare_bits)
+        del a, b, ra, rb, got, want, operands
+    # K1's f32 route: E3M4 data under E4M3 scales is not bf16-exact (4 + 3
+    # mantissa bits); SR on both operands in counter mode
+    e3m4 = BlockQuantSpec(data_fmt="e3m4", scale_fmt="e4m3", block=16,
+                          two_level=True, stochastic=True)
+    M, K, N = 512, 256, 384
+    g = gen(dev, SEED)
+    a, b = (torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+            for s in ((M, K), (K, N)))
+    route = fm.k1_route(e3m4, e3m4)
+    if route != "f32":
+        failures.append((fm.FUSED_NAME, f"e3m4: route {route}"))
+    for out_dtype in (torch.float32, torch.bfloat16):
+        kw = dict(out_dtype=out_dtype, a_counter=(SEED + 5, K, 1),
+                  b_counter=(SEED + 6, N, 1))
+        got = fm.fused_quant_matmul(a, b, e3m4, e3m4, **kw)
+        want = fm.fused_quant_matmul_plain(a, b, e3m4, e3m4, **kw)
+        torch.cuda.synchronize(dev)
+        check(fm.FUSED_NAME, f"e3m4/e4m3 M={M} K={K} N={N} sr=11 counter "
+              f"{str(out_dtype)[6:]} route {route}", got, want)
 
     # K2: every spec x f32/bf16 x a given or computed tensor scale
     for M, K in K2_SHAPES:
@@ -399,9 +531,11 @@ def phase_kernels(dev) -> dict:
             got = fm.block_matmul(*args)
             want = fm.block_matmul_plain(*args)
             torch.cuda.synchronize(dev)
+            operands = k3_operands(*args)
             check(fm.BLOCK_NAME, f"M={OPS_M} K={K} N={N} codes "
-                  f"{str(dtype)[6:]}", got, want)
-            del args, got, want
+                  f"{str(dtype)[6:]}", got, want,
+                  lambda g, w: compare_tc(g, w, *operands))
+            del args, got, want, operands
 
     for M, K, N in K4_SHAPES + K4_CONT_SHAPES:
         a, w = k4_inputs(M, K, N, dev)
@@ -829,10 +963,11 @@ def phase_serve_continuous(dev) -> dict:
     return out
 
 
-def device_time(prof, wall_ms, top=15) -> dict:
+def device_time(prof, wall_ms, top=15, groups=None) -> dict:
     """Device busy time of a torch.profiler run: the union of the intervals
     of its device-side events (kernels, copies, sets; CUPTI's "Command
-    Buffer Full" overhead marker is no device work), and the time by name.
+    Buffer Full" overhead marker is no device work), the time by name, and
+    the summed time of each of ``groups`` ({label: name substrings}).
     Host-side ranges (aten ops, autograd Functions) are left out: their
     "device time" repeats that of the kernels they launched."""
     from torch.autograd import DeviceType
@@ -852,9 +987,13 @@ def device_time(prof, wall_ms, top=15) -> dict:
             end = t1
     busy_ms = busy / 1e3
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return {"device_busy_ms": busy_ms,
-            "device_idle_share": (1 - busy_ms / wall_ms) if spans else None,
-            "device_ms_by_kernel": {k: round(v, 4) for k, v in ranked}}
+    out = {"device_busy_ms": busy_ms,
+           "device_idle_share": (1 - busy_ms / wall_ms) if spans else None,
+           "device_ms_by_kernel": {k: round(v, 4) for k, v in ranked}}
+    for label, subs in (groups or {}).items():
+        out[label] = sum(v for k, v in by_name.items()
+                         if any(sub in k for sub in subs))
+    return out
 
 
 # ---- training -----------------------------------------------------------------------
@@ -1104,8 +1243,9 @@ def phase_ops(dev) -> dict:
                                   ("B^T scales", qb[1], want_b[1])):
             checks["K2 " + what] = compare_bits(got, want_q)
         ts = ref.tensor_scale_ref(a, sa) * ref.tensor_scale_ref(b, sb)
-        checks["K3"] = compare(out, block_matmul_plain(
-            qa[0], qa[1], qb[0].T, qb[1].T, ts))
+        k3_args = (qa[0], qa[1], qb[0].T, qb[1].T, ts)
+        checks["K3"] = compare_tc(out, block_matmul_plain(*k3_args),
+                                  *k3_operands(*k3_args, block=sa.block))
         # the chain against K1: rtol = atol = 1e-5 relative to max |out|
         err = (out - fused).abs()
         peak = float(fused.abs().max())
@@ -1139,8 +1279,11 @@ def train_breakdown(train_step, state, data, step, dev) -> dict:
         float(metrics["loss"])
         torch.cuda.synchronize(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # K1's kernels: absmax, the operand quantizer and the GEMM (the only
+    # kernels of fp4_common.cuh and fp4_gemm.cuh a train step launches)
     out = {"profiled_step_wall_ms": wall_ms,
-           **device_time(prof, wall_ms, top=20)}
+           **device_time(prof, wall_ms, top=20,
+                         groups={"k1_device_ms": ("fp4::", "fp4gemm::")})}
     emit({"phase": "train", "breakdown": out})
     return out
 
@@ -1159,6 +1302,45 @@ def time_ms(fn, flush, reps=20, warm=3) -> float:
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def launch_breakdown(fn, flush, event_ms, last="fp4gemm::gemm_kernel",
+                     tries=3) -> dict:
+    """[name, device ms] of each device-side event of one call of fn, in
+    launch order (torch.profiler), after a warm call.  The L2 flush (a
+    fill) runs first inside the profiled window and marks where fn's events
+    begin (a cold profiler may drop the first device event it sees).  A
+    profiler session late in a long process has been seen to drop device
+    events and to misscale their durations, so a record is consistent only
+    when it ends with the call's final launch, ``last``, and its launches
+    sum to within 25% of ``event_ms``, the CUDA-event time of the same
+    call; up to ``tries`` sessions are recorded."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            flush.fill_(1)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and not e.name.startswith("Command Buffer")),
+                     key=lambda e: e.time_range.start)
+        fills = [i for i, e in enumerate(evs) if "FillFunctor" in e.name]
+        launches = [[e.name[:60],
+                     (e.time_range.end - e.time_range.start) / 1e3]
+                    for e in evs[fills[-1] + 1 if fills else 0:]]
+        total = sum(ms for _, ms in launches)
+        consistent = (bool(launches) and last in launches[-1][0]
+                      and abs(total - event_ms) <= 0.25 * event_ms)
+        if consistent:
+            break
+    return {"consistent": consistent, "sum_ms": total, "event_ms": event_ms,
+            "launches": launches}
 
 
 def bound_ms(nbytes, ops) -> tuple:
@@ -1263,13 +1445,14 @@ def phase_times(dev) -> dict:
         scales = {"fwd": (1.0, 0.02), "dX": (1e-4, 0.02), "dW": (1.0, 1e-4)}
         step_ms = 0.0
         for (role, M, K, N, sr_a, sr_b), n in gemms.items():
-            a, b, spec_a, spec_b, ra, rb = k1_inputs(
-                M, K, N, "nvfp4", sr_a, sr_b, *scales[role], dev)
-            nbytes = (2 * (M * K + K * N + M * N) + 4 * M * K * sr_a
-                      + 4 * K * N * sr_b)
+            # SR operands in counter mode, as core/fqt.py passes them
+            a, b, spec_a, spec_b, ra, rb, ca, cb = k1_inputs(
+                M, K, N, "nvfp4", sr_a, sr_b, *scales[role], dev,
+                a_transposed=role == "dW")
+            nbytes = 2 * (M * K + K * N + M * N)
             r = record(fm.FUSED_NAME, (role, M, K, N),
                        lambda: fm.fused_quant_matmul(
-                           a, b, spec_a, spec_b, a_rbits=ra, b_rbits=rb,
+                           a, b, spec_a, spec_b, a_counter=ca, b_counter=cb,
                            out_dtype=torch.bfloat16),
                        lambda: fm.fused_quant_matmul_plain(
                            a, b, spec_a, spec_b, a_rbits=ra, b_rbits=rb,
@@ -1280,6 +1463,20 @@ def phase_times(dev) -> dict:
             del a, b, ra, rb
         emit({"phase": "times", "kernel": fm.FUSED_NAME,
               "train_step_k1_ms": step_ms})
+        # what one K1 launch spends where: absmax and quantizer per operand,
+        # then the GEMM core (the forward at 4096^3; the lm_head's dX, SR on
+        # its (4096, 32000) A in counter mode)
+        for role, M, K, N, sr_a in (("fwd", 4096, 4096, 4096, False),
+                                    ("dX", 4096, 32000, 4096, True)):
+            a, b, spec_a, spec_b, _, _, ca, _ = k1_inputs(
+                M, K, N, "nvfp4", sr_a, False, *scales[role], dev)
+            emit({"phase": "times", "kernel": fm.FUSED_NAME,
+                  "case": [role, M, K, N], "launch_breakdown":
+                  launch_breakdown(lambda: fm.fused_quant_matmul(
+                      a, b, spec_a, spec_b, a_counter=ca,
+                      out_dtype=torch.bfloat16), flush,
+                      rows[(fm.FUSED_NAME, (role, M, K, N))]["ms"])})
+            del a, b
         # K2 at (4096, 4096) f32, the forward spec (NVFP4 RtN, computed
         # tensor scale): x read once, f32 codes and scales written.  Its
         # f32 operations (~10 a value, 0.0025 ms at 67 TFLOP/s) lie far
@@ -1302,6 +1499,10 @@ def phase_times(dev) -> dict:
                lambda: torch.matmul(ad, bd),
                4 * (2 * M * K + M * K) + 4 * 2 * M * K // 16 + 4,
                2 * M * K * K, reps=5)
+        emit({"phase": "times", "kernel": fm.BLOCK_NAME,
+              "case": [M, K, K], "launch_breakdown": launch_breakdown(
+                  lambda: fm.block_matmul(ac, asc, bc, bsc, ts), flush,
+                  rows[(fm.BLOCK_NAME, (M, K, K))]["ms"])})
     return rows
 
 

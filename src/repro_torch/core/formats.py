@@ -159,13 +159,23 @@ def counter_bits(seed: int, shape: Sequence[int],
     """Counter-based random bits: the splitmix32-style hash of (seed, flat
     index) of ``repro.core.formats.counter_bits``, bit for bit.
 
-    Computed in int64 holding uint32 values: every product goes through
-    ``_mul32`` (masked to 32 bits) and every value is masked before it is
-    shifted right, since torch's ``>>`` on int64 is arithmetic.  Returns
-    int32 holding the same 32-bit patterns (``uniform_from_bits`` and the
+    Returns int32 holding the uint32 patterns (``uniform_from_bits`` and the
     kernels read them as uint32)."""
     n = math.prod(int(d) for d in shape)
-    z = _mul32(torch.arange(n, dtype=torch.int64, device=device), 0x9E3779B9)
+    return counter_bits_at(seed, torch.arange(
+        n, dtype=torch.int64, device=device)).reshape(
+            tuple(int(d) for d in shape))
+
+
+def counter_bits_at(seed: int, index: torch.Tensor) -> torch.Tensor:
+    """``counter_bits`` of ``seed`` at the given int64 indices in [0, 2^32),
+    as int32 of index's shape: what K1's counter mode hashes in the kernel.
+
+    Computed in int64 holding uint32 values: every product goes through
+    ``_mul32`` (masked to 32 bits) and every value is masked before it is
+    shifted right, since torch's ``>>`` on int64 is arithmetic."""
+    z = _mul32(index, 0x9E3779B9)
+    del index         # a temporary index (counter_bits' arange) goes here
     z = (z + (int(seed) & M32)) & M32
     z = _mul32(z ^ (z >> 16), 0x85EBCA6B)
     z = _mul32(z ^ (z >> 13), 0xC2B2AE35)
@@ -176,4 +186,4 @@ def counter_bits(seed: int, shape: Sequence[int],
     z = _mul32(z ^ (z >> 12), 0x297A2D39)
     z = z ^ (z >> 15)
     z = z - ((z >> 31) << 32)                    # uint32 pattern as int32
-    return z.to(torch.int32).reshape(tuple(int(d) for d in shape))
+    return z.to(torch.int32)

@@ -16,7 +16,8 @@ fake-quant + an f32-accumulating ``torch.matmul``, as the reference computes
 outside Pallas (the reference's ``_use_pallas`` rule without its ``impl``
 switch: on the card the FQT GEMM is the kernel).  SR bits come from
 ``formats.counter_bits`` of a per-site seed, so both packages draw the same
-streams.  Packed weights (``PackedQuantizedTensor``) take the serving path:
+streams; K1 hashes them inside its quantizer (its counter mode) instead of
+reading a drawn tensor.  Packed weights (``PackedQuantizedTensor``) take the serving path:
 z = Q_rtn(a) @ dequant(w) through the K4 kernel, forward only.
 """
 from __future__ import annotations
@@ -102,7 +103,8 @@ def _site_seed32(seed: int, site: int) -> int:
 
 def _site_bits(shape, seed: int, site: int, device=None) -> torch.Tensor:
     """SR random bits of a site: ``counter_bits`` of the site seed (int32
-    holding the uint32 patterns); K1 receives the identical stream."""
+    holding the uint32 patterns); K1's counter mode hashes the identical
+    stream in its quantizer."""
     return formats.counter_bits(_site_seed32(seed, site), shape,
                                 device=device)
 
@@ -117,17 +119,20 @@ def _maybe_q(x: torch.Tensor, spec: Optional[BlockQuantSpec], axis: int,
 
 
 def _k1_gemm(a2d, b2d, spec_a, spec_b, seed, site_a, site_b, out_dtype,
-             rb_a=None):
+             a_strides=None):
     """One K1 launch (blocks: a along axis 1, b along axis 0).  Transposed
-    operands arrive as contiguous copies."""
+    operands arrive as contiguous copies.  SR operands go in K1's counter
+    mode: the kernel hashes ``_site_bits`` of the site itself, at strides
+    (cols, 1) of the operand, or ``a_strides`` where a is the transpose of
+    the array the bits were drawn for."""
     from repro_torch.kernels.fp4_matmul import fused_quant_matmul
     a2d, b2d = a2d.contiguous(), b2d.contiguous()
-    if spec_a.stochastic and rb_a is None:
-        rb_a = _site_bits(a2d.shape, seed, site_a, a2d.device)
-    rb_b = (_site_bits(b2d.shape, seed, site_b, b2d.device)
-            if spec_b.stochastic else None)
-    return fused_quant_matmul(a2d, b2d, spec_a, spec_b, a_rbits=rb_a,
-                              b_rbits=rb_b, out_dtype=out_dtype)
+    ca = ((_site_seed32(seed, site_a),) + (a_strides or (a2d.shape[1], 1))
+          if spec_a.stochastic else None)
+    cb = ((_site_seed32(seed, site_b), b2d.shape[1], 1)
+          if spec_b.stochastic else None)
+    return fused_quant_matmul(a2d, b2d, spec_a, spec_b, out_dtype=out_dtype,
+                              a_counter=ca, b_counter=cb)
 
 
 def _use_k1(spec_a, spec_b, k_dim: int) -> bool:
@@ -185,9 +190,10 @@ def _backward_dw(x, w, g, seed: int, cfg: QuantConfig) -> torch.Tensor:
     upd_a = _if_divisible(cfg.upd_a, M)
     upd_g = _if_divisible(cfg.upd_g, M)
     if _use_k1(upd_a, upd_g, M):
-        rb_a = (_site_bits((M, K), seed, 4, x.device).T.contiguous()
-                if upd_a.stochastic else None)   # the fake-quant alignment
-        dw = _k1_gemm(xf.T, gf, upd_a, upd_g, seed, 4, 5, w.dtype, rb_a=rb_a)
+        # x^T's bits are those drawn for x (M, K), as the fake-quant path
+        # aligns them: element (k, m) of x^T takes index m * K + k
+        dw = _k1_gemm(xf.T, gf, upd_a, upd_g, seed, 4, 5, w.dtype,
+                      a_strides=(1, K))
     else:
         qx_u = _maybe_q(xf, upd_a, axis=0, seed=seed, site=4)
         qg_u = _maybe_q(gf, upd_g, axis=0, seed=seed, site=5)

@@ -8,6 +8,7 @@
   K6 ``flash_attn.flash_attention_packed``   decode attention, packed cache
   K7 ``flash_attn.flash_attention``          prefill attention
 
+K1 and K3 share the tensor-core GEMM core ``csrc/fp4_gemm.cuh``.
 ``ops`` holds the public wrappers of the JAX package's ``kernels/ops.py``
 and ``ref`` its oracles.  Kernels are built with nvcc at first use
 (``_build.py``); importing this package builds nothing.

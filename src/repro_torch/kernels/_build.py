@@ -74,7 +74,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         t0 = time.perf_counter()
         procs = {}
         for src in _sources():
-            lib = out_dir / f"lib{src.stem}.so"
+            lib = library_path(src.stem)
             if lib.exists():
                 continue
             tmp = out_dir / f"lib{src.stem}.{os.getpid()}.tmp.so"
@@ -96,7 +96,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
                 f"--- {s} ---\n{t}" for s, t in failed))
         build_seconds = time.perf_counter() - t0 if procs else 0.0
         for src in _sources():
-            _libs[src.stem] = ctypes.CDLL(str(out_dir / f"lib{src.stem}.so"))
+            _libs[src.stem] = ctypes.CDLL(str(library_path(src.stem)))
         return _libs
 
 
@@ -109,6 +109,11 @@ def ptxas_report() -> Dict[str, str]:
         log = out_dir / f"{src.stem}.log"
         rep[src.stem] = log.read_text() if log.exists() else ""
     return rep
+
+
+def library_path(stem: str) -> Path:
+    """Where the shared library built from ``csrc/<stem>.cu`` lies."""
+    return _build_dir() / f"lib{stem}.so"
 
 
 def library(stem: str) -> ctypes.CDLL:

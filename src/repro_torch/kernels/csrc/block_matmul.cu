@@ -15,101 +15,83 @@
 // 0.139 ms at the 989 TFLOP/s bf16 tensor-core rate, against 0.063 ms for
 // its bytes (f32 codes, scales and output, ~210 MB at 3.35 TB/s).
 //
-// What the design does about it, kept simple and right first:
-//   * K1's f32 CUDA-core tile loop (64 x 64 output tiles, 32-deep K steps,
-//     a 4 x 4 register micro-tile per thread, ragged M, N and K edges
-//     masked), with the dequantization done in the tile load: each code is
-//     multiplied by its block scale on its way into shared memory, so no
-//     dequantized operand is written to device memory.  Code x E4M3 scale
-//     is exact in f32 (and in bf16), so the tiles hold exactly what K1's
-//     quantizer writes to its workspace and the sums run in K1's order.
-//   * no tensor cores, TMA or pipelining yet: wgmma on bf16 tiles (exact for
-//     E2M1 x E4M3) with f32 accumulation is the next step.
+// What the design does about it:
+//   * a dequantization pre-pass writes A' = codes * scales as bf16 (M, K)
+//     and B' as bf16 (N, K), the transpose of B's codes * scales (through
+//     32 x 32 shared-memory tiles, so reads and writes stay coalesced): no
+//     division by the block size, dtype branch or scale gather is left in
+//     the GEMM.  It moves ~200 MB at 4096^3 on f32 codes.
+//   * the tensor-core core of fp4_gemm.cuh (TMA ring + wgmma on bf16, f32
+//     accumulation), the same core and order as K1, times tscale in its
+//     epilogue; so the unfused chain K2 -> K2 -> K3 gives K1's bits.
+// Domain: code * scale is exact in bf16 for every operand K2 writes under
+// a spec whose data and scale mantissa bits sum to <= 6 (every spec in the
+// repository); there the result equals the f32 reference up to summation
+// order.  For codes off that grid K3 rounds code * scale to bf16.
 #include "fp4_common.cuh"
+#include "fp4_gemm.cuh"
 
 namespace {
 
-template <int BM, int BN, int BK, int RM, int RN>
-__global__ void __launch_bounds__((BM / RM) * (BN / RN))
-block_matmul_kernel(const void* __restrict__ ac, int a_bf16,
-                    const float* __restrict__ as,
-                    const void* __restrict__ bc, int b_bf16,
-                    const float* __restrict__ bs,
-                    const float* __restrict__ tscale,
-                    float* __restrict__ out, int M, int N, int K,
-                    int block) {
-  constexpr int TX = BN / RN, TY = BM / RM, NT = TX * TY;
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][BN + 1];
-  const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = tid / TX;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int kb = K / block;
-  float acc[RM][RN];
-#pragma unroll
-  for (int r = 0; r < RM; ++r)
-#pragma unroll
-    for (int c = 0; c < RN; ++c) acc[r][c] = 0.f;
+constexpr int T = 32;  // transpose tile
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += NT) {
-      int mm = i / BK, kk = i % BK;
-      int m = m0 + mm, k = k0 + kk;
-      As[kk][mm] = (m < M && k < K)
-                       ? __fmul_rn(fp4::load_f(ac, size_t(m) * K + k, a_bf16),
-                                   as[size_t(m) * kb + k / block])
-                       : 0.f;
-    }
-    for (int i = tid; i < BK * BN; i += NT) {
-      int kk = i / BN, nn = i % BN;
-      int k = k0 + kk, n = n0 + nn;
-      Bs[kk][nn] = (k < K && n < N)
-                       ? __fmul_rn(fp4::load_f(bc, size_t(k) * N + n, b_bf16),
-                                   bs[size_t(k / block) * N + n])
-                       : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[RM], bv[RN];
-#pragma unroll
-      for (int r = 0; r < RM; ++r) av[r] = As[kk][ty * RM + r];
-#pragma unroll
-      for (int c = 0; c < RN; ++c) bv[c] = Bs[kk][tx * RN + c];
-#pragma unroll
-      for (int r = 0; r < RM; ++r)
-#pragma unroll
-        for (int c = 0; c < RN; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-    }
-    __syncthreads();
+// dst (M, K) bf16 = codes (M, K) * scales (M, K/block), one value a thread.
+__global__ void dequant_rows_kernel(const void* __restrict__ codes,
+                                    int c_bf16,
+                                    const float* __restrict__ scales,
+                                    size_t n, int K, int block,
+                                    __nv_bfloat16* __restrict__ dst) {
+  const int kb = K / block;
+  for (size_t i = blockIdx.x * size_t(blockDim.x) + threadIdx.x; i < n;
+       i += size_t(gridDim.x) * blockDim.x) {
+    const size_t m = i / K;
+    const int k = int(i % K);
+    dst[i] = __float2bfloat16_rn(__fmul_rn(fp4::load_f(codes, i, c_bf16),
+                                           scales[m * kb + k / block]));
   }
-  const float s = *tscale;
-#pragma unroll
-  for (int r = 0; r < RM; ++r) {
-    int m = m0 + ty * RM + r;
-    if (m >= M) continue;
-#pragma unroll
-    for (int c = 0; c < RN; ++c) {
-      int n = n0 + tx * RN + c;
-      if (n < N) out[size_t(m) * N + n] = acc[r][c] * s;
-    }
+}
+
+// dst (N, K) bf16 = (codes (K, N) * scales (K/block, N))^T in T x T tiles.
+__global__ void dequant_t_kernel(const void* __restrict__ codes, int c_bf16,
+                                 const float* __restrict__ scales, int K,
+                                 int N, int block,
+                                 __nv_bfloat16* __restrict__ dst) {
+  __shared__ float tile[T][T + 1];
+  const int n0 = blockIdx.x * T, k0 = blockIdx.y * T;
+  for (int i = threadIdx.y; i < T; i += blockDim.y) {
+    const int k = k0 + i, n = n0 + threadIdx.x;
+    if (k < K && n < N)
+      tile[i][threadIdx.x] =
+          __fmul_rn(fp4::load_f(codes, size_t(k) * N + n, c_bf16),
+                    scales[size_t(k / block) * N + n]);
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < T; i += blockDim.y) {
+    const int n = n0 + i, k = k0 + threadIdx.x;
+    if (n < N && k < K)
+      dst[size_t(n) * K + k] = __float2bfloat16_rn(tile[threadIdx.x][i]);
   }
 }
 
 }  // namespace
 
 // a_codes (M, K), b_codes (K, N): f32 or bf16; a_scales (M, K/block),
-// b_scales (K/block, N), tscale (1): f32; out (M, N) f32.
+// b_scales (K/block, N), tscale (1): f32; a_ws (M, K), b_ws (N, K): bf16
+// workspaces; out (M, N) f32.  K % 8 == 0.
 extern "C" int fp4_block_matmul(const void* a_codes, int a_bf16,
                                 const float* a_scales, const void* b_codes,
                                 int b_bf16, const float* b_scales,
                                 const float* tscale, int M, int N, int K,
-                                int block, float* out, cudaStream_t stream) {
-  constexpr int BM = 64, BN = 64, BK = 32;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  block_matmul_kernel<BM, BN, BK, 4, 4><<<grid, (BM / 4) * (BN / 4), 0,
-                                          stream>>>(
-      a_codes, a_bf16, a_scales, b_codes, b_bf16, b_scales, tscale, out, M, N,
-      K, block);
-  return int(cudaGetLastError());
+                                int block, __nv_bfloat16* a_ws,
+                                __nv_bfloat16* b_ws, float* out,
+                                cudaStream_t stream) {
+  const size_t n = size_t(M) * K;
+  const size_t want = (n + 255) / 256;
+  dequant_rows_kernel<<<unsigned(want < 8192 ? want : 8192), 256, 0,
+                        stream>>>(a_codes, a_bf16, a_scales, n, K, block,
+                                  a_ws);
+  dequant_t_kernel<<<dim3((N + T - 1) / T, (K + T - 1) / T), dim3(T, 8), 0,
+                     stream>>>(b_codes, b_bf16, b_scales, K, N, block, b_ws);
+  return fp4gemm::launch_gemm(a_ws, b_ws, M, N, K, tscale, nullptr, out, 0,
+                              stream);
 }

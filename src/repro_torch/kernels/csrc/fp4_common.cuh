@@ -2,7 +2,8 @@
 // versions of the K0 helpers in repro/kernels/common.py (plain PyTorch
 // versions: repro_torch/kernels/common.py), and the block quantizer that
 // K1, K2 and K4 share (absmax -> tensor scale -> block scales -> codes, in
-// the TPU kernels' order of operations).
+// the TPU kernels' order of operations), with its SR bits read from a
+// tensor or hashed in the kernel from a seed (counter_hash, K1).
 //
 // Bit-exactness rules, held by chip_smoke.py against the plain versions:
 //   * built without --use_fast_math: IEEE division (__fdiv_rn), no
@@ -17,6 +18,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -157,19 +159,68 @@ struct QuantParams {
   float ts_denom;  // data_max * scale_max
 };
 
+// The splitmix32 hash of (seed, index) of repro/core/formats.py:
+// counter_bits (the SR stream of the training GEMMs), in uint32 arithmetic.
+__device__ __forceinline__ uint32_t counter_hash(uint32_t seed, uint32_t idx) {
+  uint32_t z = idx * 0x9E3779B9u + seed;
+  z = (z ^ (z >> 16)) * 0x85EBCA6Bu;
+  z = (z ^ (z >> 13)) * 0xC2B2AE35u;
+  z ^= z >> 16;
+  z += 0x9E3779B9u;
+  z = (z ^ (z >> 15)) * 0x2C1B3C6Du;
+  z = (z ^ (z >> 12)) * 0x297A2D39u;
+  return z ^ (z >> 15);
+}
+
+// Where an operand's SR bits come from: a uint32 tensor of the operand's
+// shape (rbits), or, in counter mode, counter_hash(seed, r * row_stride +
+// c * col_stride) for element (r, c), in uint32 arithmetic.  Neither: RtN.
+struct SrBits {
+  const uint32_t* rbits;
+  uint32_t seed, row_stride, col_stride;
+  int counter;
+};
+
+// The SR bits of one block's values i = 0 .. block-1: rbits[base + i *
+// stride], or counter_hash(seed, idx0 + i * step); sr() false for RtN.
+struct BlockBits {
+  const uint32_t* rbits;
+  size_t base, stride;
+  uint32_t seed, idx0, step;
+  int counter;
+  __device__ __forceinline__ bool sr() const { return counter || rbits; }
+  __device__ __forceinline__ uint32_t operator()(int i) const {
+    return counter ? counter_hash(seed, idx0 + uint32_t(i) * step)
+                   : rbits[base + i * stride];
+  }
+};
+
+// f(i) for i = 0 .. n-1: unrolled where N, the count known at compile
+// time, is given (N > 0), a plain loop over the runtime n otherwise.
+template <int N, class F>
+__device__ __forceinline__ void each_index(int n, F f) {
+  if constexpr (N > 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) f(i);
+  } else {
+    for (int i = 0; i < n; ++i) f(i);
+  }
+}
+
 // Quantize one block of `block` values x[base + i * stride] (RtN, or SR
-// from rbits at the same indices) in the TPU kernels' order of operations:
-// absmax, the block scale (E8M0, or RtN onto the scale format of
-// amax / (data_max * ts)), codes = Q(x / (scale * ts)).  Calls
-// store(j, code, scale) for each value and returns the block scale.
-template <class Store>
-__device__ __forceinline__ float quant_block(
-    const void* __restrict__ x, int x_bf16, const uint32_t* __restrict__ rbits,
-    size_t base, size_t stride, int block, const QuantParams& qp, float ts,
-    Store store) {
+// from bits(i)) in the TPU kernels' order of operations: absmax, the block
+// scale (E8M0, or RtN onto the scale format of amax / (data_max * ts)),
+// codes = Q(x / (scale * ts)).  Calls store(i, code, scale) for each value
+// and returns the block scale.  BLK > 0 names the block size at compile
+// time (== block), so the loops unroll and store may fill a register array.
+template <int BLK = 0, class Bits, class Store>
+__device__ __forceinline__ float quant_block_bits(
+    const void* __restrict__ x, int x_bf16, const Bits& bits, size_t base,
+    size_t stride, int block, const QuantParams& qp, float ts, Store store) {
   float absmax = 0.f;
-  for (int i = 0; i < block; ++i)
+  each_index<BLK>(block, [&](int i) {
     absmax = fmaxf(absmax, fabsf(load_f(x, base + i * stride, x_bf16)));
+  });
   const FmtParams dp{qp.data_man_bits, qp.data_emin, qp.data_emax,
                      qp.data_max};
   const FmtParams sp{qp.scale_man_bits, qp.scale_emin, qp.scale_emax,
@@ -177,14 +228,28 @@ __device__ __forceinline__ float quant_block(
   float scale = qp.e8m0 ? e8m0_block_scale(absmax, dp.emax)
                         : generic_block_scale(absmax, dp.max, sp, ts);
   float denom = __fmul_rn(scale, ts);
-  for (int i = 0; i < block; ++i) {
-    size_t j = base + i * stride;
-    float scaled = __fdiv_rn(load_f(x, j, x_bf16), denom);
-    float code = rbits ? quantize_sr(scaled, dp, uniform_from_bits(rbits[j]))
-                       : quantize_rtn(scaled, dp);
-    store(j, code, scale);
-  }
+  const bool sr = bits.sr();
+  each_index<BLK>(block, [&](int i) {
+    float scaled = __fdiv_rn(load_f(x, base + i * stride, x_bf16), denom);
+    float code = sr ? quantize_sr(scaled, dp, uniform_from_bits(bits(i)))
+                    : quantize_rtn(scaled, dp);
+    store(i, code, scale);
+  });
   return scale;
+}
+
+// quant_block_bits with SR bits rbits[j] (null: RtN) at the values' own
+// indices j = base + i * stride, calling store(j, code, scale).
+template <class Store>
+__device__ __forceinline__ float quant_block(
+    const void* __restrict__ x, int x_bf16, const uint32_t* __restrict__ rbits,
+    size_t base, size_t stride, int block, const QuantParams& qp, float ts,
+    Store store) {
+  const BlockBits bits{rbits, base, stride, 0u, 0u, 0u, 0};
+  return quant_block_bits(x, x_bf16, bits, base, stride, block, qp, ts,
+                          [&](int i, float code, float scale) {
+                            store(base + i * stride, code, scale);
+                          });
 }
 
 // One thread per block of `block` values.  along_rows = 0: x is (R, C)
@@ -229,6 +294,111 @@ inline void quantize_operand(const void* x, int x_bf16, const uint32_t* rbits,
   quant_blocks_kernel<<<unsigned((n_blocks + 255) / 256), 256, 0, stream>>>(
       x, x_bf16, rbits, n_blocks, block, int(cols), along_rows, qp, amax_ws,
       ts_ws, xq);
+}
+
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// q[0 .. BLK-1] to p in 16-byte stores (p 16-byte aligned).
+template <int BLK>
+__device__ __forceinline__ void store_block(float* p, const float (&q)[BLK]) {
+#pragma unroll
+  for (int j = 0; j < BLK; j += 4)
+    *reinterpret_cast<float4*>(p + j) =
+        make_float4(q[j], q[j + 1], q[j + 2], q[j + 3]);
+}
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  uint32_t u;
+  memcpy(&u, &h, sizeof(u));
+  return u;
+}
+template <int BLK>
+__device__ __forceinline__ void store_block(__nv_bfloat16* p,
+                                            const float (&q)[BLK]) {
+#pragma unroll
+  for (int j = 0; j < BLK; j += 8)
+    *reinterpret_cast<uint4*>(p + j) = make_uint4(
+        pack_bf16x2(q[j], q[j + 1]), pack_bf16x2(q[j + 2], q[j + 3]),
+        pack_bf16x2(q[j + 4], q[j + 5]), pack_bf16x2(q[j + 6], q[j + 7]));
+}
+
+// One thread per block of `block` values of a (rows, cols) operand blocked
+// along its columns (along_rows = 0, A) or its rows (1, B), SR bits from
+// `sr`, writing code * scale as T: in place, or for B with transpose = 1
+// as the (cols, rows) transpose, so that each block lands contiguous.
+// code * scale is exact in f32, and in bf16 when the data and scale
+// formats' mantissa bits sum to <= 6.  BLK > 0 (== block, a contiguous
+// destination block, 16-byte aligned): the block's values are gathered in
+// registers and written in 16-byte stores, not one scalar store each.
+template <typename T, int BLK>
+__global__ void quant_operand_kernel(const void* __restrict__ x, int x_bf16,
+                                     SrBits sr, size_t n_blocks, int block,
+                                     int rows, int cols, int along_rows,
+                                     int transpose, QuantParams qp,
+                                     const unsigned int* __restrict__ amax_bits,
+                                     float* __restrict__ ts_out,
+                                     T* __restrict__ dst) {
+  size_t idx = blockIdx.x * size_t(blockDim.x) + threadIdx.x;
+  if (idx >= n_blocks) return;
+  float ts = qp.two_level
+                 ? tensor_scale_pow2(__uint_as_float(*amax_bits), qp.ts_denom)
+                 : 1.0f;
+  if (idx == 0) *ts_out = ts;
+  size_t r0, c0, stride;
+  if (along_rows) {
+    r0 = (idx / cols) * block;
+    c0 = idx % cols;
+    stride = cols;
+  } else {
+    r0 = idx / (cols / block);
+    c0 = (idx % (cols / block)) * block;
+    stride = 1;
+  }
+  const size_t base = r0 * cols + c0;
+  const BlockBits bits{
+      sr.rbits, base, stride, sr.seed,
+      uint32_t(r0) * sr.row_stride + uint32_t(c0) * sr.col_stride,
+      along_rows ? sr.row_stride : sr.col_stride, sr.counter};
+  const size_t d0 = transpose ? c0 * rows + r0 : base;
+  if constexpr (BLK > 0) {
+    float q[BLK];
+    quant_block_bits<BLK>(x, x_bf16, bits, base, stride, block, qp, ts,
+                          [&](int i, float code, float scale) {
+                            q[i] = __fmul_rn(code, scale);
+                          });
+    store_block(dst + d0, q);
+  } else {
+    const size_t dstep = transpose ? 1 : stride;
+    quant_block_bits(x, x_bf16, bits, base, stride, block, qp, ts,
+                     [&](int i, float code, float scale) {
+                       store_as(dst + d0 + i * dstep, __fmul_rn(code, scale));
+                     });
+  }
+}
+
+// Quantize a (rows, cols) operand with quant_operand_kernel on `stream`,
+// after an absmax launch for a two-level spec's tensor scale (it stays on
+// the device in *ts_ws).  A contiguous destination block of 16 or 32
+// values (A in place, or B transposed) takes the vector-store kernel; dst
+// is 16-byte aligned and, transposed, rows * sizeof(T) % 16 == 0.
+template <typename T>
+inline void quantize_operand_to(const void* x, int x_bf16, const SrBits& sr,
+                                size_t rows, size_t cols, int block,
+                                int along_rows, int transpose,
+                                const QuantParams& qp, unsigned int* amax_ws,
+                                float* ts_ws, T* dst, cudaStream_t stream) {
+  if (qp.two_level) launch_absmax(x, x_bf16, rows * cols, amax_ws, stream);
+  size_t n_blocks = rows * cols / block;
+  const bool contiguous = !along_rows || transpose;
+  auto kernel = contiguous && block == 16   ? quant_operand_kernel<T, 16>
+                : contiguous && block == 32 ? quant_operand_kernel<T, 32>
+                                            : quant_operand_kernel<T, 0>;
+  kernel<<<unsigned((n_blocks + 255) / 256), 256, 0, stream>>>(
+      x, x_bf16, sr, n_blocks, block, int(rows), int(cols), along_rows,
+      transpose, qp, amax_ws, ts_ws, dst);
 }
 
 }  // namespace fp4

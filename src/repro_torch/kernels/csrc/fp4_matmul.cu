@@ -21,11 +21,11 @@
 //     writing codes*scale in f32 (exact) to a workspace -- the same order of
 //     operations as the TPU kernel: raw = amax/(6*tsa), scale =
 //     RtN_e4m3(raw) or 1, codes = RtN_e2m1(x/(scale*tsa)); (1) and (2) are
-//     fp4::quantize_operand, shared with K1, so any A spec is taken; (3) a
-//     tiled
-//     f32 GEMM that reads each packed B tile once per output tile,
-//     unpacks nibbles and decodes the E4M3 scale bytes in shared memory,
-//     and scales the sum by tsA*tsB at the end.
+//     fp4::quantize_operand, whose per-block body (fp4::quant_block) K1
+//     and K2 run too, so any A spec is taken; (3) a tiled f32 GEMM that
+//     reads each packed B tile once per output tile, unpacks nibbles and
+//     decodes the E4M3 scale bytes in shared memory, and scales the sum by
+//     tsA*tsB at the end.
 //   * decode tiles are 8 x 16 outputs (N/16 blocks: 256 for N = 4096) so
 //     M = 4 still spreads the weight stream over every SM; prefill tiles
 //     are 64 x 64 with a 4 x 4 register micro-tile.

@@ -5,38 +5,44 @@
 // every training GEMM whose two operands are both quantized (forward,
 // backward dX and update dW, core/fqt.py).  A (M, K) and B (K, N), bf16 or
 // f32, are block-quantized on the fly with blocks along K (A along its
-// rows, B along its columns), RtN or SR from given uint32 bits, with E4M3
-// (x a power-of-two tensor scale) or E8M0 block scales, and
+// rows, B along its columns), RtN or SR, with E4M3 (x a power-of-two tensor
+// scale) or E8M0 block scales, and
 //
 //     out = (Q(A) @ Q(B)) * tsA * tsB      (f32 accumulation)
 //
 // in f32 or bf16.  The data and scale formats arrive as runtime constants
 // (fp4::QuantParams), so the kernel takes every BlockQuantSpec the TPU
-// kernel takes.
+// kernel takes.  SR bits come from a uint32 tensor of the operand's shape,
+// or (counter mode, what core/fqt.py passes) are hashed inside the
+// quantizer from the site seed: counter_bits(seed)[r * row_stride + c *
+// col_stride], the reference's splitmix32, bit for bit, so no bits tensor
+// is drawn or read.
 //
 // What bounds it on an H100: at the training shapes (M = 4096 tokens, K and
 // N in {4096, 11008, 32000}) the operations, 2*M*N*K (4096^3: 0.139 ms at
 // the 989 TFLOP/s bf16 tensor-core rate); the operand bytes are ~100x below
 // that line.
 //
-// What the design does about it, kept simple and right first:
+// What the design does about it:
 //   * per operand, one |x| max reduction (atomicMax on the float bits) whose
 //     power-of-two tensor scale stays on the device -- no host sync -- and
-//     one quantizer launch (fp4::quantize_operand, shared with K4), one
-//     thread per block of `block` values, in the TPU kernel's order of
-//     operations: raw = amax / (data_max * ts), scale = RtN onto the scale
-//     format or 1, codes = RtN/SR(x / (scale * ts)).  It writes code *
-//     scale (exact in f32) to a workspace.  B's blocks run down a column,
-//     so neighbouring threads read neighbouring addresses.
-//   * a tiled f32 GEMM over the two workspaces: 64 x 64 output tiles, a
-//     4 x 4 register micro-tile per thread, ragged M, N and K edges masked,
-//     and the sum scaled by tsA * tsB at the end.  The products of two
-//     dequantized operands (a few significant bits each) sum exactly in f32
-//     in almost any order, so the result matches the plain version.
-//   * no tensor cores, TMA or pipelining yet: code * scale is exact in bf16
-//     for E2M1 data, so a wgmma on bf16 operands with f32 accumulation is
-//     the next step.
+//     one quantizer launch (fp4::quantize_operand_to), one thread per block
+//     of `block` values in the TPU kernel's order of operations (the body
+//     K2 and K4 run): raw = amax / (data_max * ts), scale = RtN onto the
+//     scale format or 1, codes = RtN/SR(x / (scale * ts)).  It writes code
+//     * scale to a workspace, each thread its block of 16 or 32 values in
+//     16-byte stores; B's blocks run down a column, so neighbouring threads
+//     read neighbouring addresses, and land transposed, contiguous.
+//   * the route is chosen on the host from the two specs: where both
+//     operands' data and scale mantissa bits sum to <= 6 (every preset:
+//     E2M1 x E4M3 / E8M0) code * scale is exact in bf16, the workspaces are
+//     bf16 A' (M, K) and B' transposed to (N, K), and the tensor-core core
+//     of fp4_gemm.cuh (TMA ring + wgmma, f32 accumulation) computes the
+//     product, times tsA * tsB in its epilogue.  Any other pair (e.g. E3M4
+//     data under E4M3 scales) keeps f32 workspaces and the f32 CUDA-core
+//     tile loop below: a route chosen by format, not a fallback.
 #include "fp4_common.cuh"
+#include "fp4_gemm.cuh"
 
 namespace {
 
@@ -105,20 +111,34 @@ gemm_f32_kernel(const float* __restrict__ aq, const float* __restrict__ bq,
 
 }  // namespace
 
-// ws_amax: 2 uint32, ws_ts: 2 f32 (tsA, tsB), aq_ws: M*K f32, bq_ws: K*N f32.
+// ws_amax: 2 uint32, ws_ts: 2 f32 (tsA, tsB).  bf16_core = 1: aq_ws (M, K)
+// and bq_ws (N, K) bf16, the tensor-core core; 0: aq_ws (M, K) and bq_ws
+// (K, N) f32, the f32 tile loop.  sr_a / sr_b: each operand's SR source.
 extern "C" int fp4_fused_quant_matmul(
     const void* a, int a_bf16, const void* b, int b_bf16,
-    const uint32_t* a_rbits, const uint32_t* b_rbits, int M, int N, int K,
+    const fp4::SrBits* sr_a, const fp4::SrBits* sr_b, int M, int N, int K,
     int block, const fp4::QuantParams* qa, const fp4::QuantParams* qb,
-    unsigned int* ws_amax, float* ws_ts, float* aq_ws, float* bq_ws,
-    void* out, int out_bf16, cudaStream_t stream) {
-  fp4::quantize_operand(a, a_bf16, a_rbits, size_t(M), size_t(K), block, 0,
-                        *qa, ws_amax, ws_ts, aq_ws, stream);
-  fp4::quantize_operand(b, b_bf16, b_rbits, size_t(K), size_t(N), block, 1,
-                        *qb, ws_amax + 1, ws_ts + 1, bq_ws, stream);
+    int bf16_core, unsigned int* ws_amax, float* ws_ts, void* aq_ws,
+    void* bq_ws, void* out, int out_bf16, cudaStream_t stream) {
+  if (bf16_core) {
+    auto* aq = static_cast<__nv_bfloat16*>(aq_ws);
+    auto* bq = static_cast<__nv_bfloat16*>(bq_ws);
+    fp4::quantize_operand_to(a, a_bf16, *sr_a, size_t(M), size_t(K), block,
+                             0, 0, *qa, ws_amax, ws_ts, aq, stream);
+    fp4::quantize_operand_to(b, b_bf16, *sr_b, size_t(K), size_t(N), block,
+                             1, 1, *qb, ws_amax + 1, ws_ts + 1, bq, stream);
+    return fp4gemm::launch_gemm(aq, bq, M, N, K, ws_ts, ws_ts + 1, out,
+                                out_bf16, stream);
+  }
+  auto* aq = static_cast<float*>(aq_ws);
+  auto* bq = static_cast<float*>(bq_ws);
+  fp4::quantize_operand_to(a, a_bf16, *sr_a, size_t(M), size_t(K), block, 0,
+                           0, *qa, ws_amax, ws_ts, aq, stream);
+  fp4::quantize_operand_to(b, b_bf16, *sr_b, size_t(K), size_t(N), block, 1,
+                           0, *qb, ws_amax + 1, ws_ts + 1, bq, stream);
   constexpr int BM = 64, BN = 64, BK = 32;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   gemm_f32_kernel<BM, BN, BK, 4, 4><<<grid, (BM / 4) * (BN / 4), 0, stream>>>(
-      aq_ws, bq_ws, ws_ts, out, out_bf16, M, N, K);
+      aq, bq, ws_ts, out, out_bf16, M, N, K);
   return int(cudaGetLastError());
 }

@@ -2,7 +2,8 @@
 ``block_matmul`` and K4 ``packed_block_matmul``.
 
   * K1, the training GEMM (forward, backward dX and update dW of
-    ``core/fqt.py``): both raw operands are block-quantized on the fly.
+    ``core/fqt.py``): both raw operands are block-quantized on the fly,
+    SR bits read from tensors or hashed in the kernel (counter mode).
     Replaces ``repro/kernels/fp4_matmul.py::fused_quant_matmul``; CUDA
     source ``csrc/fused_quant_matmul.cu``.
   * K3, the GEMM of pre-quantized operands (codes and f32 block scales, as
@@ -13,6 +14,10 @@
     packed-NVFP4-B.  Replaces ``repro/kernels/fp4_matmul.py::
     packed_block_matmul``; CUDA source ``csrc/fp4_matmul.cu``.
 
+K1 (on bf16-exact specs, ``k1_route``) and K3 run their product on one
+tensor-core GEMM core, ``csrc/fp4_gemm.cuh`` (TMA + wgmma on bf16 operands
+code x block scale, f32 accumulation).
+
 Each wrapper launches its kernel on CUDA tensors and takes its plain
 PyTorch version (``*_plain``) only for CPU tensors -- there is no fallback
 from one to the other.
@@ -20,10 +25,11 @@ from one to the other.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import formats
 from repro_torch.core.quantize import (NVFP4, BlockQuantSpec,
                                        PackedQuantizedTensor, _tensor_scale)
 from repro_torch.kernels import common as c
@@ -176,32 +182,85 @@ def packed_matmul(a: torch.Tensor, w: PackedQuantizedTensor,
 
 # ---- K1: fused_quant_matmul ------------------------------------------------------
 
+# K1's counter mode for one SR operand: (seed32, row_stride, col_stride).
+# Element (r, c) takes formats.counter_bits(seed32) at the flat index
+# r * row_stride + c * col_stride (mod 2^32): (cols, 1) is the operand's own
+# counter_bits stream, (1, rows) that of its transpose.
+Counter = Tuple[int, int, int]
+
+
+def counter_rbits(shape, counter: Counter, device=None) -> torch.Tensor:
+    """The bits K1's counter mode hashes for an operand of ``shape``
+    (int32 holding the uint32 patterns)."""
+    seed, rs, cs = counter
+    R, C = shape
+    idx = (torch.arange(R, dtype=torch.int64, device=device)[:, None] * rs
+           + torch.arange(C, dtype=torch.int64, device=device)[None, :] * cs)
+    return formats.counter_bits_at(seed, idx & formats.M32)
+
+
+def bf16_exact(spec: BlockQuantSpec) -> bool:
+    """code x block scale is exact in bf16 (8 significant bits, f32's
+    exponent range): the data and scale formats' mantissa bits sum to <= 6
+    (E2M1 x E4M3: 1 + 3, E2M1 x E8M0: 1 + 0, E2M1 x E3M4: 1 + 4)."""
+    return spec.data.man_bits + spec.scale.man_bits <= 6
+
+
+def k1_route(spec_a: BlockQuantSpec, spec_b: BlockQuantSpec) -> str:
+    """K1's route on the card, chosen from the specs before the launch:
+    "core" (bf16 operands on the tensor-core GEMM core) where both
+    operands are ``bf16_exact`` -- every preset of ``core/fqt.py`` -- else
+    "f32" (f32 operands on the f32 CUDA-core tile loop)."""
+    return "core" if bf16_exact(spec_a) and bf16_exact(spec_b) else "f32"
+
+
+def _sr_bits(spec, rbits, counter, ref):
+    """(uint32 bits tensor or None) of one operand in the plain version."""
+    if not spec.stochastic or counter is None:
+        return rbits
+    return counter_rbits(ref.shape, counter, ref.device)
+
 
 def fused_quant_matmul_plain(a: torch.Tensor, b: torch.Tensor,
                              spec_a: BlockQuantSpec, spec_b: BlockQuantSpec,
                              *, a_rbits: Optional[torch.Tensor] = None,
                              b_rbits: Optional[torch.Tensor] = None,
-                             out_dtype=torch.float32) -> torch.Tensor:
+                             out_dtype=torch.float32,
+                             a_counter: Optional[Counter] = None,
+                             b_counter: Optional[Counter] = None
+                             ) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: Q(A) (blocks along axis 1)
-    @ Q(B) (blocks along axis 0), f32, times tsA * tsB."""
+    @ Q(B) (blocks along axis 0), f32, times tsA * tsB.  A counter-mode
+    operand draws ``counter_rbits`` first."""
+    a_rbits = _sr_bits(spec_a, a_rbits, a_counter, a)
+    b_rbits = _sr_bits(spec_b, b_rbits, b_counter, b)
     ad, tsa = _quantized_operand(a, spec_a, a_rbits, along_rows=False)
     bd, tsb = _quantized_operand(b, spec_b, b_rbits, along_rows=True)
     return (torch.matmul(ad, bd) * (tsa * tsb)).to(out_dtype)
+
+
+class _SrBits(ctypes.Structure):
+    """``fp4::SrBits`` of csrc/fp4_common.cuh: one operand's SR source."""
+    _fields_ = [("rbits", _P), ("seed", ctypes.c_uint32),
+                ("row_stride", ctypes.c_uint32),
+                ("col_stride", ctypes.c_uint32), ("counter", _I)]
 
 
 def _fused_lib():
     from repro_torch.kernels import _build
     fn = _build.library("fused_quant_matmul").fp4_fused_quant_matmul
     if fn.argtypes is None:
-        fn.argtypes = [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
+        fn.argtypes = [_P, _I, _P, _I, ctypes.POINTER(_SrBits),
+                       ctypes.POINTER(_SrBits), _I, _I, _I, _I,
                        ctypes.POINTER(_QuantParams),
-                       ctypes.POINTER(_QuantParams), _P, _P, _P, _P, _P, _I,
-                       _P]
+                       ctypes.POINTER(_QuantParams), _I, _P, _P, _P, _P, _P,
+                       _I, _P]
         fn.restype = _I
     return fn
 
 
-def _check_fused(a, b, spec_a, spec_b, a_rbits, b_rbits, out_dtype):
+def _check_fused(a, b, spec_a, spec_b, a_rbits, b_rbits, a_counter,
+                 b_counter, out_dtype):
     if a.ndim != 2 or b.ndim != 2:
         raise ValueError(f"operands must be 2-D, got {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
@@ -214,11 +273,16 @@ def _check_fused(a, b, spec_a, spec_b, a_rbits, b_rbits, out_dtype):
         raise ValueError("operand block sizes must match")
     if K % spec_a.block:
         raise ValueError(f"K={K} not divisible by block={spec_a.block}")
-    for name, spec, rb, shape in (("a", spec_a, a_rbits, (M, K)),
-                                  ("b", spec_b, b_rbits, (K, N))):
-        if spec.stochastic and (rb is None or tuple(rb.shape) != shape):
+    for name, spec, rb, ctr, shape in (
+            ("a", spec_a, a_rbits, a_counter, (M, K)),
+            ("b", spec_b, b_rbits, b_counter, (K, N))):
+        if ctr is not None and (rb is not None or len(ctr) != 3):
+            raise ValueError(f"{name}_counter is (seed32, row_stride, "
+                             f"col_stride) in place of {name}_rbits")
+        if spec.stochastic and ctr is None and (
+                rb is None or tuple(rb.shape) != shape):
             raise ValueError(f"spec_{name} stochastic requires {name}_rbits "
-                             f"of {name}.shape")
+                             f"of {name}.shape or {name}_counter")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype {out_dtype} not supported")
     return M, N, K
@@ -228,20 +292,26 @@ def fused_quant_matmul(a: torch.Tensor, b: torch.Tensor,
                        spec_a: BlockQuantSpec, spec_b: BlockQuantSpec, *,
                        a_rbits: Optional[torch.Tensor] = None,
                        b_rbits: Optional[torch.Tensor] = None,
-                       out_dtype=torch.float32) -> torch.Tensor:
+                       out_dtype=torch.float32,
+                       a_counter: Optional[Counter] = None,
+                       b_counter: Optional[Counter] = None) -> torch.Tensor:
     """Quantize-A (blocks along axis 1) x quantize-B (blocks along axis 0):
     (M, K) @ (K, N) -> (M, N) in ``out_dtype``.
 
     SR operands come with uint32 bits of their own shape (int32 or uint32
-    tensors holding the same patterns).  Both tensor scales stay on the
-    device.  On the card every operand must be contiguous: transposed
-    operands are passed as contiguous copies.
+    tensors holding the same patterns) or, port-internal, with a
+    ``Counter`` that the kernel hashes itself (``counter_rbits`` gives the
+    same bits).  Both tensor scales stay on the device.  On the card every
+    operand must be contiguous (transposed operands are passed as
+    contiguous copies), and the tensor-core route (``k1_route``) needs
+    K % 8 == 0.
     """
-    M, N, K = _check_fused(a, b, spec_a, spec_b, a_rbits, b_rbits, out_dtype)
+    M, N, K = _check_fused(a, b, spec_a, spec_b, a_rbits, b_rbits,
+                           a_counter, b_counter, out_dtype)
     if a.device.type == "cpu":
-        return fused_quant_matmul_plain(a, b, spec_a, spec_b,
-                                        a_rbits=a_rbits, b_rbits=b_rbits,
-                                        out_dtype=out_dtype)
+        return fused_quant_matmul_plain(
+            a, b, spec_a, spec_b, a_rbits=a_rbits, b_rbits=b_rbits,
+            out_dtype=out_dtype, a_counter=a_counter, b_counter=b_counter)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
     # ---- what the CUDA kernel takes ----
@@ -251,21 +321,37 @@ def fused_quant_matmul(a: torch.Tensor, b: torch.Tensor,
                 or not t.is_contiguous() or t.device != dev:
             raise ValueError(f"{name} must be contiguous bf16 or f32 on "
                              f"{dev}")
-    rb_ptrs = [rbits_ptr(f"{name}_rbits", rb, dev) if spec.stochastic
-               else None for name, spec, rb in (("a", spec_a, a_rbits),
-                                                ("b", spec_b, b_rbits))]
+    core = k1_route(spec_a, spec_b) == "core"
+    if core and K % 8:
+        raise ValueError(f"K={K}: the tensor-core route needs K % 8 == 0")
+    srcs = []
+    for name, spec, rb, ctr in (("a", spec_a, a_rbits, a_counter),
+                                ("b", spec_b, b_rbits, b_counter)):
+        if not spec.stochastic:
+            srcs.append(_SrBits(None, 0, 0, 0, 0))
+        elif ctr is not None:
+            seed, rs, cs = (int(v) & formats.M32 for v in ctr)
+            srcs.append(_SrBits(None, seed, rs, cs, 1))
+        else:
+            srcs.append(_SrBits(rbits_ptr(f"{name}_rbits", rb, dev), 0, 0,
+                                0, 0))
     ws_amax = torch.empty(2, dtype=torch.int32, device=dev)
     ws_ts = torch.empty(2, dtype=torch.float32, device=dev)
-    aq_ws = torch.empty((M, K), dtype=torch.float32, device=dev)
-    bq_ws = torch.empty((K, N), dtype=torch.float32, device=dev)
+    if core:     # bf16 A' (M, K) and B' transposed to (N, K)
+        aq_ws = torch.empty((M, K), dtype=torch.bfloat16, device=dev)
+        bq_ws = torch.empty((N, K), dtype=torch.bfloat16, device=dev)
+    else:        # f32 A' (M, K) and B' (K, N)
+        aq_ws = torch.empty((M, K), dtype=torch.float32, device=dev)
+        bq_ws = torch.empty((K, N), dtype=torch.float32, device=dev)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     qa, qb = _QuantParams.of(spec_a), _QuantParams.of(spec_b)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _fused_lib()(
         a.data_ptr(), int(a.dtype == torch.bfloat16), b.data_ptr(),
-        int(b.dtype == torch.bfloat16), rb_ptrs[0], rb_ptrs[1], M, N, K,
-        spec_a.block, ctypes.byref(qa), ctypes.byref(qb), ws_amax.data_ptr(),
-        ws_ts.data_ptr(), aq_ws.data_ptr(), bq_ws.data_ptr(), out.data_ptr(),
+        int(b.dtype == torch.bfloat16), ctypes.byref(srcs[0]),
+        ctypes.byref(srcs[1]), M, N, K, spec_a.block, ctypes.byref(qa),
+        ctypes.byref(qb), int(core), ws_amax.data_ptr(), ws_ts.data_ptr(),
+        aq_ws.data_ptr(), bq_ws.data_ptr(), out.data_ptr(),
         int(out_dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"{FUSED_NAME} kernel launch failed: cudaError_t "
@@ -281,7 +367,9 @@ def block_matmul_plain(a_codes: torch.Tensor, a_scales: torch.Tensor,
                        b_codes: torch.Tensor, b_scales: torch.Tensor,
                        tscale, *, block: int = 16) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: (codes * repeated block
-    scales) of each operand, f32 matmul, times ``tscale``."""
+    scales) of each operand, f32 matmul, times ``tscale``.  (The kernel
+    rounds code * scale to bf16, which is exact for every operand K2
+    writes under a spec the repository has: see ``block_matmul``.)"""
     ad = a_codes.to(torch.float32) * torch.repeat_interleave(
         a_scales.to(torch.float32), block, dim=1)
     bd = b_codes.to(torch.float32) * torch.repeat_interleave(
@@ -312,7 +400,8 @@ def _block_lib():
     from repro_torch.kernels import _build
     fn = _build.library("block_matmul").fp4_block_matmul
     if fn.argtypes is None:
-        fn.argtypes = [_P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P]
+        fn.argtypes = [_P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P,
+                       _P, _P]
         fn.restype = _I
     return fn
 
@@ -325,7 +414,12 @@ def block_matmul(a_codes: torch.Tensor, a_scales: torch.Tensor,
     A codes (M, K) with f32 scales (M, K/block), B codes (K, N) with f32
     scales (K/block, N), both blocked along K; codes f32 or bf16.  On the
     card ``tscale`` is an f32 device scalar that the kernel reads in its
-    epilogue (no host sync) and every operand must be contiguous.
+    epilogue (no host sync), every operand must be contiguous and K % 8 ==
+    0.  There the kernel writes code * scale as bf16 operands for the
+    tensor-core core: exact, so equal to this function's f32 reference up
+    to summation order, for every operand K2 writes under a spec whose data
+    and scale mantissa bits sum to <= 6 (``bf16_exact``: every spec in the
+    repository); codes off that grid are rounded to bf16 first.
     """
     M, N, K = _check_block(a_codes, a_scales, b_codes, b_scales, block)
     if a_codes.device.type == "cpu":
@@ -346,13 +440,17 @@ def block_matmul(a_codes: torch.Tensor, a_scales: torch.Tensor,
     if not isinstance(tscale, torch.Tensor) or tscale.dtype != torch.float32 \
             or tscale.numel() != 1 or tscale.device != dev:
         raise ValueError(f"tscale must be one f32 value on {dev}")
+    if K % 8:
+        raise ValueError(f"K={K}: the tensor-core core needs K % 8 == 0")
+    a_ws = torch.empty((M, K), dtype=torch.bfloat16, device=dev)
+    b_ws = torch.empty((N, K), dtype=torch.bfloat16, device=dev)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     err = _block_lib()(
         a_codes.data_ptr(), int(a_codes.dtype == torch.bfloat16),
         a_scales.data_ptr(), b_codes.data_ptr(),
         int(b_codes.dtype == torch.bfloat16), b_scales.data_ptr(),
-        tscale.data_ptr(), M, N, K, block, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        tscale.data_ptr(), M, N, K, block, a_ws.data_ptr(), b_ws.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{BLOCK_NAME} kernel launch failed: cudaError_t "
                            f"{err}")
