@@ -9,23 +9,28 @@ Phases, each printing JSON lines; any failure exits non-zero:
 
   env      torch/CUDA versions, the card's name and power limit, the
            build of every ``csrc/*.cu`` kernel from the checkout (nvcc), and
-           the count of HGMMA (wgmma) instructions in the SASS of K1's and
-           K3's libraries (cuobjdump), which must not be 0.
+           the count of HGMMA (wgmma) instructions in the SASS of K1's, K3's
+           and K4's libraries (cuobjdump), which must not be 0.
   kernels  each hand-written kernel against its plain PyTorch version on the
            same card tensors, at the main path's shapes: f32 outputs at
            rtol = atol = 1e-5, bf16 outputs to one bf16 ulp (+ 1e-5), the
-           K2 quantizer's codes and scales bit for bit.  K1 and K3 run
-           their products on the tensor-core core (csrc/fp4_gemm.cuh),
-           whose wgmma sums in another order than the plain version's f32
-           matmul, so they are held to the forward-error bound of f32
-           summation of exact products in any order, truncation allowed:
+           K2 quantizer's codes and scales bit for bit.  K1, K3 and K4 sum
+           their exact products in another order than the plain version's
+           f32 matmul (K1, K3 and K4's "core" route on the tensor-core core,
+           csrc/fp4_gemm.cuh; K4's "gemv" route split over K; K4's "f32"
+           route in f32 tiles), so they are held to the forward-error bound
+           of f32 summation of exact products in any order, truncation
+           allowed:
                |out - plain| <= (K/16 + 16) * 2^-23 * (|A'| @ |B'|)
                                 * tsA * tsB + 1e-5
            elementwise, A' and B' the dequantized operands (code x block
            scale), plus one bf16 ulp for bf16 outputs.  K1 in counter mode
            (SR bits hashed in the kernel) must equal K1 given the same bits
            as tensors bit for bit, and a spec pair that is not bf16-exact
-           (E3M4 data) takes K1's f32 route and the f32 rule above.
+           (E3M4 data) takes K1's f32 route and the f32 rule above.  K4 runs
+           every main-path shape through the route ``k4_route`` picks, plus
+           4096^2 at M = K4_GEMV_MAX_M and one row more (each route meets
+           the crossover), and E3M4 data above it (the "f32" route).
   serve    the lockstep Engine serving llama2-7b at full width from packed
            NVFP4 weights (random, seeded) with an nvfp4 KV cache: batch 4,
            prompt 64, 32 new tokens, greedy.  The launch counts are zeroed
@@ -69,9 +74,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
            cold), beside its bound, its plain version and one PyTorch call
            computing the same function (a yardstick the port never calls);
            K1 at every train GEMM with its SR operands in counter mode, as
-           the train step runs it; and the device time of each launch
-           inside one K1 call (absmax, quantizer, GEMM core) and one K3
-           call (pre-pass, GEMM core).
+           the train step runs it; K4 at every main-path shape with its
+           route, and both routes at M 1-64 (the crossover); K5 at run A's
+           decode, the verify and the chunk shapes; and the device time of
+           each launch inside one call of K1, K3, K4 (each route) and K5,
+           each taken in a fresh child process (a profiler late in a long
+           process drops device events).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -227,8 +235,8 @@ def compare_bits(got, want) -> dict:
 
 
 def compare_tc(got, want, ad, bd, ts) -> dict:
-    """K1 and K3 on the tensor-core core against their plain versions: the
-    forward-error bound of f32 summation of exact products in any order,
+    """K1, K3 and K4 against their plain versions, which sum the same exact
+    products in another order: the forward-error bound of f32 summation of exact products in any order,
     truncation allowed, |got - want| <= (K/16 + 16) * 2^-23 * (|A'| @ |B'|)
     * ts + 1e-5 elementwise (A' (M, K), B' (K, N) the dequantized operands,
     ts = tsA * tsB), plus one bf16 ulp for bf16 outputs."""
@@ -265,6 +273,20 @@ def k3_operands(ac, asc, bc, bsc, ts, block=16):
     ad = ac.float() * asc.repeat_interleave(block, dim=1)
     bd = bc.float() * bsc.repeat_interleave(block, dim=0)
     return ad, bd, ts
+
+
+def k4_operands(a, w, spec_a):
+    """K4's dequantized operands Q(A) (M, K) and B' (K, N) in f32, and tsA *
+    tsB, as its plain version computes them."""
+    import torch
+    from repro_torch.kernels import common as kc
+    from repro_torch.kernels import fp4_matmul as fm
+    ad, tsa = fm._quantized_operand(a, spec_a, None, along_rows=False)
+    K, N = a.shape[1], 2 * w.packed.shape[1]
+    bsc = kc.decode_e4m3_byte_k(w.scales.view(torch.uint8))
+    bd = (kc.unpack_e2m1_k(w.packed).reshape(K // w.block, w.block, N)
+          * bsc.unsqueeze(1)).reshape(K, N)
+    return ad, bd, tsa * w.tscale.float().reshape(())
 
 
 # ---- inputs at the main path's shapes -----------------------------------------------
@@ -421,7 +443,7 @@ def phase_env(dev) -> dict:
                   if "spill" in ln and "0 bytes spill" not in ln]
               for k, v in ptxas.items()}
     hgmma = {stem: hgmma_count(_build.library_path(stem))
-             for stem in ("fused_quant_matmul", "block_matmul")}
+             for stem in ("fused_quant_matmul", "block_matmul", "fp4_matmul")}
     info = {"phase": "env", "python": sys.version.split()[0],
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "card": card_line(), "kind": torch.cuda.get_device_name(dev),
@@ -537,16 +559,44 @@ def phase_kernels(dev) -> dict:
                   lambda g, w: compare_tc(g, w, *operands))
             del args, got, want, operands
 
-    for M, K, N in K4_SHAPES + K4_CONT_SHAPES:
+    # K4 through the route k4_route picks, and both sides of the crossover
+    routes = set()
+    for M, K, N in K4_SHAPES + K4_CONT_SHAPES + (
+            (fm.K4_GEMV_MAX_M, 4096, 4096), (fm.K4_GEMV_MAX_M + 1, 4096, 4096)):
         a, w = k4_inputs(M, K, N, dev)
+        route = fm.k4_route(M, NVFP4)
+        routes.add(route)
+        operands = k4_operands(a, w, NVFP4)
         for out_dtype in (torch.float32, torch.bfloat16):
             got = fm.packed_matmul(a, w, NVFP4, out_dtype=out_dtype)
             want = fm.packed_block_matmul_plain(
                 a, w.packed, w.scales, w.tscale, NVFP4, block_b=w.block,
                 out_dtype=out_dtype)
             torch.cuda.synchronize(dev)
-            check(fm.NAME, f"M={M} K={K} N={N} {str(out_dtype)[6:]}",
-                  got, want)
+            check(fm.NAME, f"M={M} K={K} N={N} {str(out_dtype)[6:]} route "
+                  f"{route}", got, want,
+                  lambda g, w: compare_tc(g, w, *operands))
+        del a, w, got, want, operands
+    # K4's f32 route: E3M4 data under E4M3 scales (not bf16-exact) above the
+    # GEMV rows
+    e3m4_a = BlockQuantSpec(data_fmt="e3m4", scale_fmt="e4m3", block=16,
+                            two_level=True)
+    M, K, N = 64, 4096, 4096
+    route = fm.k4_route(M, e3m4_a)
+    routes.add(route)
+    a, w = k4_inputs(M, K, N, dev)
+    operands = k4_operands(a, w, e3m4_a)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = fm.packed_matmul(a, w, e3m4_a, out_dtype=out_dtype)
+        want = fm.packed_block_matmul_plain(a, w.packed, w.scales, w.tscale,
+                                            e3m4_a, out_dtype=out_dtype)
+        torch.cuda.synchronize(dev)
+        check(fm.NAME, f"e3m4 A M={M} K={K} N={N} {str(out_dtype)[6:]} "
+              f"route {route}", got, want,
+              lambda g, w: compare_tc(g, w, *operands))
+    del a, w, got, want, operands
+    if routes != set(fm.K4_ROUTES):
+        failures.append((fm.NAME, f"routes met {sorted(routes)}"))
     for B, H, KVH, D, Sk, kv_len in K6_CASES:
         for fmt in ("nvfp4", "fp8"):
             for q_dtype in (torch.float32, torch.bfloat16):
@@ -679,6 +729,13 @@ def phase_serve(dev, batch=4, prompt_len=64, max_new=32, max_len=256):
     return info
 
 
+# device kernels of K4 (its quantizer, GEMV, pre-pass, f32 tiles and the
+# GEMM core) and of K5 (split and combine), summed in the serve profiles
+SERVE_GROUPS = {"k4_device_ms": ("fp4::", "k4_", "packed_gemm_kernel",
+                                 "fp4gemm::"),
+                "k5_device_ms": ("paged_split_kernel", "paged_combine_kernel")}
+
+
 def serve_breakdown(eng, prompts, dev, steps=8) -> dict:
     """Prefill and decode-step times (CUDA events), and device time by
     kernel from torch.profiler over one short generate."""
@@ -715,7 +772,23 @@ def serve_breakdown(eng, prompts, dev, steps=8) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     out.update({"profiled_generate_new_tokens": steps,
                 "profiled_wall_ms": wall_ms,
-                **device_time(prof, wall_ms, top=12)})
+                **device_time(prof, wall_ms, top=12, groups=SERVE_GROUPS)})
+    # device time by kernel of the decode steps alone (the carry of the
+    # timed run above, past its prefill)
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, carry = registry.decode_step(eng.params, cfg, eng.qcfg,
+                                                 nxt, carry)
+            nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dec = device_time(prof, wall_ms, top=8, groups=SERVE_GROUPS)
+    out["decode_steps_profiled"] = {
+        "steps": steps, "wall_ms": wall_ms, **dec,
+        **{f"{k}_per_step": v / steps for k, v in dec.items()
+           if k in SERVE_GROUPS}}
     emit({"phase": "serve", "breakdown": out})
     return out
 
@@ -773,7 +846,8 @@ class ProgramLog:
         name, first, n = self.profile
         self.breakdown = {"profiled": f"{name} calls {first}..{first + n - 1}",
                           "profiled_wall_ms": wall_ms,
-                          **device_time(self._prof, wall_ms, top=10)}
+                          **device_time(self._prof, wall_ms, top=10,
+                                        groups=SERVE_GROUPS)}
 
     def ms(self) -> dict:
         """{program: (median ms per call, total ms)} from the CUDA events."""
@@ -1289,7 +1363,11 @@ def train_breakdown(train_step, state, data, step, dev) -> dict:
 
 
 def time_ms(fn, flush, reps=20, warm=3) -> float:
-    """Median of per-launch CUDA-event times, L2 flushed before each."""
+    """Median of per-launch CUDA-event times, L2 flushed before each.  The
+    card then spins ~0.1 ms more (``torch.cuda._sleep``), so the host's
+    enqueue of the call (its ``host_us``, up to ~0.1 ms for the serving
+    kernels' wrappers late in a long process) ends before the start event
+    and the time is the card's, not the host's."""
     import torch
     for _ in range(warm):
         fn()
@@ -1297,11 +1375,26 @@ def time_ms(fn, flush, reps=20, warm=3) -> float:
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     for s, e in zip(starts, ends):
         flush.zero_()
+        torch.cuda._sleep(200_000)
         s.record()
         fn()
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def host_us(fn, n=50) -> float:
+    """Host time of one call (us): n calls enqueued back to back, read
+    before the device is waited for; the launch queue stays unfilled."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
 
 
 def launch_breakdown(fn, flush, event_ms, last="fp4gemm::gemm_kernel",
@@ -1348,6 +1441,124 @@ def bound_ms(nbytes, ops) -> tuple:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def k5_time_inputs(label, dev):
+    """K5 at one shape of K5_CASES (nvfp4 pool, bf16 q) for phase times:
+    the kernel's arguments, the bytes and operations the call needs (q and
+    out, the K/V rows below each slot's kv_len and causal frontier, the page
+    table's read rows, the two int32 vectors; 4 D flops per query row and
+    valid key and head) and SDPA's yardstick call over the same rows
+    dequantized to bf16, gathered per slot and masked."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.quantize import kv_dequant
+    (_, B, Sq, H, KVH, D, psz, npg, lens, qo, window), = (
+        c for c in K5_CASES if c[0] == label)
+    args = k5_inputs(B, Sq, H, KVH, D, psz, npg, lens, qo, window, "nvfp4",
+                     torch.bfloat16, dev)
+    q, kc, ks, vc, vs, pt, kl, qoff = args
+    kv_len, q_off = kl.tolist(), qoff.tolist()
+    kend = [min(n, o + Sq) for n, o in zip(kv_len, q_off)]
+    valid = sum(min(n, o + r + 1) for n, o in zip(kv_len, q_off)
+                for r in range(Sq))
+    nbytes = (2 * B * Sq * H * D * 2 + 2 * sum(kend) * KVH * (D // 2 + D // 16)
+              + sum(-(-e // psz) for e in kend) * 4 + 2 * B * 4)
+    ops = 4 * valid * H * D
+    L = max(max(kend), 1)
+    rows = torch.arange(L, device=dev)
+    phys = pt.long()[:, (rows // psz).clamp(max=npg - 1)] * psz + rows % psz
+    G = H // KVH
+
+    def dense(codes, scales):
+        d = kv_dequant(codes.reshape(-1, KVH, D // 2)[phys],
+                       scales.reshape(-1, KVH, D // 16)[phys], "nvfp4")
+        return d.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    kt, vt = dense(kc, ks), dense(vc, vs)
+    qpos = qoff[:, None] + torch.arange(Sq, device=dev)
+    mask = ((rows[None, None, :] < kl[:, None, None])
+            & (rows[None, None, :] <= qpos[:, :, None]))[:, None]
+    qt = q.transpose(1, 2)
+    return (args, window, nbytes, ops,
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   attn_mask=mask))
+
+
+# the per-launch breakdowns of phase times, each taken in a fresh child
+# process: {case: (kernel, the call's last launch)}
+BREAKDOWNS = {
+    "fwd 4096^3": ("fused_quant_matmul", "fp4gemm::gemm_kernel"),
+    "lm_head dX": ("fused_quant_matmul", "fp4gemm::gemm_kernel"),
+    "4096^3 f32 codes": ("block_matmul", "fp4gemm::gemm_kernel"),
+    "gemv M=4 4096^2": ("packed_block_matmul", "k4_gemv_kernel"),
+    "core M=256 4096^2": ("packed_block_matmul", "fp4gemm::gemm_kernel"),
+    "decode": ("flash_attention_paged", "paged_combine_kernel"),
+    "suffix": ("flash_attention_paged", "paged_combine_kernel"),
+}
+
+
+def breakdown_call(case, dev):
+    """The call whose launches BREAKDOWNS[case] records."""
+    import torch
+    from repro_torch.core.quantize import NVFP4
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import fp4_matmul as fm
+    bf16 = torch.bfloat16
+    if case in ("fwd 4096^3", "lm_head dX"):
+        # K1's forward at 4096^3; the lm_head's dX, SR on its (4096, 32000)
+        # A in counter mode
+        M, K, N, sr, sc = ((4096, 4096, 4096, False, (1.0, 0.02))
+                           if case == "fwd 4096^3" else
+                           (4096, 32000, 4096, True, (1e-4, 0.02)))
+        a, b, sa, sb, _, _, ca, _ = k1_inputs(M, K, N, "nvfp4", sr, False,
+                                              *sc, dev)
+        return lambda: fm.fused_quant_matmul(a, b, sa, sb, a_counter=ca,
+                                             out_dtype=bf16)
+    if case == "4096^3 f32 codes":
+        args = k3_inputs(4096, 4096, 4096, torch.float32, dev)
+        return lambda: fm.block_matmul(*args)
+    if case.startswith(("gemv", "core")):
+        M = int(case.split()[1][2:])
+        a, w = k4_inputs(M, 4096, 4096, dev)
+        return lambda: fm.packed_matmul(a, w, NVFP4, out_dtype=bf16)
+    args, window, _, _, _ = k5_time_inputs(case, dev)
+    return lambda: fa.flash_attention_paged(*args, window=window)
+
+
+def breakdown_child(case) -> None:
+    """Child process of phase times: print one JSON line, the per-launch
+    breakdown of BREAKDOWNS[case] beside the call's CUDA-event time."""
+    import torch
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        fn = breakdown_call(case, dev)
+        out = launch_breakdown(fn, flush, time_ms(fn, flush, reps=10),
+                               last=BREAKDOWNS[case][1])
+    print(json.dumps(out), flush=True)
+
+
+def breakdown_in_child(case, children=2) -> dict:
+    """BREAKDOWNS[case] from a fresh child process; a second child where
+    the first one's profiler recorded no consistent session (it has come
+    back with no device event at all)."""
+    for _ in range(children):
+        r = subprocess.run([sys.executable, "-c", "import chip_smoke; "
+                            f"chip_smoke.breakdown_child({case!r})"],
+                           cwd=ROOT, capture_output=True, text=True,
+                           timeout=600)
+        if r.returncode != 0:
+            raise AssertionError(f"breakdown {case!r} failed:\n"
+                                 f"{r.stderr[-3000:]}")
+        out = json.loads(r.stdout.strip().splitlines()[-1])
+        if out["consistent"]:
+            break
+    return out
+
+
+# M of K4's route times: decode (1-8) to chunk prefill (64)
+K4_CROSS_M = (1, 4, 8, 16, 32, 64)
+
+
 def phase_times(dev) -> dict:
     import torch
     import torch.nn.functional as F
@@ -1362,6 +1573,7 @@ def phase_times(dev) -> dict:
                **extra):
         b, by = bound_ms(nbytes, ops)
         r = {"ms": time_ms(kernel, flush, reps),
+             "host_us": host_us(kernel),
              "plain_ms": time_ms(plain, flush, reps),
              "library_ms": time_ms(library, flush, reps) if library else None,
              "bound_ms": b, "bound_by": by, **extra}
@@ -1379,8 +1591,22 @@ def phase_times(dev) -> dict:
                    lambda: fm.packed_block_matmul_plain(
                        a, w.packed, w.scales, w.tscale, NVFP4,
                        out_dtype=torch.bfloat16),
-                   lambda: torch.matmul(a, wd), nbytes, 2 * M * N * K)
+                   lambda: torch.matmul(a, wd), nbytes, 2 * M * N * K,
+                   route=fm.k4_route(M, NVFP4))
             del a, w, wd
+        # both of K4's routes at M 1-64 on each weight: the crossover
+        cross = {}
+        for K, N, _ in K4_WEIGHTS:
+            for M in K4_CROSS_M:
+                a, w = k4_inputs(M, K, N, dev)
+                cross[f"{M} {K} {N}"] = {route: time_ms(
+                    lambda: fm._k4_launch(a, w.packed, w.scales, w.tscale,
+                                          NVFP4, w.block, None,
+                                          torch.bfloat16, route), flush)
+                    for route in ("gemv", "core")}
+                del a, w
+        emit({"phase": "times", "kernel": fm.NAME, "route_ms": cross,
+              "gemv_max_m": fm.K4_GEMV_MAX_M})
         for B, H, KVH, D, Sk, kv_len in K6_CASES:
             q, kc, ks, vc, vs, pos = k6_inputs(B, H, KVH, D, Sk, kv_len,
                                                torch.bfloat16, dev)
@@ -1422,8 +1648,22 @@ def phase_times(dev) -> dict:
                lambda: fa.flash_attention_paged_plain(q, kc, ks, vc, vs, pt,
                                                       kl, qo),
                lambda: F.scaled_dot_product_attention(qt, kt, vt),
-               nbytes, 4 * B * H * kv_len * D)
+               nbytes, 4 * B * H * kv_len * D,
+               plan=fa.k5_plan(B, 1, H, H, D, psz, npg))
         del q, kc, ks, vc, vs, kd, vd, kt, vt
+        # K5 at the verify (Sq 4) and the chunk (Sq 64) shapes of K5_CASES
+        for label in ("verify", "suffix"):
+            args, window, nbytes, ops, sdpa = k5_time_inputs(label, dev)
+            B, Sq, H, _ = args[0].shape
+            _, psz, KVH, _ = args[1].shape
+            record(fa.PAGED_NAME, (label, B, Sq, H, KVH, "nvfp4"),
+                   lambda: fa.flash_attention_paged(*args, window=window),
+                   lambda: fa.flash_attention_paged_plain(*args,
+                                                          window=window),
+                   sdpa, nbytes, ops,
+                   plan=fa.k5_plan(B, Sq, H, KVH, args[0].shape[3], psz,
+                                   args[5].shape[1]))
+            del args, sdpa
         for B, S, H, KVH, D, dt in K7_CASES:
             q, k, v = k7_inputs(B, S, H, KVH, D, getattr(torch, dt), dev)
             G = H // KVH
@@ -1463,20 +1703,6 @@ def phase_times(dev) -> dict:
             del a, b, ra, rb
         emit({"phase": "times", "kernel": fm.FUSED_NAME,
               "train_step_k1_ms": step_ms})
-        # what one K1 launch spends where: absmax and quantizer per operand,
-        # then the GEMM core (the forward at 4096^3; the lm_head's dX, SR on
-        # its (4096, 32000) A in counter mode)
-        for role, M, K, N, sr_a in (("fwd", 4096, 4096, 4096, False),
-                                    ("dX", 4096, 32000, 4096, True)):
-            a, b, spec_a, spec_b, _, _, ca, _ = k1_inputs(
-                M, K, N, "nvfp4", sr_a, False, *scales[role], dev)
-            emit({"phase": "times", "kernel": fm.FUSED_NAME,
-                  "case": [role, M, K, N], "launch_breakdown":
-                  launch_breakdown(lambda: fm.fused_quant_matmul(
-                      a, b, spec_a, spec_b, a_counter=ca,
-                      out_dtype=torch.bfloat16), flush,
-                      rows[(fm.FUSED_NAME, (role, M, K, N))]["ms"])})
-            del a, b
         # K2 at (4096, 4096) f32, the forward spec (NVFP4 RtN, computed
         # tensor scale): x read once, f32 codes and scales written.  Its
         # f32 operations (~10 a value, 0.0025 ms at 67 TFLOP/s) lie far
@@ -1499,10 +1725,13 @@ def phase_times(dev) -> dict:
                lambda: torch.matmul(ad, bd),
                4 * (2 * M * K + M * K) + 4 * 2 * M * K // 16 + 4,
                2 * M * K * K, reps=5)
-        emit({"phase": "times", "kernel": fm.BLOCK_NAME,
-              "case": [M, K, K], "launch_breakdown": launch_breakdown(
-                  lambda: fm.block_matmul(ac, asc, bc, bsc, ts), flush,
-                  rows[(fm.BLOCK_NAME, (M, K, K))]["ms"])})
+        del ac, asc, bc, bsc, ad, bd
+    torch.cuda.empty_cache()
+    # what one call spends in each of its launches, each call in a fresh
+    # process
+    for case, (kernel, _) in BREAKDOWNS.items():
+        emit({"phase": "times", "kernel": kernel, "case": case,
+              "launch_breakdown": breakdown_in_child(case)})
     return rows
 
 

@@ -7,229 +7,570 @@
 // float8_e4m3fn scales (P, page, KVH, D/block); fp8 float8_e4m3fn codes +
 // bf16 scales; bf16 codes (scales ignored).  Each slot b reads its logical
 // page ki from physical page page_table[b, ki] and carries its own
-// (q_offset, kv_len) -- three int32 device operands, read inside the kernel,
-// so the host never syncs on a length.  GQA, causal, and a sliding window
-// over a ROLLING buffer (slot j holds the latest pos with pos % buf == j).
+// (q_offset, kv_len) -- three int32 device operands, read inside the
+// kernels, so the host never syncs on a length.  GQA, causal, and a sliding
+// window over a ROLLING buffer (slot j holds the latest pos with pos % buf
+// == j).
 //
-// What bounds it on an H100: at continuous-batching decode (8 slots, one
-// query row, <= 512 cached tokens of llama2-7b) one call reads ~2.4 MB of
-// packed K/V at most and does ~0.1 GFLOP: microseconds of bytes, so in
-// practice latency (the serial page loop of one block) bounds it.  The pool
-// is streamed at its packed width (0.5625 B/elem for nvfp4) and never
-// gathered into a contiguous or dequantized buffer in device memory.
+// What bounds it on an H100: bytes.  At continuous-batching decode (8 slots,
+// one query row, 256 cached tokens of llama2-7b, nvfp4) one call reads 9.4
+// MB of packed K/V (2.9 us at 3.35 TB/s) and does 0.07 GFLOP.  The pool is
+// streamed at its packed width and never gathered or dequantized into
+// device memory.
 //
-// Design, simple and right first (K6's, with a page-table indirection):
-//   * one block per (query row, kv head, slot) serves all G query heads of
-//     the group, so every K/V tile is read and dequantized once for the
-//     group;
-//   * a tile is 32 consecutive logical keys (one per lane); each key's
-//     physical row comes from the page table (page = key / page_size), is
-//     dequantized (nibble x E4M3 byte, or fp8 x bf16, or bf16) into shared
-//     memory in f32, and one warp per query head runs the f32 online softmax;
-//   * the loop stops at kv_len and, for a linear cache under the causal
-//     mask, at the row's causal frontier: a skipped key contributes exactly
-//     0 once a valid key has been seen, which is what the TPU kernel's page
-//     skip gives too; a slot with kv_len == 0 runs no tile and writes 0;
-//   * rolling kpos = last - (((last % buf - j) % buf + buf) % buf): Python's
-//     floor modulo written out for C's truncating %;
-//   * masked scores are NEG_INF = -1e30 (not -inf) and l is clamped at
-//     1e-30, as in the TPU kernel, so empty rows stay finite;
-//   * f32 CUDA-core dots; no tensor cores or TMA yet.
+// What the design does about it (flash-decoding on f32 CUDA cores: the
+// reference keeps p in f32, and fp8 x bf16 is not exact in bf16):
+//   * split-KV: each slot's logical key range (n_pages * page_size, a
+//     static shape) is cut into fixed splits (flash_attn.py: k5_plan).  A
+//     block owns (split, kv head, a group of query vectors, slot) and
+//     writes its (m, l, acc) partial; a combine launch merges the splits in
+//     split order -- no atomics.  Blocks past a slot's kv_len, or past the
+//     causal frontier of their rows, exit at once and the combine skips
+//     them, so the split count never depends on a length;
+//   * a block serves up to 8 query vectors -- the G heads of the group
+//     times the rows of verify (Sq 4) or chunked prefill (Sq 64) -- from
+//     one read of each K/V tile;
+//   * a tile is 128 keys, one per lane of the 4 warps, so every warp works
+//     when G = 1: a lane scores its own key against every query vector
+//     (the row's code bytes in 16-byte shared-memory loads, each value
+//     decoded once, q broadcast from shared memory), the warp runs the
+//     online softmax over its 32 keys at once, and acc += p V runs with
+//     each lane on D/32 dims; the 4 warps' partials merge at the end;
+//   * the tile's K/V rows (64 code bytes + 8 scale bytes per nvfp4 row and
+//     head) arrive by cp.async in 16-byte (codes) and 4-byte (scales)
+//     copies, a ring of 2 tiles where a split has more than one, into rows
+//     padded so that the rows a warp reads at once sit in different banks;
+//     values are decoded through E2M1 and E4M3 tables in shared memory
+//     (code x scale, exact in f32);
+//   * the reference's rules: a page runs only below kv_len (and, for a
+//     linear cache under the causal mask, at or before the rows' last
+//     position), so exactly the reference's pages are read; masked scores
+//     are NEG_INF = -1e30 (not -inf) and l is clamped at 1e-30, so a slot
+//     with kv_len == 0 writes 0; rolling kpos = last - (((last % buf - j) %
+//     buf + buf) % buf): Python's floor modulo written out for C's %.
+#include <climits>
+
 #include "fp4_common.cuh"
 
 namespace {
 
-constexpr int TK = 32;          // logical keys per tile (one per lane)
+constexpr int NWARP = 4;         // warps per block
+constexpr int TK = 32 * NWARP;   // keys per tile: one per lane
 constexpr float NEG_INF = -1e30f;
-constexpr int NWARP = 4;
 
 enum PoolFmt { kNvfp4 = 0, kFp8 = 1, kBf16 = 2 };
 
+struct PagedArgs {
+  const void* q;
+  const uint8_t* kc;
+  const uint8_t* ks;
+  const uint8_t* vc;
+  const uint8_t* vs;
+  const int* page_table;
+  const int* lengths;
+  const int* q_offsets;
+  float* ws_ml;   // (B, Sq, H, n_splits, 2): m, l of each split
+  float* ws_acc;  // (B, Sq, H, n_splits, D)
+  void* out;
+  int q_bf16, Sq, H, KVH, D, psz, n_pages, fmt, block, causal, window;
+  int cb, sb;  // code and scale bytes of one row of one head (sb 0: bf16)
+  int cstride, sstride;  // their row strides in shared memory
+  float sm_scale;
+  int qv, keys_per_split, n_splits;  // the split plan
+  int stages;                        // ring stages: 2 where a split has >1 tile
+};
+
 __device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-__device__ __forceinline__ float load_f(const void* p, size_t i, int bf16) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-              : static_cast<const float*>(p)[i];
-}
-
-__device__ __forceinline__ void store_f(void* p, size_t i, float v,
-                                        int bf16) {
-  if (bf16)
-    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
-  else
-    static_cast<float*>(p)[i] = v;
 }
 
 __device__ __forceinline__ int floor_mod(int x, int m) {
   return ((x % m) + m) % m;
 }
 
-// grid (Sq, KVH, B), NWARP*32 threads.  Dynamic shared memory (floats):
-// qs[G][D] | acc[G][D] | ml[2G] | kt[TK][D+1] | vt[TK][D] | rows[TK] (int)
-__global__ void flash_paged_kernel(
-    const void* __restrict__ q, int q_bf16, const uint8_t* __restrict__ kc,
-    const uint8_t* __restrict__ ks, const uint8_t* __restrict__ vc,
-    const uint8_t* __restrict__ vs, const int* __restrict__ page_table,
-    const int* __restrict__ lengths, const int* __restrict__ q_offsets,
-    void* __restrict__ out, int Sq, int H, int KVH, int D, int psz,
-    int n_pages, int nb, int fmt, int block, int causal, int window,
-    float sm_scale) {
-  extern __shared__ float smem[];
-  const int qi = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int G = H / KVH;
-  float* qs = smem;
-  float* acc = qs + G * D;
-  float* ms = acc + G * D;
-  float* ls = ms + G;
-  float* kt = ls + G;
-  float* vt = kt + TK * (D + 1);
-  int* rows = reinterpret_cast<int*>(vt + TK * D);
+__device__ __forceinline__ float bf16_bits(uint32_t u) {
+  return __uint_as_float(u << 16);
+}
+
+// Keys [0, kproc) of slot b that a group of query vectors whose last row is
+// last_row reads: the reference's pages (ki * psz < kv_len, and ki * psz <=
+// that row's position for a linear cache under the causal mask), whole.
+__device__ __forceinline__ int block_kproc(const PagedArgs& p, int b,
+                                           int last_row) {
+  const int buf = p.n_pages * p.psz;
+  int kend = min(max(p.lengths[b], 0), buf);
+  if (p.causal && p.window <= 0)
+    kend = min(kend, max(p.q_offsets[b] + last_row + 1, 0));
+  return (kend + p.psz - 1) / p.psz * p.psz;
+}
+
+// This lane's DL dims d0 .. d0 + DL - 1 of one cached row, dequantized
+// through the E2M1 (16) and E4M3 (256) tables: code x scale, exact in f32.
+template <int DL>
+__device__ __forceinline__ void decode_row(
+    int fmt, const uint8_t* __restrict__ codes,
+    const uint8_t* __restrict__ scales, int d0, const int (&sidx)[DL],
+    bool one_scale, const float* __restrict__ lut16,
+    const float* __restrict__ lut8, float (&v)[DL]) {
+  if (fmt == kNvfp4) {
+#pragma unroll
+    for (int i = 0; i < DL; ++i) {
+      const int d = d0 + i;
+      const uint32_t byte = codes[d >> 1];
+      v[i] = lut16[(d & 1) ? byte >> 4 : byte & 0xFu];
+    }
+    if (one_scale) {
+      const float s = lut8[scales[sidx[0]]];
+#pragma unroll
+      for (int i = 0; i < DL; ++i) v[i] *= s;
+    } else {
+#pragma unroll
+      for (int i = 0; i < DL; ++i) v[i] *= lut8[scales[sidx[i]]];
+    }
+  } else if (fmt == kFp8) {
+    const float s0 = bf16_bits(scales[2 * sidx[0]] |
+                               (uint32_t(scales[2 * sidx[0] + 1]) << 8));
+#pragma unroll
+    for (int i = 0; i < DL; ++i) {
+      const float s = one_scale ? s0
+                                : bf16_bits(scales[2 * sidx[i]] |
+                                            (uint32_t(scales[2 * sidx[i] + 1])
+                                             << 8));
+      v[i] = lut8[codes[d0 + i]] * s;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < DL; ++i)
+      v[i] = bf16_bits(codes[2 * (d0 + i)] |
+                       (uint32_t(codes[2 * (d0 + i) + 1]) << 8));
+  }
+}
+
+// Dynamic shared memory of paged_split_kernel<DL, QM>.
+static size_t split_smem(int DL, int QM, const PagedArgs& p) {
+  const int D = 32 * DL;
+  return sizeof(float) * (16 + 256 + QM * D + NWARP * QM * (D + 2)) +
+         size_t(p.stages) * 2 * TK * (p.cstride + p.sstride) +
+         sizeof(int) * (p.keys_per_split / p.psz + 2);
+}
+
+// This lane's score contributions q . k for its own key's row: the code
+// bytes in 16-byte loads, each value decoded (code x scale, exact in f32)
+// once and multiplied into every query vector.
+template <int QM, int D>
+__device__ __forceinline__ void score_row(
+    int fmt, int cb, int block, const uint8_t* __restrict__ crow,
+    const uint8_t* __restrict__ srow, const float* __restrict__ qs, int nq,
+    const float* __restrict__ lut16, const float* __restrict__ lut8,
+    float (&s)[QM]) {
+  int next = fmt == kBf16 ? INT_MAX : block, sidx = 0;  // bf16: no scales
+  auto scale_at = [&](int i) {
+    return fmt == kNvfp4 ? lut8[srow[i]]
+                         : bf16_bits(srow[2 * i] |
+                                     (uint32_t(srow[2 * i + 1]) << 8));
+  };
+  float sc = fmt == kBf16 ? 1.0f : scale_at(0);
+  float s2[QM];  // odd dims: two accumulation chains instead of one
+#pragma unroll
+  for (int j = 0; j < QM; ++j) s2[j] = 0.f;
+  auto dot = [&](int d, float k, float(&acc)[QM]) {
+    if (d == next) {  // the same d on every lane: uniform
+      ++sidx;
+      next += block;
+      sc = scale_at(sidx);
+    }
+    const float kv = k * sc;
+#pragma unroll
+    for (int j = 0; j < QM; ++j)
+      if (j < nq) acc[j] = fmaf(qs[j * D + d], kv, acc[j]);
+  };
+  for (int u = 0; u < cb / 16; ++u) {
+    union {
+      uint4 v;
+      uint8_t b[16];
+    } raw;
+    raw.v = *reinterpret_cast<const uint4*>(crow + 16 * u);
+    if (fmt == kNvfp4) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        dot(32 * u + 2 * i, lut16[raw.b[i] & 0xF], s);
+        dot(32 * u + 2 * i + 1, lut16[raw.b[i] >> 4], s2);
+      }
+    } else if (fmt == kFp8) {
+#pragma unroll
+      for (int i = 0; i < 16; i += 2) {
+        dot(16 * u + i, lut8[raw.b[i]], s);
+        dot(16 * u + i + 1, lut8[raw.b[i + 1]], s2);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; i += 2) {
+        dot(8 * u + i, bf16_bits(raw.b[2 * i] |
+                                 (uint32_t(raw.b[2 * i + 1]) << 8)), s);
+        dot(8 * u + i + 1, bf16_bits(raw.b[2 * i + 2] |
+                                     (uint32_t(raw.b[2 * i + 3]) << 8)), s2);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < QM; ++j) s[j] += s2[j];
+}
+
+// grid (n_splits, n_qblocks * KVH, B), NWARP * 32 threads.  QM: query
+// vectors a block holds (>= p.qv).  Dynamic shared memory: E2M1 and E4M3
+// tables | q [QM][D] | per-warp partials [NWARP][QM][D + 2] | p.stages
+// ring stages of K codes, V codes, K scales, V scales (TK rows each) | the
+// physical first row of each page of the split.
+template <int DL, int QM>
+__global__ void __launch_bounds__(NWARP * 32, QM == 1 ? 4 : 2)
+paged_split_kernel(const PagedArgs p) {
+  constexpr int D = 32 * DL;
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* lut16 = reinterpret_cast<float*>(smem);
+  float* lut8 = lut16 + 16;
+  float* qs = lut8 + 256;
+  float* mrg = qs + QM * D;
+  uint8_t* ring = reinterpret_cast<uint8_t*>(mrg + NWARP * QM * (D + 2));
+  const int stage_bytes = 2 * TK * (p.cstride + p.sstride);
+  int* prow = reinterpret_cast<int*>(ring + p.stages * stage_bytes);
+
+  const int split = blockIdx.x, kvh = blockIdx.y % p.KVH;
+  const int qb = blockIdx.y / p.KVH, b = blockIdx.z;
+  const int G = p.H / p.KVH, nqv = p.Sq * G;
+  const int i0 = qb * p.qv, nq = min(p.qv, nqv - i0);
+  const int k_lo = split * p.keys_per_split;
+  const int buf = p.n_pages * p.psz;
+  const int page0 = k_lo / p.psz;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nthr = blockDim.x;
+  const int* pt = p.page_table + size_t(b) * p.n_pages;
+  // the split's page rows, loaded beside the lengths (a split never
+  // reaches past the slot buffer)
+  const int k_top = min(k_lo + p.keys_per_split, buf);
+  for (int i = tid; page0 + i <= (k_top - 1) / p.psz; i += NWARP * 32)
+    prow[i] = pt[page0 + i] * p.psz;
+  const int kproc = block_kproc(p, b, (i0 + nq - 1) / G);
+  if (k_lo >= kproc) return;  // the combine skips this split
+  const int k_hi = min(k_lo + p.keys_per_split, kproc);
 
-  const int buf = n_pages * psz;
-  const int q_offset = q_offsets[b];
-  const int kv_len = min(max(lengths[b], 0), buf);
-  const int qpos = q_offset + qi;
-  const int last = q_offset + Sq - 1;          // rolling kpos reference row
-  const int* pt_row = page_table + size_t(b) * n_pages;
-  for (int i = tid; i < G * D; i += nthr) {
-    int g = i / D, d = i % D;
-    size_t qidx = ((size_t(b) * Sq + qi) * H + kvh * G + g) * D + d;
-    qs[i] = load_f(q, qidx, q_bf16);
-    acc[i] = 0.f;
+  if (tid < 16) lut16[tid] = fp4::decode_e2m1(tid);
+  for (int i = tid; i < 256; i += NWARP * 32) lut8[i] = fp4::decode_e4m3(i);
+  for (int e = tid; e < nq * D; e += NWARP * 32) {
+    const int j = e / D, d = e % D, i = i0 + j;
+    const size_t qi = ((size_t(b) * p.Sq + i / G) * p.H + kvh * G + i % G) * D + d;
+    qs[e] = p.q_bf16 ? __bfloat162float(
+                           static_cast<const __nv_bfloat16*>(p.q)[qi])
+                     : static_cast<const float*>(p.q)[qi];
   }
-  for (int g = tid; g < G; g += nthr) {
-    ms[g] = NEG_INF;
-    ls[g] = 0.f;
-  }
-  int kend = kv_len;
-  if (causal && window <= 0) kend = min(kend, max(qpos + 1, 0));
-  const int Dc = (fmt == kNvfp4) ? D / 2 : D;
+  const int q_off = p.q_offsets[b];
+  const int kv_len = min(max(p.lengths[b], 0), buf);
+  const int last = q_off + p.Sq - 1;  // rolling kpos reference row
   const int last_mod = floor_mod(last, buf);
-  __syncthreads();
 
-  for (int t0 = 0; t0 < kend; t0 += TK) {
-    // physical row (page * psz + offset) of each of the tile's keys
-    if (tid < TK) {
-      int key = t0 + tid;
-      rows[tid] = key < buf ? pt_row[key / psz] * psz + key % psz : -1;
-    }
-    __syncthreads();
-    // dequantize the K and V tiles into shared memory (f32)
-    for (int i = tid; i < TK * Dc; i += nthr) {
-      int j = i / Dc, c = i % Dc;
-      int r = rows[j];
-      float k0 = 0.f, k1 = 0.f, v0 = 0.f, v1 = 0.f;
-      if (r >= 0) {
-        size_t row = size_t(r) * KVH + kvh;
-        if (fmt == kNvfp4) {
-          uint32_t kb = kc[row * Dc + c], vb = vc[row * Dc + c];
-          int d = 2 * c;                      // low nibble = column 2c
-          float ksc = fp4::decode_e4m3(ks[row * nb + d / block]);
-          float vsc = fp4::decode_e4m3(vs[row * nb + d / block]);
-          k0 = fp4::decode_e2m1(kb & 0xFu) * ksc;
-          k1 = fp4::decode_e2m1(kb >> 4) * ksc;
-          v0 = fp4::decode_e2m1(vb & 0xFu) * vsc;
-          v1 = fp4::decode_e2m1(vb >> 4) * vsc;
-        } else if (fmt == kFp8) {
-          const __nv_bfloat16* ksb =
-              reinterpret_cast<const __nv_bfloat16*>(ks);
-          const __nv_bfloat16* vsb =
-              reinterpret_cast<const __nv_bfloat16*>(vs);
-          k0 = fp4::decode_e4m3(kc[row * Dc + c]) *
-               __bfloat162float(ksb[row * nb + c / block]);
-          v0 = fp4::decode_e4m3(vc[row * Dc + c]) *
-               __bfloat162float(vsb[row * nb + c / block]);
-        } else {
-          k0 = __bfloat162float(
-              reinterpret_cast<const __nv_bfloat16*>(kc)[row * Dc + c]);
-          v0 = __bfloat162float(
-              reinterpret_cast<const __nv_bfloat16*>(vc)[row * Dc + c]);
-        }
-      }
-      if (fmt == kNvfp4) {
-        kt[j * (D + 1) + 2 * c] = k0;
-        kt[j * (D + 1) + 2 * c + 1] = k1;
-        vt[j * D + 2 * c] = v0;
-        vt[j * D + 2 * c + 1] = v1;
-      } else {
-        kt[j * (D + 1) + c] = k0;
-        vt[j * D + c] = v0;
-      }
-    }
-    __syncthreads();
-    const int j = t0 + lane;                     // logical slot of this lane
-    const int kpos = (window > 0) ? last - floor_mod(last_mod - j, buf) : j;
-    bool valid = j < kv_len && kpos >= 0;
-    if (causal) valid = valid && kpos <= qpos;
-    if (window > 0) valid = valid && kpos > qpos - window;
-    for (int g = warp; g < G; g += NWARP) {
-      float s = 0.f;
-      const float* qg = qs + g * D;
-      const float* kr = kt + lane * (D + 1);
-      for (int d = 0; d < D; ++d) s = fmaf(qg[d], kr[d], s);
-      s = valid ? s * sm_scale : NEG_INF;
-      const float m_prev = ms[g], l_prev = ls[g];
-      const float m_new = fmaxf(m_prev, warp_max(s));
-      const float corr = expf(m_prev - m_new);
-      const float p = expf(s - m_new);
-      const float psum = warp_sum(p);
-      float* ag = acc + g * D;
-      for (int d = lane; d < D; d += 32) {
-        float pv = 0.f;
-        for (int jj = 0; jj < TK; ++jj)
-          pv = fmaf(__shfl_sync(0xffffffffu, p, jj), vt[jj * D + d], pv);
-        ag[d] = ag[d] * corr + pv;
-      }
-      __syncwarp();
-      if (lane == 0) {
-        ms[g] = m_new;
-        ls[g] = l_prev * corr + psum;
-      }
-      __syncwarp();
-    }
-    __syncthreads();
+  // PV: this lane's dims d0 .. d0 + DL - 1 of each query vector
+  const int d0 = lane * DL;
+  int sidx[DL];
+#pragma unroll
+  for (int i = 0; i < DL; ++i) sidx[i] = (d0 + i) / p.block;
+  const bool one_scale = p.block % DL == 0;
+  float acc[QM][DL], m[QM], l[QM];
+  int qpos[QM];
+#pragma unroll
+  for (int j = 0; j < QM; ++j) {
+#pragma unroll
+    for (int e = 0; e < DL; ++e) acc[j][e] = 0.f;
+    qpos[j] = q_off + (i0 + min(j, nq - 1)) / G;
+    m[j] = NEG_INF;
+    l[j] = 0.f;
   }
-  for (int i = tid; i < G * D; i += nthr) {
-    int g = i / D, d = i % D;
-    size_t oidx = ((size_t(b) * Sq + qi) * H + kvh * G + g) * D + d;
-    store_f(out, oidx, acc[i] / fmaxf(ls[g], 1e-30f), q_bf16);
+  __syncthreads();  // page rows, tables, q
+
+  // ring stage `st` <- the K and V rows of keys t0 .. t0 + TK - 1 (< k_hi):
+  // per warp step, groups of lanes each copy one key's 16-byte code chunks
+  // (K then V), then one key's 4-byte scale words (or bytes)
+  const int cpr = p.cb / 16;
+  const bool words = p.sb % 4 == 0;
+  const int spr = words ? p.sb / 4 : p.sb;
+  const int ck = max(1, 32 / (2 * cpr)), cl = lane / (2 * cpr);
+  const int sk = spr ? max(1, 32 / (2 * spr)) : 1, sl = spr ? lane / (2 * spr) : 0;
+  auto fetch = [&](int t0, int st) {
+    uint8_t* kcs = ring + st * stage_bytes;
+    uint8_t* vcs = kcs + TK * p.cstride;
+    uint8_t* kss = vcs + TK * p.cstride;
+    uint8_t* vss = kss + TK * p.sstride;
+    const int nkeys = min(TK, k_hi - t0);
+    for (int j0 = warp * ck; j0 < nkeys; j0 += NWARP * ck) {
+      const int j = j0 + cl;
+      if (cl >= ck || j >= nkeys) continue;
+      const int key = t0 + j;
+      const size_t hrow =
+          (size_t(prow[key / p.psz - page0]) + key % p.psz) * p.KVH + kvh;
+      for (int c = lane % (2 * cpr); c < 2 * cpr; c += 32) {
+        const bool v = c >= cpr;
+        const int u = v ? c - cpr : c;
+        fp4::cp_async16((v ? vcs : kcs) + j * p.cstride + 16 * u,
+                        (v ? p.vc : p.kc) + hrow * p.cb + 16 * u);
+      }
+    }
+    if (!spr) return;
+    for (int j0 = warp * sk; j0 < nkeys; j0 += NWARP * sk) {
+      const int j = j0 + sl;
+      if (sl >= sk || j >= nkeys) continue;
+      const int key = t0 + j;
+      const size_t hrow =
+          (size_t(prow[key / p.psz - page0]) + key % p.psz) * p.KVH + kvh;
+      for (int c = lane % (2 * spr); c < 2 * spr; c += 32) {
+        const bool v = c >= spr;
+        const int u = v ? c - spr : c;
+        uint8_t* dst = (v ? vss : kss) + j * p.sstride;
+        const uint8_t* src = (v ? p.vs : p.ks) + hrow * p.sb;
+        if (words)
+          fp4::cp_async4(dst + 4 * u, src + 4 * u);
+        else
+          dst[u] = src[u];
+      }
+    }
+  };
+
+  const int nt = (k_hi - k_lo + TK - 1) / TK;
+  fetch(k_lo, 0);
+  fp4::cp_async_commit();
+  for (int t = 0; t < nt; ++t) {
+    const int t0 = k_lo + t * TK, st = t % p.stages;
+    if (p.stages == 2) {
+      if (t + 1 < nt) fetch(t0 + TK, st ^ 1);
+      fp4::cp_async_commit();
+      fp4::cp_async_wait<1>();
+    } else {
+      fp4::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint8_t* kcs = ring + st * stage_bytes;
+    const uint8_t* vcs = kcs + TK * p.cstride;
+    const uint8_t* kss = vcs + TK * p.cstride;
+    const uint8_t* vss = kss + TK * p.sstride;
+
+    // scores: lane j of warp w scores key t0 + 32w + j for every query
+    const int jw = 32 * warp, j = jw + lane, key = t0 + j;
+    const bool proc = key < k_hi;
+    float s[QM];
+#pragma unroll
+    for (int jq = 0; jq < QM; ++jq) s[jq] = 0.f;
+    if (proc)
+      score_row<QM, D>(p.fmt, p.cb, p.block, kcs + j * p.cstride,
+                       kss + j * p.sstride, qs, nq, lut16, lut8, s);
+    const int kpos =
+        (p.window > 0) ? last - floor_mod(last_mod - key, buf) : key;
+    const bool key_ok = key < kv_len && kpos >= 0;
+    float pr[QM];
+#pragma unroll
+    for (int jq = 0; jq < QM; ++jq) {
+      if (jq >= nq) break;
+      bool ok = key_ok;
+      if (p.causal) ok = ok && kpos <= qpos[jq];
+      if (p.window > 0) ok = ok && kpos > qpos[jq] - p.window;
+      const float sj = ok ? s[jq] * p.sm_scale : NEG_INF;
+      // the warp's 32 keys at once: unread keys take no part
+      const float mx = fmaxf(m[jq], warp_max(proc ? sj : -INFINITY));
+      const float corr = expf(m[jq] - mx);
+      pr[jq] = proc ? expf(sj - mx) : 0.f;
+      l[jq] = l[jq] * corr + warp_sum(pr[jq]);
+#pragma unroll
+      for (int e = 0; e < DL; ++e) acc[jq][e] *= corr;
+      m[jq] = mx;
+    }
+    // acc += p V over the warp's keys, lane by lane of dims
+    const int nj = min(32, k_hi - (t0 + jw));
+    for (int jj = 0; jj < nj; ++jj) {
+      float vr[DL];
+      decode_row<DL>(p.fmt, vcs + (jw + jj) * p.cstride,
+                     vss + (jw + jj) * p.sstride, d0, sidx, one_scale, lut16,
+                     lut8, vr);
+#pragma unroll
+      for (int jq = 0; jq < QM; ++jq) {
+        if (jq >= nq) break;
+        const float pj = __shfl_sync(0xffffffffu, pr[jq], jj);
+#pragma unroll
+        for (int e = 0; e < DL; ++e) acc[jq][e] = fmaf(pj, vr[e], acc[jq][e]);
+      }
+    }
+    __syncthreads();
+    if (p.stages == 1 && t + 1 < nt) {
+      fetch(t0 + TK, 0);
+      fp4::cp_async_commit();
+    }
   }
+  fp4::cp_async_wait<0>();
+
+  // merge the 4 warps' partials (in warp order) into the split's partial
+#pragma unroll
+  for (int jq = 0; jq < QM; ++jq) {
+    if (jq >= nq) break;
+    float* r = mrg + (warp * QM + jq) * (D + 2);
+#pragma unroll
+    for (int e = 0; e < DL; ++e) r[d0 + e] = acc[jq][e];
+    if (lane == 0) {
+      r[D] = m[jq];
+      r[D + 1] = l[jq];
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < nq * D; e += NWARP * 32) {
+    const int jq = e / D, d = e % D;
+    float mx = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NWARP; ++w)
+      mx = fmaxf(mx, mrg[(w * QM + jq) * (D + 2) + D]);
+    float ls = 0.f, as = 0.f;
+#pragma unroll
+    for (int w = 0; w < NWARP; ++w) {
+      const float* r = mrg + (w * QM + jq) * (D + 2);
+      const float wgt = expf(r[D] - mx);
+      ls += wgt * r[D + 1];
+      as += wgt * r[d];
+    }
+    const int i = i0 + jq, row = i / G, h = kvh * G + i % G;
+    const size_t o = ((size_t(b) * p.Sq + row) * p.H + h) * p.n_splits + split;
+    p.ws_acc[o * D + d] = as;
+    if (d == 0) {
+      p.ws_ml[2 * o] = mx;
+      p.ws_ml[2 * o + 1] = ls;
+    }
+  }
+}
+
+// One warp per (slot, row, head): merge the splits that ran, in a fixed
+// order, and write out = acc / max(l, 1e-30) in q's dtype (0 where none
+// ran).  Lanes share the splits for m and l, then each lane owns D/32 dims.
+__global__ void __launch_bounds__(128) paged_combine_kernel(const PagedArgs p,
+                                                            int total) {
+  const int gw = blockIdx.x * 4 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (gw >= total) return;
+  const int h = gw % p.H, row = (gw / p.H) % p.Sq, b = gw / (p.H * p.Sq);
+  const int G = p.H / p.KVH, i = row * G + h % G;
+  const int i0 = i / p.qv * p.qv, nq = min(p.qv, p.Sq * G - i0);
+  const int kproc = block_kproc(p, b, (i0 + nq - 1) / G);
+  const int n_act = min(p.n_splits,
+                        (kproc + p.keys_per_split - 1) / p.keys_per_split);
+  const float* ml = p.ws_ml + 2 * size_t(gw) * p.n_splits;
+  const float* accs = p.ws_acc + size_t(gw) * p.n_splits * p.D;
+  float mx = NEG_INF, ls = 0.f;
+  for (int s = lane; s < n_act; s += 32) mx = fmaxf(mx, ml[2 * s]);
+  mx = warp_max(mx);
+  for (int s = lane; s < n_act; s += 32) ls += expf(ml[2 * s] - mx) * ml[2 * s + 1];
+  ls = warp_sum(ls);
+  const float den = fmaxf(ls, 1e-30f);
+  for (int d = lane; d < p.D; d += 32) {
+    float as = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < n_act; ++s)
+      as += expf(ml[2 * s] - mx) * accs[size_t(s) * p.D + d];
+    const float v = as / den;
+    const size_t oi = size_t(gw) * p.D + d;
+    if (p.q_bf16)
+      static_cast<__nv_bfloat16*>(p.out)[oi] = __float2bfloat16_rn(v);
+    else
+      static_cast<float*>(p.out)[oi] = v;
+  }
+}
+
+template <int DL, int QM>
+int launch_split(const PagedArgs& p, int B, cudaStream_t stream) {
+  const size_t smem = split_smem(DL, QM, p);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      paged_split_kernel<DL, QM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (attr != cudaSuccess) return int(attr);
+  const int G = p.H / p.KVH;
+  const int n_qblocks = (p.Sq * G + p.qv - 1) / p.qv;
+  dim3 grid(p.n_splits, n_qblocks * p.KVH, B);
+  paged_split_kernel<DL, QM><<<grid, NWARP * 32, smem, stream>>>(p);
+  return int(cudaGetLastError());
+}
+
+// QM = 1 where a block holds one query vector (decode without GQA), else
+// the most this head size allows: min(8, 32 / DL), as flash_attn.py: k5_qmax.
+template <int DL>
+int launch_dl(const PagedArgs& p, int B, cudaStream_t stream) {
+  constexpr int QMAX = (32 / DL) < 8 ? 32 / DL : 8;
+  if (p.qv > QMAX) return int(cudaErrorInvalidValue);
+  return p.qv == 1 ? launch_split<DL, 1>(p, B, stream)
+                   : launch_split<DL, QMAX>(p, B, stream);
 }
 
 }  // namespace
 
+// ws_ml (B, Sq, H, n_splits, 2) and ws_acc (B, Sq, H, n_splits, D) f32
+// workspaces; qv query vectors per block, keys_per_split (a multiple of 32)
+// and n_splits from the planner.  D % 32 == 0, D <= 256.
 extern "C" int flash_attention_paged_fwd(
     const void* q, int q_bf16, const uint8_t* k_codes,
     const uint8_t* k_scales, const uint8_t* v_codes, const uint8_t* v_scales,
     const int* page_table, const int* lengths, const int* q_offsets,
-    void* out, int B, int Sq, int H, int KVH, int D, int page_size,
-    int n_pages, int nb, int fmt, int block, int causal, int window,
-    float sm_scale, cudaStream_t stream) {
+    void* out, float* ws_ml, float* ws_acc, int B, int Sq, int H, int KVH,
+    int D, int page_size, int n_pages, int nb, int fmt, int block,
+    int causal, int window, float sm_scale, int qv, int keys_per_split,
+    int n_splits, cudaStream_t stream) {
   if (B <= 0 || Sq <= 0) return int(cudaSuccess);
-  int G = H / KVH;
-  size_t smem = sizeof(float) * (2 * size_t(G) * D + 2 * G +
-                                 TK * (D + 1) + size_t(TK) * D) +
-                sizeof(int) * TK;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_paged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return int(err);
-  dim3 grid(Sq, KVH, B);
-  flash_paged_kernel<<<grid, NWARP * 32, smem, stream>>>(
-      q, q_bf16, k_codes, k_scales, v_codes, v_scales, page_table, lengths,
-      q_offsets, out, Sq, H, KVH, D, page_size, n_pages, nb, fmt, block,
-      causal, window, sm_scale);
+  PagedArgs p;
+  p.q = q;
+  p.kc = k_codes;
+  p.ks = k_scales;
+  p.vc = v_codes;
+  p.vs = v_scales;
+  p.page_table = page_table;
+  p.lengths = lengths;
+  p.q_offsets = q_offsets;
+  p.ws_ml = ws_ml;
+  p.ws_acc = ws_acc;
+  p.out = out;
+  p.q_bf16 = q_bf16;
+  p.Sq = Sq;
+  p.H = H;
+  p.KVH = KVH;
+  p.D = D;
+  p.psz = page_size;
+  p.n_pages = n_pages;
+  p.fmt = fmt;
+  p.block = block;
+  p.causal = causal;
+  p.window = window;
+  p.cb = fmt == kNvfp4 ? D / 2 : (fmt == kFp8 ? D : 2 * D);
+  p.sb = fmt == kNvfp4 ? nb : (fmt == kFp8 ? 2 * nb : 0);
+  // shared-memory row strides that put the rows a warp reads at once in
+  // different banks: an odd number of 16-byte units (codes), of words
+  // (scales)
+  p.cstride = p.cb + ((p.cb / 16) % 2 == 0 ? 16 : 32);
+  const int sw = (p.sb + 3) / 4;
+  p.sstride = p.sb ? 4 * (sw % 2 ? sw : sw + 1) : 0;
+  p.stages = keys_per_split > TK ? 2 : 1;
+  p.sm_scale = sm_scale;
+  p.qv = qv;
+  p.keys_per_split = keys_per_split;
+  p.n_splits = n_splits;
+  int err;
+  switch (D / 32) {
+    case 1: err = launch_dl<1>(p, B, stream); break;
+    case 2: err = launch_dl<2>(p, B, stream); break;
+    case 3: err = launch_dl<3>(p, B, stream); break;
+    case 4: err = launch_dl<4>(p, B, stream); break;
+    case 5: err = launch_dl<5>(p, B, stream); break;
+    case 6: err = launch_dl<6>(p, B, stream); break;
+    case 7: err = launch_dl<7>(p, B, stream); break;
+    case 8: err = launch_dl<8>(p, B, stream); break;
+    default: return int(cudaErrorInvalidValue);
+  }
+  if (err != 0) return err;
+  const int total = B * Sq * H;
+  paged_combine_kernel<<<(total + 3) / 4, 128, 0, stream>>>(p, total);
   return int(cudaGetLastError());
 }

@@ -1,9 +1,10 @@
 // Minifloat helpers shared by the port's CUDA kernels: the __device__
 // versions of the K0 helpers in repro/kernels/common.py (plain PyTorch
-// versions: repro_torch/kernels/common.py), and the block quantizer that
-// K1, K2 and K4 share (absmax -> tensor scale -> block scales -> codes, in
-// the TPU kernels' order of operations), with its SR bits read from a
-// tensor or hashed in the kernel from a seed (counter_hash, K1).
+// versions: repro_torch/kernels/common.py), the block quantizer that K1,
+// K2 and K4 share (absmax -> tensor scale -> block scales -> codes, in the
+// TPU kernels' order of operations), with its SR bits read from a tensor
+// or hashed in the kernel from a seed (counter_hash, K1), and the cp.async
+// copies K4's GEMV and K5 stream their tiles with.
 //
 // Bit-exactness rules, held by chip_smoke.py against the plain versions:
 //   * built without --use_fast_math: IEEE division (__fdiv_rn), no
@@ -145,6 +146,30 @@ inline void launch_absmax(const void* a, int a_bf16, size_t n,
   size_t want = (n + 1023) / 1024;
   int blocks = want < 1024 ? (want > 0 ? int(want) : 1) : 1024;
   absmax_kernel<<<blocks, 256, 0, stream>>>(a, a_bf16, n, out);
+}
+
+// Asynchronous copies global -> shared (cp.async, sm_80+): 16 or 4 bytes,
+// both addresses aligned to the size; complete for the issuing thread at
+// cp_async_wait<N>() (all but the N most recent committed groups), and for
+// the block after a __syncthreads() that follows it.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(smem))),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(smem))),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // One operand's BlockQuantSpec as runtime constants (the data and scale

@@ -21,7 +21,7 @@ f32 rounding.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -315,6 +315,36 @@ def _check_paged(q, k_codes, k_scales, v_codes, v_scales, page_table,
             raise ValueError(f"{name} must be ({B},), got {tuple(t.shape)}")
 
 
+# K5's split plan on the card (csrc/flash_attn_paged.cu): a block holds up to
+# k5_qmax(D) query vectors (heads of a GQA group x query rows) and one split
+# of K5_TILE-key tiles (one key per lane of 4 warps) of a slot's logical key
+# range; enough splits that the blocks number about K5_BLOCKS.
+K5_TILE = 128
+K5_BLOCKS = 2048
+
+
+def k5_qmax(D: int) -> int:
+    """Query vectors one K5 block holds: each lane keeps D/32 dims of each
+    in registers (min(8, 32 / (D / 32)))."""
+    return min(8, 1024 // D)
+
+
+def k5_plan(B: int, Sq: int, H: int, KVH: int, D: int, page_size: int,
+            n_pages: int) -> Tuple[int, int, int]:
+    """(query vectors per block, keys per split, splits) of K5, from static
+    shapes alone -- never from ``lengths`` or ``q_offsets``: the slot's
+    logical range n_pages * page_size is cut into equal splits, multiples
+    of K5_TILE keys, enough for about K5_BLOCKS blocks over (split, kv
+    head, query-vector group, slot)."""
+    nqv = Sq * (H // KVH)
+    qv = min(nqv, k5_qmax(D))
+    base = B * KVH * -(-nqv // qv)
+    buf = n_pages * page_size
+    want = min(max(1, -(-K5_BLOCKS // base)), -(-buf // K5_TILE))
+    keys = -(-(-(-buf // want)) // K5_TILE) * K5_TILE
+    return qv, keys, -(-buf // keys)
+
+
 def flash_attention_paged(q: torch.Tensor, k_codes: torch.Tensor,
                           k_scales: torch.Tensor, v_codes: torch.Tensor,
                           v_scales: torch.Tensor, page_table: torch.Tensor,
@@ -365,17 +395,26 @@ def flash_attention_paged(q: torch.Tensor, k_codes: torch.Tensor,
     tensors = [t.contiguous() for t in (q, k_codes, k_scales, v_codes,
                                         v_scales, page_table, lengths,
                                         q_offsets)]
+    if any(t.data_ptr() % 16 for t in tensors[1:5]):
+        raise ValueError("the pools must start on 16-byte boundaries")
+    n_pages = page_table.shape[1]
+    qv, keys, splits = k5_plan(B, Sq, H, KVH, D, psz, n_pages)
     out = torch.empty_like(tensors[0])
+    ws_ml = torch.empty((B, Sq, H, splits, 2), dtype=torch.float32,
+                        device=dev)
+    ws_acc = torch.empty((B, Sq, H, splits, D), dtype=torch.float32,
+                         device=dev)
     from repro_torch.kernels import _build
     fn = _build.library("flash_attn_paged").flash_attention_paged_fwd
     if fn.argtypes is None:
-        fn.argtypes = [_P, _I] + [_P] * 8 + [_I] * 12 + [ctypes.c_float, _P]
+        fn.argtypes = [_P, _I] + [_P] * 10 + [_I] * 12 + [ctypes.c_float] \
+            + [_I] * 3 + [_P]
         fn.restype = _I
     err = fn(tensors[0].data_ptr(), int(q.dtype == torch.bfloat16),
              *(t.data_ptr() for t in tensors[1:]), out.data_ptr(),
-             B, Sq, H, KVH, D, psz, page_table.shape[1],
-             k_scales.shape[-1], PAGED_FORMATS.index(fmt), block,
-             int(causal), int(window or 0), _sm_scale(D),
+             ws_ml.data_ptr(), ws_acc.data_ptr(), B, Sq, H, KVH, D, psz,
+             n_pages, k_scales.shape[-1], PAGED_FORMATS.index(fmt), block,
+             int(causal), int(window or 0), _sm_scale(D), qv, keys, splits,
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{PAGED_NAME} kernel launch failed: "

@@ -14,9 +14,10 @@
     packed-NVFP4-B.  Replaces ``repro/kernels/fp4_matmul.py::
     packed_block_matmul``; CUDA source ``csrc/fp4_matmul.cu``.
 
-K1 (on bf16-exact specs, ``k1_route``) and K3 run their product on one
-tensor-core GEMM core, ``csrc/fp4_gemm.cuh`` (TMA + wgmma on bf16 operands
-code x block scale, f32 accumulation).
+K1 (on bf16-exact specs, ``k1_route``), K3 and K4 above the GEMV rows
+(``k4_route``) run their product on one tensor-core GEMM core,
+``csrc/fp4_gemm.cuh`` (TMA + wgmma on bf16 operands code x block scale, f32
+accumulation); K4 up to 32 rows is a split-K GEMV on mma.sync.
 
 Each wrapper launches its kernel on CUDA tensors and takes its plain
 PyTorch version (``*_plain``) only for CPU tensors -- there is no fallback
@@ -25,6 +26,7 @@ from one to the other.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -82,13 +84,61 @@ def packed_block_matmul_plain(a: torch.Tensor, b_packed: torch.Tensor,
     return (torch.matmul(ad, bd) * (tsa * tsb)).to(out_dtype)
 
 
+# ---- K4: packed_block_matmul on the card ----------------------------------------
+
+# K4's routes: "gemv" for at most this many rows of A (decode, the prefill
+# programs' lm_head, verify), "core" above it.  Chosen from both routes'
+# times at M 1-64 (chip_smoke.py phase `times`; PERF.md, Findings):
+# the GEMV wins at M 32 on every llama2-7b weight, the core at M 64.
+K4_GEMV_MAX_M = 32
+K4_ROUTES = ("gemv", "core", "f32")
+# the GEMV's tiling (csrc/fp4_matmul.cu): 256 output columns and 8 or 16
+# rows of A per block, K ranges in multiples of 32 rows, at most 1024 rows
+# (Q(A) of the range sits in shared memory), and enough blocks for 2 per SM
+# of an H100's 132 (faster than 1 or 4 per SM at every decode shape timed)
+K4_GEMV_COLS = 256
+K4_GEMV_ROWS = 32
+K4_GEMV_MAX_ROWS = 1024
+K4_GEMV_BLOCKS = 2 * 132
+
+
+def k4_route(M: int, spec_a: BlockQuantSpec) -> str:
+    """K4's route on the card, from static shape and spec before the launch.
+    Where A's code x block scale is ``bf16_exact`` (every preset; B's E2M1 x
+    E4M3 always is): "gemv" (split-K GEMV on mma.sync) for M <=
+    K4_GEMV_MAX_M, "core" (the tensor-core GEMM core) above it.  Any other
+    A spec: "f32" (the f32 CUDA-core tile loop)."""
+    if not bf16_exact(spec_a):
+        return "f32"
+    return "gemv" if M <= K4_GEMV_MAX_M else "core"
+
+
+def k4_gemv_plan(N: int, K: int, block_a: int = 16) -> Tuple[int, int]:
+    """(splits, rows per split) of the GEMV's K dimension, from static
+    shapes alone: enough splits that the column tiles x splits fill
+    ``K4_GEMV_BLOCKS`` blocks, ranges of at most ``K4_GEMV_MAX_ROWS`` rows
+    in multiples of ``K4_GEMV_ROWS`` and of A's block (a block of A
+    quantizes its own slice)."""
+    unit = K4_GEMV_ROWS * block_a // math.gcd(K4_GEMV_ROWS, block_a)
+    tiles = -(-N // K4_GEMV_COLS)
+    want = max(-(-K4_GEMV_BLOCKS // tiles), -(-K // K4_GEMV_MAX_ROWS))
+    want = min(want, -(-K // unit))
+    ks = -(-(-(-K // want)) // unit) * unit
+    return -(-K // ks), ks
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
 def _lib():
     from repro_torch.kernels import _build
     lib = _build.library("fp4_matmul")
     fn = lib.fp4_packed_matmul
     if fn.argtypes is None:
         fn.argtypes = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       ctypes.POINTER(_QuantParams), _P, _P, _P, _P, _I, _P]
+                       ctypes.POINTER(_QuantParams), _I, _I, _I, _P, _P, _P,
+                       _P, _I, _P]
         fn.restype = _I
     return fn
 
@@ -125,7 +175,7 @@ def packed_block_matmul(a: torch.Tensor, b_packed: torch.Tensor,
     ``b_packed``: (K, N/2) uint8 nibble pairs packed along N; ``b_scales``:
     (K/block_b, N) float8_e4m3fn; ``b_tscale``: f32 scalar tensor.  A is
     quantized on the fly with ``spec_a`` (blocks along K); its tensor scale
-    stays on the device.
+    stays on the device.  On the card the route is ``k4_route(M, spec_a)``.
     """
     M, N, K = _check(a, b_packed, b_scales, spec_a, block_b, a_rbits,
                      out_dtype)
@@ -135,7 +185,16 @@ def packed_block_matmul(a: torch.Tensor, b_packed: torch.Tensor,
             a_rbits=a_rbits, out_dtype=out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
-    # ---- what the CUDA kernel takes ----
+    return _k4_launch(a, b_packed, b_scales, b_tscale, spec_a, block_b,
+                      a_rbits, out_dtype, k4_route(M, spec_a))
+
+
+def _k4_launch(a, b_packed, b_scales, b_tscale, spec_a, block_b, a_rbits,
+               out_dtype, route: str) -> torch.Tensor:
+    """K4 on CUDA tensors by ``route``, on operands that passed ``_check``:
+    what ``packed_block_matmul`` runs after ``k4_route``; chip_smoke.py
+    times both routes through it to find the crossover."""
+    (M, K), N = a.shape, 2 * b_packed.shape[1]
     dev = a.device
     if a.dtype not in (torch.bfloat16, torch.float32) or not a.is_contiguous():
         raise ValueError("a must be contiguous bf16 or f32")
@@ -148,18 +207,33 @@ def packed_block_matmul(a: torch.Tensor, b_packed: torch.Tensor,
     for t in (b_packed, b_scales, b_tscale):
         if t.device != dev:
             raise ValueError("all operands must be on the same device")
+    if route == "gemv" and (block_b < 2 or K % 16):
+        raise ValueError(f"K={K}, block_b={block_b}: the GEMV route needs "
+                         f"K % 16 == 0 and block_b >= 2")
+    if route == "core" and K % 8:
+        raise ValueError(f"K={K}: the tensor-core route needs K % 8 == 0")
     rb_ptr = rbits_ptr("a_rbits", a_rbits, dev) if spec_a.stochastic \
         else None
-    amax_ws = torch.empty(1, dtype=torch.int32, device=dev)
-    tsa_ws = torch.empty(1, dtype=torch.float32, device=dev)
-    aq_ws = torch.empty((M, K), dtype=torch.float32, device=dev)
+    # one workspace, carved into (a, b, c) as csrc/fp4_matmul.cu documents
+    splits = ks = 0
+    if route == "gemv":
+        splits, ks = k4_gemv_plan(N, K, spec_a.block)
+        ctr = -(-N // K4_GEMV_COLS) * -(-M // 16)
+        sizes = (256, _round_up(4 * ctr, 16), 4 * splits * M * N)
+    elif route == "core":
+        sizes = (256, _round_up(2 * M * K, 256), 2 * N * K)
+    else:
+        sizes = (256, 4 * M * K, 0)
+    ws = torch.empty(sum(sizes), dtype=torch.uint8, device=dev)
+    p0 = ws.data_ptr()
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib()(a.data_ptr(), int(a.dtype == torch.bfloat16),
                  b_packed.data_ptr(), b_scales.data_ptr(),
                  b_tscale.data_ptr(), rb_ptr, M, N, K, spec_a.block, block_b,
-                 ctypes.byref(_QuantParams.of(spec_a)), amax_ws.data_ptr(),
-                 tsa_ws.data_ptr(), aq_ws.data_ptr(), out.data_ptr(),
+                 ctypes.byref(_QuantParams.of(spec_a)),
+                 K4_ROUTES.index(route), splits, ks, p0, p0 + sizes[0],
+                 p0 + sizes[0] + sizes[1], out.data_ptr(),
                  int(out_dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"{NAME} kernel launch failed: cudaError_t {err}")

@@ -14,6 +14,7 @@ fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -88,7 +89,10 @@ class _QuantParams(ctypes.Structure):
                 ("two_level", _I), ("ts_denom", ctypes.c_float)]
 
     @classmethod
+    @functools.lru_cache(maxsize=None)
     def of(cls, spec: BlockQuantSpec) -> "_QuantParams":
+        """The constants of ``spec``, built once per spec (the kernels copy
+        them at each launch)."""
         d, s = spec.data, spec.scale
         return cls(d.man_bits, d.emin, d.emax, d.max, s.man_bits, s.emin,
                    s.emax, s.max, int(spec.scale_fmt == "e8m0"),

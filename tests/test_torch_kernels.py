@@ -64,9 +64,10 @@ _SPECS = {
 
 
 @pytest.mark.parametrize("spec_id,M", [
-    ("nvfp4-rtn", 1), ("nvfp4-rtn", 4), ("nvfp4-rtn", 37),
-    ("nvfp4-rtn", 128), ("nvfp4-sr", 4), ("nvfp4-sr", 37),
-    ("mxfp4-e8m0", 4), ("mxfp4-e8m0", 37)])
+    ("nvfp4-rtn", 1), ("nvfp4-rtn", 4), ("nvfp4-rtn", 8), ("nvfp4-rtn", 32),
+    ("nvfp4-rtn", 37), ("nvfp4-rtn", 64), ("nvfp4-rtn", 128),
+    ("nvfp4-sr", 4), ("nvfp4-sr", 37), ("mxfp4-e8m0", 4),
+    ("mxfp4-e8m0", 37)])
 def test_packed_block_matmul_plain_vs_pallas(spec_id, M):
     K, N = 128, 96
     rng = np.random.default_rng(M)
