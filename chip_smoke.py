@@ -10,7 +10,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
   env      torch/CUDA versions, the card's name and power limit, the
            build of every ``csrc/*.cu`` kernel from the checkout (nvcc), and
            the count of HGMMA (wgmma) instructions in the SASS of K1's, K3's
-           and K4's libraries (cuobjdump), which must not be 0.
+           and K4's libraries and of HMMA (mma.sync) in K7's (cuobjdump),
+           none of which may be 0.
   kernels  each hand-written kernel against its plain PyTorch version on the
            same card tensors, at the main path's shapes: f32 outputs at
            rtol = atol = 1e-5, bf16 outputs to one bf16 ulp (+ 1e-5), the
@@ -30,14 +31,20 @@ Phases, each printing JSON lines; any failure exits non-zero:
            (E3M4 data) takes K1's f32 route and the f32 rule above.  K4 runs
            every main-path shape through the route ``k4_route`` picks, plus
            4096^2 at M = K4_GEMV_MAX_M and one row more (each route meets
-           the crossover), and E3M4 data above it (the "f32" route).
+           the crossover), and E3M4 data above it (the "f32" route).  K6 runs
+           K6_CASES and K6_EDGE (kv_len 1, one full 128-key tile, a window,
+           a long cache of 16 tiles in one split); K7 runs K7_CASES and K7_EDGE
+           (window, non-causal, ragged Sq != Sk, head dims 32 and 96); K5
+           its 30 cases.
   serve    the lockstep Engine serving llama2-7b at full width from packed
            NVFP4 weights (random, seeded) with an nvfp4 KV cache: batch 4,
            prompt 64, 32 new tokens, greedy.  The launch counts are zeroed
            just before and read just after; every kernel of the path must
            have run the expected number of times.  Outputs are checked for
            range and finiteness, and the same Engine at smoke size on the
-           card is held to the plain versions on the CPU.
+           card is held to the plain versions on the CPU.  The breakdown
+           reports device ms by kernel group (K4-K7) per decode step and
+           for one prefill (profiler).
   serve_continuous
            the ContinuousEngine: (a) at smoke size on the card held to the
            same engine on the CPU's plain versions (prefix cache + chunked
@@ -76,10 +83,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
            K1 at every train GEMM with its SR operands in counter mode, as
            the train step runs it; K4 at every main-path shape with its
            route, and both routes at M 1-64 (the crossover); K5 at run A's
-           decode, the verify and the chunk shapes; and the device time of
-           each launch inside one call of K1, K3, K4 (each route) and K5,
-           each taken in a fresh child process (a profiler late in a long
-           process drops device events).
+           decode, the verify and the chunk shapes; K6 at every K6_CASES row
+           with the split plan it takes; K7 at every K7_CASES and K7_MAIN
+           row; and the device time of each launch inside one call of K1,
+           K3, K4 (each route), K5, K6 and K7, each taken in a fresh child
+           process (a profiler late in a long process drops device events).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -122,6 +130,14 @@ K4_CONT_SHAPES = ((1, 4096, 32000),) + tuple(
 K6_CASES = (  # (B, H, KVH, D, Sk, kv_len): llama2-7b, then tinyllama (G = 8)
     (4, 32, 32, 128, 256, 65), (4, 32, 32, 128, 256, 80),
     (4, 32, 32, 128, 256, 96), (4, 32, 4, 64, 256, 96))
+# K6 at its edges, decode rows (q_offset = kv_len - 1): (B, H, KVH, D, Sk,
+# kv_len, window) -- one cached token, exactly one 128-key tile, a window,
+# and a 2048-token cache (16 tiles in k6_plan's one split; with a window
+# that starts inside the fifth tile)
+K6_EDGE = (
+    (4, 32, 32, 128, 256, 1, None), (4, 32, 32, 128, 256, 128, None),
+    (4, 32, 32, 128, 256, 80, 24), (4, 32, 32, 128, 2048, 1500, None),
+    (4, 32, 32, 128, 2048, 1500, 600))
 # K5 at the continuous path's shapes: (label, B, Sq, H, KVH, D, page, pages,
 # per-slot lengths, q_offsets ("last": length - Sq), window).  The decode,
 # verify and window cases give one slot length 0 (an empty slot); the page
@@ -141,6 +157,20 @@ K7_CASES = (  # (B, S, H, KVH, D, dtype name)
     (4, 64, 32, 32, 128, "float32"), (4, 64, 32, 32, 128, "bfloat16"),
     (4, 64, 32, 4, 64, "bfloat16"),
     (1, 192, 32, 32, 128, "float32"))      # run B's cold prefill-into-slot
+# K7 on the main path's operands: f32 tensors holding bf16 values, as
+# layers._attn_prefill passes them (K7's TF32-exact route): the lockstep
+# prefill and run B's cold prefill-into-slot
+BF16_VALUED = "float32 bf16-valued"
+K7_MAIN = ((4, 64, 32, 32, 128, BF16_VALUED), (1, 192, 32, 32, 128,
+                                               BF16_VALUED))
+# K7 at its edges: (B, Sq, Sk, H, KVH, D, dtype name, causal, window)
+K7_EDGE = tuple(
+    (4, 64, 64, 32, 32, 128, dt, causal, window) for dt in ("float32",
+                                                             "bfloat16")
+    for causal, window in ((True, 40), (False, None))) + (
+    (2, 50, 77, 8, 2, 32, "float32", True, None),
+    (2, 77, 50, 8, 2, 96, "bfloat16", True, 30),   # every row sees a key
+    (1, 100, 100, 4, 4, 96, "float32", False, 30))
 # K1 on llama2-7b's training GEMMs at M = 4096 tokens (batch 4 x seq 1024):
 # (label, M, K, N, spec, SR on A, SR on B, input scale of A, of B) -- the
 # forward z = x @ W (RtN both), the backward dX = g @ W^T (SR on g) and the
@@ -304,6 +334,7 @@ def k4_inputs(M, K, N, dev, seed=SEED):
 
 def k6_inputs(B, H, KVH, D, Sk, kv_len, q_dtype, dev, fmt="nvfp4",
               seed=SEED):
+    """A decode row (q_offset = kv_len - 1) over a random cache."""
     import torch
     from repro_torch.core.quantize import kv_quant_rows
     g = gen(dev, seed)
@@ -348,11 +379,16 @@ def k5_inputs(B, Sq, H, KVH, D, psz, n_pages, lengths, q_offsets, window,
                                   q_off.to(dev))
 
 
-def k7_inputs(B, S, H, KVH, D, dtype, dev, seed=SEED):
+def k7_inputs(B, S, H, KVH, D, dt, dev, seed=SEED, Sk=None):
+    """q, k, v of dtype name ``dt``: "float32", "bfloat16" or BF16_VALUED
+    (f32 tensors holding bf16 values)."""
     import torch
     g = gen(dev, seed)
-    return tuple(torch.randn(s, generator=g, device=dev).to(dtype) for s in
-                 ((B, S, H, D), (B, S, KVH, D), (B, S, KVH, D)))
+    Sk = S if Sk is None else Sk
+    cast = ((lambda x: x.to(torch.bfloat16).float()) if dt == BF16_VALUED
+            else (lambda x: x.to(getattr(torch, dt))))
+    return tuple(cast(torch.randn(s, generator=g, device=dev)) for s in
+                 ((B, S, H, D), (B, Sk, KVH, D), (B, Sk, KVH, D)))
 
 
 def k3_inputs(M, K, N, dtype, dev, seed=SEED):
@@ -419,11 +455,12 @@ def cuobjdump() -> str:
     raise RuntimeError("cuobjdump not found")
 
 
-def hgmma_count(lib: Path) -> int:
-    """HGMMA (wgmma) instructions in the SASS of a built library."""
+def sass_count(lib: Path, op="HGMMA") -> int:
+    """``op`` instructions (HGMMA: wgmma; HMMA: mma.sync) in the SASS of a
+    built library."""
     r = subprocess.run([cuobjdump(), "-sass", str(lib)], capture_output=True,
                        text=True, timeout=300, check=True)
-    return sum("HGMMA" in ln for ln in r.stdout.splitlines())
+    return sum(f"{op}." in ln for ln in r.stdout.splitlines())
 
 
 def phase_env(dev) -> dict:
@@ -442,8 +479,10 @@ def phase_env(dev) -> dict:
     spills = {k: [ln.strip() for ln in v.splitlines()
                   if "spill" in ln and "0 bytes spill" not in ln]
               for k, v in ptxas.items()}
-    hgmma = {stem: hgmma_count(_build.library_path(stem))
+    hgmma = {stem: sass_count(_build.library_path(stem))
              for stem in ("fused_quant_matmul", "block_matmul", "fp4_matmul")}
+    hmma = {"flash_attn": sass_count(_build.library_path("flash_attn"),
+                                     "HMMA")}
     info = {"phase": "env", "python": sys.version.split()[0],
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "card": card_line(), "kind": torch.cuda.get_device_name(dev),
@@ -451,10 +490,12 @@ def phase_env(dev) -> dict:
             "libraries": sorted(libs), "build_s": round(build_s, 3),
             "nvcc_seconds": round(_build.build_seconds, 3),
             "spilling_kernels": {k: v for k, v in spills.items() if v},
-            "hgmma_instructions": hgmma}
+            "hgmma_instructions": hgmma, "hmma_instructions": hmma}
     emit(info)
     if not all(hgmma.values()):
         raise AssertionError(f"no HGMMA in the SASS of {hgmma}")
+    if not all(hmma.values()):
+        raise AssertionError(f"no HMMA in the SASS of {hmma}")
     return info
 
 
@@ -597,19 +638,23 @@ def phase_kernels(dev) -> dict:
     del a, w, got, want, operands
     if routes != set(fm.K4_ROUTES):
         failures.append((fm.NAME, f"routes met {sorted(routes)}"))
-    for B, H, KVH, D, Sk, kv_len in K6_CASES:
+    for B, H, KVH, D, Sk, kv_len, window in tuple(
+            c + (None,) for c in K6_CASES) + K6_EDGE:
+        plan = fa.k6_plan(1, H, KVH, D, Sk)
         for fmt in ("nvfp4", "fp8"):
             for q_dtype in (torch.float32, torch.bfloat16):
                 q, kc, ks, vc, vs, pos = k6_inputs(B, H, KVH, D, Sk, kv_len,
                                                    q_dtype, dev, fmt)
                 got = fa.flash_attention_packed(q, kc, ks, vc, vs, pos,
-                                                fmt=fmt)
+                                                fmt=fmt, window=window)
                 want = fa.flash_attention_packed_plain(q, kc, ks, vc, vs,
-                                                       pos, fmt=fmt)
+                                                       pos, fmt=fmt,
+                                                       window=window)
                 torch.cuda.synchronize(dev)
                 check(fa.PACKED_NAME,
                       f"B={B} H={H} KVH={KVH} D={D} Sk={Sk} kv_len={kv_len} "
-                      f"{fmt} q {str(q_dtype)[6:]}", got, want)
+                      f"window={window} {fmt} q {str(q_dtype)[6:]} plan "
+                      f"{plan}", got, want)
     for label, B, Sq, H, KVH, D, psz, npg, lens, qo, window in K5_CASES:
         for fmt in ("nvfp4", "fp8", "bf16"):
             for q_dtype in (torch.float32, torch.bfloat16):
@@ -624,13 +669,16 @@ def phase_kernels(dev) -> dict:
                       f"pages={npg}x{psz} {fmt} q {str(q_dtype)[6:]}",
                       got, want)
                 del args, got, want
-    for B, S, H, KVH, D, dt in K7_CASES:
-        q, k, v = k7_inputs(B, S, H, KVH, D, getattr(torch, dt), dev)
-        got = fa.flash_attention(q, k, v, causal=True)
-        want = fa.flash_attention_plain(q, k, v, causal=True)
+    for B, Sq, Sk, H, KVH, D, dt, causal, window in tuple(
+            (B, S, S, H, KVH, D, dt, True, None)
+            for B, S, H, KVH, D, dt in K7_CASES + K7_MAIN) + K7_EDGE:
+        q, k, v = k7_inputs(B, Sq, H, KVH, D, dt, dev, Sk=Sk)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window)
         torch.cuda.synchronize(dev)
-        check(fa.DENSE_NAME, f"B={B} S={S} H={H} KVH={KVH} D={D} {dt}",
-              got, want)
+        check(fa.DENSE_NAME, f"B={B} Sq={Sq} Sk={Sk} H={H} KVH={KVH} D={D} "
+              f"{dt} causal={causal} window={window}", got, want)
     if failures:
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{failures}")
@@ -730,10 +778,14 @@ def phase_serve(dev, batch=4, prompt_len=64, max_new=32, max_len=256):
 
 
 # device kernels of K4 (its quantizer, GEMV, pre-pass, f32 tiles and the
-# GEMM core) and of K5 (split and combine), summed in the serve profiles
+# GEMM core), of K5 and K6 (the split and combine kernels they share, told
+# apart by their row-policy template argument) and of K7, summed in the
+# serve profiles
 SERVE_GROUPS = {"k4_device_ms": ("fp4::", "k4_", "packed_gemm_kernel",
                                  "fp4gemm::"),
-                "k5_device_ms": ("paged_split_kernel", "paged_combine_kernel")}
+                "k5_device_ms": ("PagedRows",),
+                "k6_device_ms": ("PackedRows",),
+                "k7_device_ms": ("flash_mma_kernel",)}
 
 
 def serve_breakdown(eng, prompts, dev, steps=8) -> dict:
@@ -764,6 +816,21 @@ def serve_breakdown(eng, prompts, dev, steps=8) -> dict:
     out = {"prefill_ms": ev[0].elapsed_time(ev[1]),
            "decode_step_ms": statistics.median(decode_ms)}
     from torch.profiler import ProfilerActivity, profile
+    # device time by kernel of one prefill (a fresh carry)
+    carry2 = registry.make_decode_state(cfg, scfg.batch_size, scfg.max_len,
+                                        kv_cache_format=scfg.kv_cache_format,
+                                        device=dev)
+    torch.cuda.synchronize(dev)
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        registry.prefill(eng.params, cfg, eng.qcfg, toks, carry2)
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out["prefill_profiled"] = {"wall_ms": wall_ms,
+                               **device_time(prof, wall_ms, top=8,
+                                             groups=SERVE_GROUPS)}
+    del carry2
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -801,16 +868,16 @@ PROGRAMS = ("_prefill", "_prefill_suffix", "_prefill_chunk", "_decode",
 
 class ProgramLog:
     """Counts and times (CUDA events, read after the run: no extra host
-    sync) the engine's five device programs by wrapping its methods.  Once
-    ``profile`` is set to (method, first call, calls), torch.profiler
-    records that many consecutive calls of the method into ``breakdown``."""
+    sync) the engine's five device programs by wrapping its methods.  For
+    each (method, first call, calls) in ``profile``, torch.profiler records
+    that many consecutive calls of the method into ``breakdown[method]``."""
 
     def __init__(self, eng):
         import torch
         self.calls = {n: 0 for n in PROGRAMS}
         self.events = {n: [] for n in PROGRAMS}
-        self.profile = None               # (method, first call, calls)
-        self.breakdown = None
+        self.profile = ()                 # ((method, first call, calls), ..)
+        self.breakdown = {}
         for name in PROGRAMS:
             setattr(eng, name, self._wrap(name, getattr(eng, name), torch))
 
@@ -818,16 +885,16 @@ class ProgramLog:
         def run(*a, **kw):
             i = self.calls[name]
             self.calls[name] += 1
-            prof = self.profile
-            if prof and prof[0] == name and i == prof[1]:
+            prof = next((p for p in self.profile if p[0] == name), None)
+            if prof and i == prof[1]:
                 self._start(torch)
             s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             s.record()
             out = fn(*a, **kw)
             e.record()
             self.events[name].append((s, e))
-            if prof and prof[0] == name and i == prof[1] + prof[2] - 1:
-                self._stop(torch)
+            if prof and i == prof[1] + prof[2] - 1:
+                self._stop(torch, prof)
             return out
         return run
 
@@ -839,15 +906,15 @@ class ProgramLog:
         self._prof.__enter__()
         self._t0 = time.perf_counter()
 
-    def _stop(self, torch):
+    def _stop(self, torch, prof):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - self._t0) * 1e3
         self._prof.__exit__(None, None, None)
-        name, first, n = self.profile
-        self.breakdown = {"profiled": f"{name} calls {first}..{first + n - 1}",
-                          "profiled_wall_ms": wall_ms,
-                          **device_time(self._prof, wall_ms, top=10,
-                                        groups=SERVE_GROUPS)}
+        name, first, n = prof
+        self.breakdown[name] = {
+            "profiled": f"{name} calls {first}..{first + n - 1}",
+            "profiled_wall_ms": wall_ms,
+            **device_time(self._prof, wall_ms, top=10, groups=SERVE_GROUPS)}
 
     def ms(self) -> dict:
         """{program: (median ms per call, total ms)} from the CUDA events."""
@@ -1003,18 +1070,22 @@ def phase_serve_continuous(dev) -> dict:
         # the device idle share, from a second, shorter run (8 other
         # requests) in which the profiler records 8 consecutive decode calls
         # (a tick of run A) or one verify call (a tick of run B) once every
-        # request has arrived: the profiler's cost stays out of the numbers
-        # above
+        # request has arrived, and in run B also its third cold prefill
+        # (K7): the profiler's cost stays out of the numbers above
         prog, first, n = ("_decode", 8, 8) if name == "A" else ("_verify", 4,
                                                                  1)
-        log.profile = (prog, calls[prog] + first, n)
+        log.profile = ((prog, calls[prog] + first, n),) + (
+            (("_prefill", calls["_prefill"] + 2, 1),) if name == "B" else ())
         eng.run(continuous_requests(cfg.vocab_size, n=8,
                                     shared=128 if name == "A" else 0,
                                     max_new=16, seed=SEED + 1))
-        if log.breakdown is None:
+        missing = [p[0] for p in log.profile if p[0] not in log.breakdown]
+        if missing:
             raise AssertionError(f"run {name}: the profiled run made too few "
-                                 f"{prog} calls")
-        info["breakdown"] = log.breakdown
+                                 f"{missing} calls")
+        info["breakdown"] = log.breakdown[prog]
+        if name == "B":
+            info["prefill_breakdown"] = log.breakdown["_prefill"]
         emit(info)
         out[name] = info
         for k, v in launches.items():
@@ -1490,8 +1561,10 @@ BREAKDOWNS = {
     "4096^3 f32 codes": ("block_matmul", "fp4gemm::gemm_kernel"),
     "gemv M=4 4096^2": ("packed_block_matmul", "k4_gemv_kernel"),
     "core M=256 4096^2": ("packed_block_matmul", "fp4gemm::gemm_kernel"),
-    "decode": ("flash_attention_paged", "paged_combine_kernel"),
-    "suffix": ("flash_attention_paged", "paged_combine_kernel"),
+    "decode": ("flash_attention_paged", "kv_combine_kernel"),
+    "suffix": ("flash_attention_paged", "kv_combine_kernel"),
+    "k6 decode": ("flash_attention_packed", "kv_split_kernel"),
+    "k7 prefill": ("flash_attention", "flash_mma_kernel"),
 }
 
 
@@ -1519,6 +1592,12 @@ def breakdown_call(case, dev):
         M = int(case.split()[1][2:])
         a, w = k4_inputs(M, 4096, 4096, dev)
         return lambda: fm.packed_matmul(a, w, NVFP4, out_dtype=bf16)
+    if case == "k6 decode":                # the lockstep decode, kv_len 80
+        args = k6_inputs(4, 32, 32, 128, 256, 80, bf16, dev)
+        return lambda: fa.flash_attention_packed(*args)
+    if case == "k7 prefill":               # the lockstep prefill
+        q, k, v = k7_inputs(4, 64, 32, 32, 128, BF16_VALUED, dev)
+        return lambda: fa.flash_attention(q, k, v, causal=True)
     args, window, _, _, _ = k5_time_inputs(case, dev)
     return lambda: fa.flash_attention_paged(*args, window=window)
 
@@ -1624,7 +1703,8 @@ def phase_times(dev) -> dict:
                    lambda: fa.flash_attention_packed_plain(q, kc, ks, vc, vs,
                                                            pos),
                    lambda: F.scaled_dot_product_attention(qt, kt, vt),
-                   nbytes, 4 * B * H * kv_len * D)
+                   nbytes, 4 * B * H * kv_len * D,
+                   plan=fa.k6_plan(1, H, KVH, D, Sk))
         # K5 at run A's decode shape: 8 slots of 256 cached tokens, nvfp4
         B, H, D, psz, npg, kv_len = 8, 32, 128, 16, 32, 256
         q, kc, ks, vc, vs, pt, kl, qo = k5_inputs(
@@ -1664,8 +1744,8 @@ def phase_times(dev) -> dict:
                    plan=fa.k5_plan(B, Sq, H, KVH, args[0].shape[3], psz,
                                    args[5].shape[1]))
             del args, sdpa
-        for B, S, H, KVH, D, dt in K7_CASES:
-            q, k, v = k7_inputs(B, S, H, KVH, D, getattr(torch, dt), dev)
+        for B, S, H, KVH, D, dt in K7_CASES + K7_MAIN:
+            q, k, v = k7_inputs(B, S, H, KVH, D, dt, dev)
             G = H // KVH
             qt = q.transpose(1, 2)
             kt = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
@@ -1738,8 +1818,8 @@ def phase_times(dev) -> dict:
 # the representative case of each kernel in the summary line: the launch the
 # main path makes most often (K2, K3: the unfused GEMM's square shape, K2 on
 # f32; K4: decode, wq/wk/wv/wo; K5: run A's decode;
-# K6: decode at the middle of the run; K7: prefill, f32 operands as
-# attention_core passes them)
+# K6: decode at the middle of the run; K7: prefill, f32 operands holding
+# bf16 values as _attn_prefill passes them)
 SUMMARY = {
     "fused_quant_matmul": (("fwd", 4096, 4096, 4096), "cuda",
                            "src/repro_torch/kernels/csrc/fused_quant_matmul.cu",
@@ -1758,9 +1838,10 @@ SUMMARY = {
                               "flash_attn_paged.cu",
                               "src/repro/kernels/flash_attn.py:417"),
     "flash_attention_packed": ((4, 32, 32, 128, 256, 80), "cuda",
-                               "src/repro_torch/kernels/csrc/flash_attn.cu",
+                               "src/repro_torch/kernels/csrc/"
+                               "flash_attn_paged.cu",
                                "src/repro/kernels/flash_attn.py:255"),
-    "flash_attention": ((4, 64, 32, 32, 128, "float32"), "cuda",
+    "flash_attention": ((4, 64, 32, 32, 128, BF16_VALUED), "cuda",
                         "src/repro_torch/kernels/csrc/flash_attn.cu",
                         "src/repro/kernels/flash_attn.py:454"),
 }

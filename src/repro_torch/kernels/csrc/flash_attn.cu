@@ -1,349 +1,571 @@
-// K6 flash_attention_packed and K7 flash_attention for Hopper (sm_90a),
-// bound with ctypes.
+// K7 flash_attention for Hopper (sm_90a), bound with ctypes.
 //
-// K6 replaces repro/kernels/flash_attn.py::flash_attention_packed
-// (_flash_packed_kernel, pl.pallas_call at flash_attn.py:255): attention of
-// q (B, Sq, H, D) over a contiguous block-quantized KV cache -- nvfp4:
-// (B, Sk, KVH, D/2) uint8 nibble pairs + (B, Sk, KVH, D/16) float8_e4m3fn
-// scales; fp8: float8_e4m3fn codes + bf16 scales -- with (q_offset, kv_len)
-// read from a device int32 pair, GQA, causal and sliding-window masks.
-// K7 replaces flash_attn.py::flash_attention (_flash_kernel, call at
-// flash_attn.py:454): bf16/f32 q, k, v, GQA, causal, window, and p rounded
-// to V's dtype before the pv product (flash_attn.py:80-82).
+// Replaces repro/kernels/flash_attn.py::flash_attention (_flash_kernel,
+// pl.pallas_call at flash_attn.py:454): attention of q (B, Sq, H, D) over
+// k, v (B, Sk, KVH, D), bf16 or f32, GQA, causal or not, an optional
+// sliding window, any Sq and Sk, with p rounded to V's dtype before the pv
+// product (flash_attn.py:80-82).  K6 (flash_attention_packed) runs on K5's
+// split-KV body in flash_attn_paged.cu.
 //
-// What bounds them on an H100: at the serving shapes (decode over <= 256
-// cached tokens, prefill of 64 tokens) both move a few MB at most and do
-// ~0.1 GFLOP, so they take microseconds of bytes or operations and are in
-// practice bound by launch latency and by the serial tile loop of one
-// block.  K6 streams the cache at its packed width (0.5625 B/elem).
+// What bounds it on an H100: bytes, and in practice latency.  The serving
+// prefill (B 4, S 64, H 32, D 128, f32 operands that are exact upcasts of
+// bf16) moves 16.8 MB, 5.0 us at 3.35 TB/s, for 0.14 GFLOP of causal
+// work, under 1 us on the TF32 tensor cores even tripled; run B's cold
+// prefill (1, 192, 32) moves 6.3 MB.  A block sees only a few key tiles,
+// so what costs time is how early its copies are in flight and whether its
+// dots run as serial chains.
 //
-// What the design does about it, simple and right first:
-//   * K6: one block per (query row, kv head, batch) serves all G query
-//     heads of the group, so every K/V tile is read and dequantized once
-//     for the group; tiles of 32 keys are dequantized (nibble x E4M3 byte,
-//     or fp8 x bf16) into shared memory in f32, one warp per query head
-//     runs the online softmax with a lane per key, p stays f32.  The loop
-//     stops at min(kv_len, causal frontier) and starts at the window's
-//     first tile: skipped tiles contribute exactly 0 after a valid tile.
-//   * K7: one block per (16-row q tile, head, batch), four rows per warp,
-//     a loop over 32-key tiles with the causal/window tile skip; any Sq and
-//     Sk, the ragged edge masked.
-//   * masked scores are NEG_INF = -1e30 as in the TPU kernels, so the
-//     arithmetic of fully masked tiles matches theirs.
-//   * f32 CUDA-core dots; no tensor cores or TMA yet.
+// What the design does about it:
+//   * a block holds a q tile of 16 x NW = 64 rows (4 warps share each K/V
+//     tile most widely; on an H100 they measured fastest of 1, 2 and 4 at
+//     every serving shape), a warp for 16 rows that keeps its scores and
+//     output in mma.sync accumulator fragments.  With f32 operands two such warp
+//     groups take alternate key tiles and merge (m, l, O) at the end: a
+//     q tile's key tiles run one after another, and the last q tile of a
+//     causal prefill has the most of them, so this halves the critical
+//     path (p is not rounded in f32, so the split moves only f32 rounding;
+//     bf16 keeps one group and the tile order).  f32 operands (the main path) run S = q k^T and O += p V
+//     as TF32 m16n8k8 in the 3xTF32 split (x = big + small, both TF32;
+//     small*big + big*small + big*big), which keeps f32 accuracy to ~2^-22
+//     per product.  Where every q, K and V value of a tile is a TF32 value
+//     (the main path's bf16 upcasts: small = 0; one check a tile, block-
+//     wide), S takes one mma a k step and p V two (p's split), the products
+//     the 3xTF32 route would add, in a third of the instructions.  bf16
+//     operands run O += p V as bf16 m16n8k16 (p rounded to
+//     bf16 first, the TPU kernel's rule, so its products are exact) and S
+//     as each score's sequential FMA chain over d on the CUDA cores: the
+//     plain version's f32 GEMM sums in that order, and a score an f32 ulp
+//     away flips p's bf16 rounding now and then (on an H100, S on the
+//     tensor cores left outputs 2 bf16 ulps off the plain version's);
+//   * the tensor cores add into an accumulator with truncation, so every
+//     k step goes into a zero accumulator and is added in f32 (on an H100,
+//     48 mma chained into one accumulator left f32 outputs 5.2e-6 off the
+//     plain version's, this way 1.9e-6);
+//   * key tiles are 32 wide, the plain version's TILE_KV, so p is rounded
+//     against the same running max; the online softmax runs on the
+//     accumulator fragments (a row lies on a 4-lane quad: 2 shuffles per
+//     reduction) and S's fragments are pv's A operand without a shuffle
+//     (for TF32 the pv k order is permuted to the accumulator's: lane c's
+//     keys 2c and 2c + 1 are k rows c and c + 4, and V's rows follow);
+//   * the block's q rows and the K/V tiles arrive by 16-byte cp.async,
+//     K/V double-buffered, into padded rows that make the fragment loads
+//     bank-conflict free (ldmatrix for bf16 V; for f32 16-byte K and q
+//     loads, whose d order the A fragment follows, and 4-byte V loads);
+//     rows past Sq or Sk are zero-filled, and keys past Sk take p = 0, as
+//     the plain version's shorter last tile has no such keys;
+//   * a warp skips the tiles past its causal frontier or before its
+//     window (exact: such a tile adds 0 after a valid key, and one before
+//     every valid key is wiped by the next tile's max, as in the
+//     reference); the longest q tiles launch first;
+//   * masked scores are NEG_INF = -1e30 as in the TPU kernel; a row that
+//     sees no valid key at all writes 0 (the reference averages V there).
+#include <type_traits>
+
 #include "fp4_common.cuh"
 
 namespace {
 
-constexpr int TK = 32;          // keys per tile (one per lane)
+constexpr int TK = 32;  // keys per tile: the plain version's TILE_KV
+constexpr int NW = 4;   // warps (16 query rows each) per q tile
 constexpr float NEG_INF = -1e30f;
-constexpr int NWARP = 4;
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+struct FlashArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* out;
+  int Sq, Sk, H, KVH, causal, window;
+  float sm_scale;
+};
+
+// 16 bytes global -> shared, or 16 zero bytes where !full
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(smem))),
+               "l"(gmem), "r"(full ? 16 : 0)
+               : "memory");
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// x = big + small, both rounded to TF32 (x - big is exact in f32)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(big) : "f"(x));
+  const float rest = x - __uint_as_float(big);
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(small) : "f"(rest));
 }
 
-__device__ __forceinline__ float load_f(const void* p, size_t i, int bf16) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-              : static_cast<const float*>(p)[i];
+// d (16 x 8, f32) += a (16 x 8, tf32, row) @ b (8 x 8, tf32, col)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void store_f(void* p, size_t i, float v,
-                                        int bf16) {
-  if (bf16)
-    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
-  else
-    static_cast<float*>(p)[i] = v;
+// The tensor cores add into their accumulator with truncation, so a chain
+// of mma into one accumulator drifts by an f32 ulp of the running sum per
+// step; each k step below goes into a zero accumulator and is added to the
+// sum in f32 with rounding to nearest, as an FMA chain would be.
+__device__ __forceinline__ void add4(float (&d)[4], const float (&t)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
 }
 
-__device__ __forceinline__ bool key_valid(int kpos, int qpos, int kv_len,
-                                          int causal, int window) {
-  bool ok = kpos < kv_len;
-  if (causal) ok = ok && kpos <= qpos;
-  if (window > 0) ok = ok && kpos > qpos - window;
-  return ok;
+// d += a b in 3xTF32, a given split (big ab, small as), b as two f32
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t* ab,
+                                           const uint32_t* as, float b0,
+                                           float b1) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split_tf32(b0, bb0, bs0);
+  split_tf32(b1, bb1, bs1);
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, as, bb0, bb1);
+  mma_tf32(t, ab, bs0, bs1);
+  mma_tf32(t, ab, bb0, bb1);
+  add4(d, t);
 }
 
-// ---- K6 -------------------------------------------------------------------
-// grid (Sq, KVH, B), NWARP*32 threads.  Dynamic shared memory (floats):
-// qs[G][D] | acc[G][D] | ml[2G] | kt[TK][D+1] | vt[TK][D]
-__global__ void flash_packed_kernel(const void* __restrict__ q, int q_bf16,
-                                    const uint8_t* __restrict__ kc,
-                                    const uint8_t* __restrict__ ks,
-                                    const uint8_t* __restrict__ vc,
-                                    const uint8_t* __restrict__ vs,
-                                    const int* __restrict__ pos,
-                                    void* __restrict__ out, int Sq, int H,
-                                    int KVH, int D, int Sk, int nvfp4,
-                                    int block, int causal, int window,
-                                    float sm_scale) {
-  extern __shared__ float smem[];
-  const int qi = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int G = H / KVH;
-  float* qs = smem;
-  float* acc = qs + G * D;
-  float* ms = acc + G * D;
-  float* ls = ms + G;
-  float* kt = ls + G;
-  float* vt = kt + TK * (D + 1);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nthr = blockDim.x;
-
-  const int q_offset = pos[0], kv_len = min(pos[1], Sk);
-  const int qpos = q_offset + qi;
-  for (int i = tid; i < G * D; i += nthr) {
-    int g = i / D, d = i % D;
-    size_t qidx = ((size_t(b) * Sq + qi) * H + kvh * G + g) * D + d;
-    qs[i] = load_f(q, qidx, q_bf16);
-    acc[i] = 0.f;
+// Bits 0-12 of every element of rows x cols floats (row stride ld) ORed:
+// 0 where each is a TF32 value (big = x, small = 0), as the main path's
+// bf16 upcasts are.  Each thread takes 16-byte pieces from tid on.
+__device__ __forceinline__ uint32_t low_bits(const float* t, int rows,
+                                             int cols, int ld) {
+  uint32_t acc = 0;
+  const int per_row = cols / 4;
+  for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
+    const uint4 u = *reinterpret_cast<const uint4*>(t + (i / per_row) * ld +
+                                                    4 * (i % per_row));
+    acc |= u.x | u.y | u.z | u.w;
   }
-  for (int g = tid; g < G; g += nthr) {
-    ms[g] = NEG_INF;
-    ls[g] = 0.f;
-  }
-  int kend = kv_len;
-  if (causal) kend = min(kend, qpos + 1);
-  int kstart = 0;
-  if (window > 0) kstart = max(0, qpos - window + 1);
-  const int t_first = (kstart / TK) * TK;
-  const int Dc = nvfp4 ? D / 2 : D;
-  const int nb = D / block;
-  __syncthreads();
+  return acc & 0x1fffu;
+}
 
-  for (int t0 = t_first; t0 < kend; t0 += TK) {
-    // dequantize the K and V tiles into shared memory (f32)
-    for (int i = tid; i < TK * Dc; i += nthr) {
-      int j = i / Dc, c = i % Dc;
-      int key = t0 + j;
-      float k0 = 0.f, k1 = 0.f, v0 = 0.f, v1 = 0.f;
-      if (key < Sk) {
-        size_t row = (size_t(b) * Sk + key) * KVH + kvh;
-        if (nvfp4) {
-          uint32_t kb = kc[row * Dc + c], vb = vc[row * Dc + c];
-          int d = 2 * c;                      // low nibble = column 2c
-          float ksc = fp4::decode_e4m3(ks[row * nb + d / block]);
-          float vsc = fp4::decode_e4m3(vs[row * nb + d / block]);
-          k0 = fp4::decode_e2m1(kb & 0xFu) * ksc;
-          k1 = fp4::decode_e2m1(kb >> 4) * ksc;
-          v0 = fp4::decode_e2m1(vb & 0xFu) * vsc;
-          v1 = fp4::decode_e2m1(vb >> 4) * vsc;
+// d (16 x 8, f32) += a (16 x 16, bf16, row) @ b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b, bf16 m16n8k16, through a zero accumulator
+__device__ __forceinline__ void mma_bf16_add(float (&d)[4], const uint32_t* a,
+                                             uint32_t b0, uint32_t b1) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_bf16(t, a, b0, b1);
+  add4(d, t);
+}
+
+// the B fragments of two n8 tiles from 16 rows of a row-major bf16 tile,
+// transposed (B's k = the tile's rows)
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* smem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+
+template <int D, bool BF16>
+struct Layout {
+  using T = typename std::conditional<BF16, __nv_bfloat16, float>::type;
+  // shared row strides (elements) that keep each warp-wide load free of
+  // bank conflicts: bf16 rows of D + 8 (ldmatrix's 8 rows; the score
+  // loop's 16-byte loads of 8 q rows and of 4 K rows); f32 K and q rows of
+  // D + 16 (16-byte loads of 2 rows x 4 lanes), V rows of D + 4 (4-byte
+  // loads of keys 2c, 2c + 1 by 32 lanes)
+  static constexpr int KS = BF16 ? D + 8 : D + 16;
+  static constexpr int VS = BF16 ? D + 8 : D + 4;
+  // warp groups that share the key tiles of one q tile: f32 p is not
+  // rounded, so two groups can run alternate tiles and merge (m, l, O) at
+  // the end (f32 rounding only); bf16 rounds p against the running max of
+  // every tile before it, so its tiles run in order
+  static constexpr int KSPLIT = BF16 ? 1 : 2;
+  // 2 stages of KSPLIT K tiles [TK][KS] and V tiles [TK][VS], then the
+  // block's q rows [16 NW][KS]
+  static constexpr size_t smem =
+      sizeof(T) * (2 * KSPLIT * TK * (KS + VS) + 16 * NW * KS);
+};
+
+// 8 bf16 (16 bytes) -> 8 floats, exactly
+__device__ __forceinline__ void unpack8(const void* p, float (&f)[8]) {
+  const uint4 u = *static_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// grid (H, B, q tiles), 32 * NW * KSPLIT threads: NW warps of 16 query
+// rows in each of KSPLIT groups, group g taking tiles t_first + g,
+// t_first + g + KSPLIT, ...; q tile z holds rows [16 NW z, 16 NW (z + 1)).
+// Dynamic shared memory as Layout::smem.
+template <int D, bool BF16>
+__global__ void __launch_bounds__(256) flash_mma_kernel(const FlashArgs a) {
+  using L = Layout<D, BF16>;
+  using T = typename L::T;
+  constexpr int KS = L::KS, VS = L::VS, KSPLIT = L::KSPLIT;
+  constexpr int NT = D / 8;                        // n8 tiles of O
+  constexpr int CPR = D * int(sizeof(T)) / 16;     // 16-byte chunks a row
+  constexpr int EPC = 16 / int(sizeof(T));         // elements a chunk
+  extern __shared__ __align__(16) uint8_t smem[];
+  T* kst = reinterpret_cast<T*>(smem);
+  T* vst = kst + 2 * KSPLIT * TK * KS;
+  T* qst = vst + 2 * KSPLIT * TK * VS;
+
+  const int grp = (threadIdx.x >> 5) / NW, warp = (threadIdx.x >> 5) % NW;
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;  // the longest q tiles first
+  const int kvh = h / (a.H / a.KVH);
+  const int Sq = a.Sq, Sk = a.Sk;
+  const int q0 = qt * 16 * NW, r0 = q0 + 16 * warp;
+
+  // keys [beg, end) that rows first_row .. last_row can see
+  auto key_end = [&](int last_row) {
+    return a.causal ? min(Sk, last_row + 1) : Sk;
+  };
+  auto key_beg = [&](int first_row) {
+    return a.window > 0 ? max(0, first_row - a.window + 1) : 0;
+  };
+  const int kb_beg = key_beg(q0);
+  const int kb_end = key_end(min(q0 + 16 * NW, Sq) - 1);
+  const bool live = r0 < Sq;
+  const int w_beg = key_beg(r0);
+  const int w_end = live ? key_end(min(r0 + 16, Sq) - 1) : 0;
+  const int t_first = kb_beg / TK;
+  const int n_tiles = kb_end > kb_beg ? (kb_end - 1) / TK - t_first + 1 : 0;
+
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  // buffer bi (stage * KSPLIT + slot) <- the K and V rows of tile t (zero
+  // past Sk)
+  auto fetch = [&](int t, int bi) {
+    T* kd = kst + bi * TK * KS;
+    T* vd = vst + bi * TK * VS;
+    for (int i = threadIdx.x; i < 2 * TK * CPR; i += blockDim.x) {
+      const bool isv = i >= TK * CPR;
+      const int r = isv ? i - TK * CPR : i;
+      const int j = r / CPR, u = r % CPR, key = t * TK + j;
+      const bool in = key < Sk;
+      const T* src = static_cast<const T*>(isv ? a.v : a.k) +
+                     ((size_t(b) * Sk + (in ? key : 0)) * a.KVH + kvh) * D +
+                     u * EPC;
+      cp_async16_zfill((isv ? vd + j * VS : kd + j * KS) + u * EPC, src, in);
+    }
+  };
+
+  uint32_t q_bits = 0;  // f32: low_bits of this thread's share of q
+  if (n_tiles > 0) {
+    // the block's q rows (zero past Sq), with the first tile
+    for (int i = threadIdx.x; i < 16 * NW * CPR; i += blockDim.x) {
+      const int j = i / CPR, u = i % CPR, row = q0 + j;
+      const bool in = row < Sq;
+      cp_async16_zfill(qst + j * KS + u * EPC,
+                       static_cast<const T*>(a.q) +
+                           ((size_t(b) * Sq + (in ? row : 0)) * a.H + h) * D +
+                           u * EPC,
+                       in);
+    }
+    for (int i = 0; i < KSPLIT && i < n_tiles; ++i) fetch(t_first + i, i);
+  }
+  fp4::cp_async_commit();
+  for (int it = 0; it < n_tiles; it += KSPLIT) {
+    const int st = (it / KSPLIT) & 1;
+    for (int i = 0; i < KSPLIT && it + KSPLIT + i < n_tiles; ++i)
+      fetch(t_first + it + KSPLIT + i, (st ^ 1) * KSPLIT + i);
+    fp4::cp_async_commit();
+    fp4::cp_async_wait<1>();
+    const int t = t_first + it + grp, key0 = t * TK;
+    const T* kt = kst + (st * KSPLIT + grp) * TK * KS;
+    const T* vt = vst + (st * KSPLIT + grp) * TK * VS;
+    bool exact = false;  // f32: q, K and V all TF32 values (small parts 0)
+    if constexpr (BF16) {
+      __syncthreads();
+    } else {
+      __syncthreads();
+      if (it == 0) q_bits = low_bits(qst, 16 * NW, D, KS);
+      uint32_t bits = q_bits;
+      for (int i = 0; i < KSPLIT && it + i < n_tiles; ++i)
+        bits |= low_bits(kst + (st * KSPLIT + i) * TK * KS, TK, D, KS) |
+                low_bits(vst + (st * KSPLIT + i) * TK * VS, TK, D, VS);
+      exact = !__syncthreads_or(bits);
+    }
+    if (live && it + grp < n_tiles && key0 < w_end && key0 + TK > w_beg) {
+      // S = q k^T: n8 tile j holds keys key0 + 8j + 2c + {0, 1} of rows
+      // g (s[j][0..1]) and g + 8 (s[j][2..3])
+      float s[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      const T* qa = qst + (16 * warp + g) * KS;  // row r0 + g; + 8 KS: + 8
+      if constexpr (BF16) {
+        // each score a sequential FMA chain over d = 0 .. D - 1, the order
+        // of the plain version's f32 GEMM: p is rounded to bf16 before pv,
+        // and a tensor-core sum an f32 ulp away from the plain version's
+        // flips that rounding now and then, which moves a row of few keys
+        // by more than a bf16 ulp
+#pragma unroll 2
+        for (int d0 = 0; d0 < D; d0 += 8) {
+          float q8[2][8];
+          unpack8(qa + d0, q8[0]);
+          unpack8(qa + 8 * KS + d0, q8[1]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float k8[8];
+              unpack8(kt + (8 * j + 2 * c + e) * KS + d0, k8);
+#pragma unroll
+              for (int i = 0; i < 8; ++i) {
+                s[j][e] = fmaf(q8[0][i], k8[i], s[j][e]);
+                s[j][e + 2] = fmaf(q8[1][i], k8[i], s[j][e + 2]);
+              }
+            }
+        }
+      } else {
+        // A of k8 steps 2u (dims 16u + 4c, + 1) and 2u + 1 (16u + 4c + 2,
+        // + 3): {a0, a1, a2, a3} = {row g, row g + 8} x the two dims; K's
+        // 16-byte loads give B in the same d order
+        const float* qf = reinterpret_cast<const float*>(qa);
+        if (exact) {
+          // one TF32 mma per k step on the raw bits; the 2 k steps of 16
+          // dims go into one zero accumulator
+#pragma unroll
+          for (int u = 0; u < D / 16; ++u) {
+            const uint4 x =
+                *reinterpret_cast<const uint4*>(qf + 16 * u + 4 * c);
+            const uint4 y =
+                *reinterpret_cast<const uint4*>(qf + 8 * KS + 16 * u + 4 * c);
+            const uint32_t a0[4] = {x.x, y.x, x.y, y.y};
+            const uint32_t a1[4] = {x.z, y.z, x.w, y.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const uint4 kv = *reinterpret_cast<const uint4*>(
+                  reinterpret_cast<const float*>(kt) + (8 * j + g) * KS +
+                  16 * u + 4 * c);
+              float t[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_tf32(t, a0, kv.x, kv.y);
+              mma_tf32(t, a1, kv.z, kv.w);
+              add4(s[j], t);
+            }
+          }
         } else {
-          const __nv_bfloat16* ksb = reinterpret_cast<const __nv_bfloat16*>(ks);
-          const __nv_bfloat16* vsb = reinterpret_cast<const __nv_bfloat16*>(vs);
-          k0 = fp4::decode_e4m3(kc[row * Dc + c]) *
-               __bfloat162float(ksb[row * nb + c / block]);
-          v0 = fp4::decode_e4m3(vc[row * Dc + c]) *
-               __bfloat162float(vsb[row * nb + c / block]);
+#pragma unroll
+        for (int u = 0; u < D / 16; ++u) {
+          const float4 x = *reinterpret_cast<const float4*>(qf + 16 * u + 4 * c);
+          const float4 y =
+              *reinterpret_cast<const float4*>(qf + 8 * KS + 16 * u + 4 * c);
+          const float f[8] = {x.x, y.x, x.y, y.y, x.z, y.z, x.w, y.w};
+          uint32_t qbig[8], qsml[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) split_tf32(f[i], qbig[i], qsml[i]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float4 kv = *reinterpret_cast<const float4*>(
+                reinterpret_cast<const float*>(kt) + (8 * j + g) * KS +
+                16 * u + 4 * c);
+            mma_3xtf32(s[j], qbig, qsml, kv.x, kv.y);
+            mma_3xtf32(s[j], qbig + 4, qsml + 4, kv.z, kv.w);
+          }
+        }
         }
       }
-      if (nvfp4) {
-        kt[j * (D + 1) + 2 * c] = k0;
-        kt[j * (D + 1) + 2 * c + 1] = k1;
-        vt[j * D + 2 * c] = v0;
-        vt[j * D + 2 * c + 1] = v1;
+      // scale and mask, then the online softmax per row (a 4-lane quad)
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key0 + 8 * j + 2 * c + (e & 1);
+          const int row = r0 + g + 8 * (e >> 1);
+          bool ok = !a.causal || key <= row;
+          if (a.window > 0) ok = ok && key > row - a.window;
+          s[j][e] = key >= Sk ? -INFINITY : ok ? s[j][e] * a.sm_scale
+                                               : NEG_INF;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+      float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr[r] = expf(m[r] - mx[r]);
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = expf(s[j][e] - mx[e >> 1]);
+          rs[e >> 1] += s[j][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        l[r] = l[r] * corr[r] + rs[r];
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        o[n][0] *= corr[0];
+        o[n][1] *= corr[0];
+        o[n][2] *= corr[1];
+        o[n][3] *= corr[1];
+      }
+      // O += p V
+      if constexpr (BF16) {
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {  // keys 16 ks .. 16 ks + 15
+          const uint32_t pa[4] = {
+              fp4::pack_bf16x2(s[2 * ks][0], s[2 * ks][1]),
+              fp4::pack_bf16x2(s[2 * ks][2], s[2 * ks][3]),
+              fp4::pack_bf16x2(s[2 * ks + 1][0], s[2 * ks + 1][1]),
+              fp4::pack_bf16x2(s[2 * ks + 1][2], s[2 * ks + 1][3])};
+#pragma unroll
+          for (int np = 0; np < NT / 2; ++np) {
+            uint32_t r[4];
+            ldmatrix_x4_trans(
+                r, vt + (16 * ks + (lane & 7) + (((lane >> 3) & 1) << 3)) * VS +
+                       16 * np + ((lane >> 4) << 3));
+            mma_bf16_add(o[2 * np], pa, r[0], r[1]);
+            mma_bf16_add(o[2 * np + 1], pa, r[2], r[3]);
+          }
+        }
       } else {
-        kt[j * (D + 1) + c] = k0;
-        vt[j * D + c] = v0;
-      }
-    }
-    __syncthreads();
-    const int key = t0 + lane;
-    const bool valid = key_valid(key, qpos, kv_len, causal, window);
-    for (int g = warp; g < G; g += NWARP) {
-      float s = 0.f;
-      const float* qg = qs + g * D;
-      const float* kr = kt + lane * (D + 1);
-      for (int d = 0; d < D; ++d) s = fmaf(qg[d], kr[d], s);
-      s = valid ? s * sm_scale : NEG_INF;
-      const float m_prev = ms[g], l_prev = ls[g];
-      const float m_new = fmaxf(m_prev, warp_max(s));
-      const float corr = expf(m_prev - m_new);
-      const float p = expf(s - m_new);
-      const float psum = warp_sum(p);
-      float* ag = acc + g * D;
-      for (int d = lane; d < D; d += 32) {
-        float pv = 0.f;
-        for (int j = 0; j < TK; ++j)
-          pv = fmaf(__shfl_sync(0xffffffffu, p, j), vt[j * D + d], pv);
-        ag[d] = ag[d] * corr + pv;
-      }
-      __syncwarp();
-      if (lane == 0) {
-        ms[g] = m_new;
-        ls[g] = l_prev * corr + psum;
-      }
-      __syncwarp();
-    }
-    __syncthreads();
-  }
-  for (int i = tid; i < G * D; i += nthr) {
-    int g = i / D, d = i % D;
-    size_t oidx = ((size_t(b) * Sq + qi) * H + kvh * G + g) * D + d;
-    store_f(out, oidx, acc[i] / fmaxf(ls[g], 1e-30f), q_bf16);
-  }
-}
-
-// ---- K7 -------------------------------------------------------------------
-// grid (ceil(Sq/BQ), H, B), NWARP*32 threads, RPW query rows per warp.
-// Dynamic shared memory (floats): qs[BQ][D] | kt[TK][D+1] | vt[TK][D]
-constexpr int RPW = 4;
-constexpr int BQ = NWARP * RPW;
-
-template <int DPL>  // head-dim values per lane: D = 32 * DPL
-__global__ void flash_kernel(const void* __restrict__ q,
-                             const void* __restrict__ k,
-                             const void* __restrict__ v, int bf16,
-                             void* __restrict__ out, int Sq, int Sk, int H,
-                             int KVH, int causal, int window,
-                             float sm_scale) {
-  constexpr int D = 32 * DPL;
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* kt = qs + BQ * D;
-  float* vt = kt + TK * (D + 1);
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KVH);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = qt * BQ;
-
-  for (int i = tid; i < BQ * D; i += blockDim.x) {
-    int r = i / D, d = i % D, row = q0 + r;
-    qs[i] = row < Sq ? load_f(q, ((size_t(b) * Sq + row) * H + h) * D + d,
-                              bf16)
-                     : 0.f;
-  }
-  float m[RPW], l[RPW], acc[RPW][DPL];
+        const float* vf = reinterpret_cast<const float*>(vt);
 #pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    m[r] = NEG_INF;
-    l[r] = 0.f;
+        for (int j = 0; j < 4; ++j) {  // k rows c, c + 4 = keys 8j + 2c, + 1
+          uint32_t pbig[4], psml[4];
+          split_tf32(s[j][0], pbig[0], psml[0]);
+          split_tf32(s[j][2], pbig[1], psml[1]);
+          split_tf32(s[j][1], pbig[2], psml[2]);
+          split_tf32(s[j][3], pbig[3], psml[3]);
+          const float* v0 = vf + (8 * j + 2 * c) * VS + g;
+          if (exact) {  // V's small part is 0: p_small V + p_big V
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
-  }
-  // tile skip for the whole q tile (rows q0 .. q0 + BQ - 1)
-  int kend = Sk;
-  if (causal) kend = min(kend, q0 + BQ);
-  int t_first = 0;
-  if (window > 0) t_first = (max(0, q0 - window + 1) / TK) * TK;
-  __syncthreads();
-
-  for (int t0 = t_first; t0 < kend; t0 += TK) {
-    for (int i = tid; i < TK * D; i += blockDim.x) {
-      int j = i / D, d = i % D, key = t0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (key < Sk) {
-        size_t idx = ((size_t(b) * Sk + key) * KVH + kvh) * D + d;
-        kv = load_f(k, idx, bf16);
-        vv = load_f(v, idx, bf16);
-      }
-      kt[j * (D + 1) + d] = kv;
-      vt[j * D + d] = vv;
-    }
-    __syncthreads();
-    const int key = t0 + lane;
+            for (int n = 0; n < NT; ++n) {
+              const uint32_t b0 = __float_as_uint(v0[8 * n]);
+              const uint32_t b1 = __float_as_uint(v0[VS + 8 * n]);
+              float t[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_tf32(t, psml, b0, b1);
+              mma_tf32(t, pbig, b0, b1);
+              add4(o[n], t);
+            }
+          } else {
 #pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const int row = q0 + warp * RPW + r;
-      const float* qr = qs + (warp * RPW + r) * D;
-      const float* kr = kt + lane * (D + 1);
-      float s = 0.f;
-      for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
-      const bool valid = key < Sk && key_valid(key, row, Sk, causal, window);
-      s = valid ? s * sm_scale : NEG_INF;
-      const float m_new = fmaxf(m[r], warp_max(s));
-      const float corr = expf(m[r] - m_new);
-      float p = expf(s - m_new);
-      l[r] = l[r] * corr + warp_sum(p);
-      m[r] = m_new;
-      // p is cast to V's dtype before the pv product (TPU kernel rule)
-      if (bf16) p = __bfloat162float(__float2bfloat16_rn(p));
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        float pv = 0.f;
-        for (int j = 0; j < TK; ++j)
-          pv = fmaf(__shfl_sync(0xffffffffu, p, j), vt[j * D + d], pv);
-        acc[r][i] = acc[r][i] * corr + pv;
+            for (int n = 0; n < NT; ++n)
+              mma_3xtf32(o[n], pbig, psml, v0[8 * n], v0[VS + 8 * n]);
+          }
+        }
       }
     }
     __syncthreads();
   }
+  fp4::cp_async_wait<0>();
+
+  if constexpr (KSPLIT == 2) {
+    // group 1 hands its (m, l, O) through the free K/V stages; group 0
+    // merges: M = max, each side scaled by exp(m - M)
+    constexpr int NF = 4 + 4 * NT;
+    float* mrg = reinterpret_cast<float*>(smem) + warp * NF * 32 + lane;
+    __syncthreads();
+    if (grp == 1 && live) {
 #pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int row = q0 + warp * RPW + r;
+      for (int r = 0; r < 2; ++r) {
+        mrg[r * 32] = m[r];
+        mrg[(2 + r) * 32] = l[r];
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mrg[(4 + 4 * n + e) * 32] = o[n][e];
+    }
+    __syncthreads();
+    if (grp == 1 || !live) return;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mb = mrg[r * 32], lb = mrg[(2 + r) * 32];
+      const float mx = fmaxf(m[r], mb);
+      const float ca = expf(m[r] - mx), cb = expf(mb - mx);
+      l[r] = l[r] * ca + lb * cb;
+      m[r] = mx;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e)
+          o[n][e] = o[n][e] * ca + mrg[(4 + 4 * n + e) * 32] * cb;
+    }
+  }
+
+  // out = acc / max(l, 1e-30) in q's dtype; 0 for a row that saw no valid
+  // key (its running max is still NEG_INF), as K5 and K6 write for kv_len 0
+  if (!live) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
     if (row >= Sq) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
+    const float den = m[r] > NEG_INF ? fmaxf(l[r], 1e-30f) : INFINITY;
+    T* orow = static_cast<T*>(a.out) + ((size_t(b) * Sq + row) * a.H + h) * D +
+              2 * c;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i)
-      store_f(out, ((size_t(b) * Sq + row) * H + h) * D + lane + 32 * i,
-              acc[r][i] / denom, bf16);
+    for (int n = 0; n < NT; ++n) {
+      const float x0 = o[n][2 * r] / den, x1 = o[n][2 * r + 1] / den;
+      if constexpr (BF16)
+        *reinterpret_cast<uint32_t*>(orow + 8 * n) = fp4::pack_bf16x2(x0, x1);
+      else
+        *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(x0, x1);
+    }
   }
 }
 
-template <int DPL>
-int launch_flash(const void* q, const void* k, const void* v, int bf16,
-                 void* out, int B, int Sq, int Sk, int H, int KVH,
-                 int causal, int window, float sm_scale,
-                 cudaStream_t stream) {
-  constexpr int D = 32 * DPL;
-  size_t smem = sizeof(float) * (BQ * D + TK * (D + 1) + TK * D);
-  cudaFuncSetAttribute(flash_kernel<DPL>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       int(smem));
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_kernel<DPL><<<grid, NWARP * 32, smem, stream>>>(
-      q, k, v, bf16, out, Sq, Sk, H, KVH, causal, window, sm_scale);
+template <int D, bool BF16>
+int launch_flash(const FlashArgs& a, int B, cudaStream_t stream) {
+  constexpr size_t smem = Layout<D, BF16>::smem;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_mma_kernel<D, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (attr != cudaSuccess) return int(attr);
+  dim3 grid(a.H, B, (a.Sq + 16 * NW - 1) / (16 * NW));
+  flash_mma_kernel<D, BF16>
+      <<<grid, 32 * NW * Layout<D, BF16>::KSPLIT, smem, stream>>>(a);
   return int(cudaGetLastError());
+}
+
+template <bool BF16>
+int launch_d(const FlashArgs& a, int B, int D, cudaStream_t stream) {
+  switch (D) {
+    case 32: return launch_flash<32, BF16>(a, B, stream);
+    case 64: return launch_flash<64, BF16>(a, B, stream);
+    case 96: return launch_flash<96, BF16>(a, B, stream);
+    case 128: return launch_flash<128, BF16>(a, B, stream);
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
-
-extern "C" int flash_attention_packed_fwd(
-    const void* q, int q_bf16, const uint8_t* k_codes,
-    const uint8_t* k_scales, const uint8_t* v_codes, const uint8_t* v_scales,
-    const int* pos, void* out, int B, int Sq, int H, int KVH, int D, int Sk,
-    int nvfp4, int block, int causal, int window, float sm_scale,
-    cudaStream_t stream) {
-  int G = H / KVH;
-  size_t smem = sizeof(float) *
-                (2 * size_t(G) * D + 2 * G + TK * (D + 1) + size_t(TK) * D);
-  cudaFuncSetAttribute(flash_packed_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       int(smem));
-  dim3 grid(Sq, KVH, B);
-  flash_packed_kernel<<<grid, NWARP * 32, smem, stream>>>(
-      q, q_bf16, k_codes, k_scales, v_codes, v_scales, pos, out, Sq, H, KVH,
-      D, Sk, nvfp4, block, causal, window, sm_scale);
-  return int(cudaGetLastError());
-}
 
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, int bf16, void* out, int B,
                                    int Sq, int Sk, int H, int KVH, int D,
                                    int causal, int window, float sm_scale,
                                    cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch_flash<1>(q, k, v, bf16, out, B, Sq, Sk, H, KVH, causal,
-                             window, sm_scale, stream);
-    case 64:
-      return launch_flash<2>(q, k, v, bf16, out, B, Sq, Sk, H, KVH, causal,
-                             window, sm_scale, stream);
-    case 96:
-      return launch_flash<3>(q, k, v, bf16, out, B, Sq, Sk, H, KVH, causal,
-                             window, sm_scale, stream);
-    case 128:
-      return launch_flash<4>(q, k, v, bf16, out, B, Sq, Sk, H, KVH, causal,
-                             window, sm_scale, stream);
-    default:
-      return int(cudaErrorInvalidValue);
-  }
+  if (B <= 0 || Sq <= 0) return int(cudaSuccess);
+  FlashArgs a{q, k, v, out, Sq, Sk, H, KVH, causal, window, sm_scale};
+  return bf16 ? launch_d<true>(a, B, D, stream)
+              : launch_d<false>(a, B, D, stream);
 }

@@ -4,18 +4,20 @@
 K5 is attention over the PAGED block-quantized KV pool of continuous
 batching (``PagedKVCache``), read through a page table with per-slot
 (q_offset, kv_len); K6 is decode attention over the contiguous
-block-quantized KV cache (``PackedKVCache``); K7 is bf16 prefill attention.
+block-quantized KV cache (``PackedKVCache``); K7 is prefill attention.
 They replace the TPU kernels ``repro/kernels/flash_attn.py::
 flash_attention_paged``, ``::flash_attention_packed`` and
 ``::flash_attention``; the CUDA sources are ``csrc/flash_attn_paged.cu``
-(K5) and ``csrc/flash_attn.cu`` (K6, K7).  Each wrapper launches its kernel
-on CUDA tensors and takes its plain PyTorch version only for CPU tensors.
+(K5 and K6: one split-KV body, the contiguous cache read as one page per
+slot) and ``csrc/flash_attn.cu`` (K7, on ``mma.sync``).  Each wrapper
+launches its kernel on CUDA tensors and takes its plain PyTorch version only
+for CPU tensors.
 
-The plain versions of K6 and K7 run the same online softmax over the same
-32-key tiles as the kernels (``TILE_KV``), so the kernel's p rounding (K7
-rounds p to V's dtype before the pv product) happens against the same
-running max.  K5's plain version steps one page at a time, as the TPU
-kernel's grid does; p stays f32 there, so the tile grouping moves only
+The plain versions of K6 and K7 run the same online softmax over 32-key
+tiles (``TILE_KV``); K7's kernel uses that tile width, so its p rounding
+(p to V's dtype before the pv product) happens against the same running
+max.  K5's plain version steps one page at a time, as the TPU kernel's grid
+does; p stays f32 in K5 and K6, so their kernels' tile grouping moves only
 f32 rounding.
 """
 from __future__ import annotations
@@ -30,7 +32,7 @@ from repro_torch.kernels import common as c
 from repro_torch.kernels import counters
 
 NEG_INF = -1e30
-TILE_KV = 32                      # keys per tile, kernels and plain versions
+TILE_KV = 32                      # keys per tile: plain versions and K7
 PAGED_NAME = "flash_attention_paged"
 PACKED_NAME = "flash_attention_packed"
 DENSE_NAME = "flash_attention"
@@ -99,6 +101,9 @@ def _dequant_cache(codes, scales, fmt: str, block: int) -> torch.Tensor:
 
 # ---- K6 ------------------------------------------------------------------------
 
+PAGED_FORMATS = ("nvfp4", "fp8", "bf16")   # the kernel's fmt codes 0, 1, 2
+PACKED_FORMATS = PAGED_FORMATS[:2]
+
 
 def flash_attention_packed_plain(q, k_codes, k_scales, v_codes, v_scales,
                                  pos, *, fmt: str = "nvfp4", block: int = 16,
@@ -120,7 +125,7 @@ def flash_attention_packed_plain(q, k_codes, k_scales, v_codes, v_scales,
 
 def _check_packed(q, k_codes, k_scales, v_codes, v_scales, pos, fmt, block):
     B, Sq, H, D = q.shape
-    if fmt not in ("nvfp4", "fp8"):
+    if fmt not in PACKED_FORMATS:
         raise ValueError(f"unknown packed KV format {fmt!r}")
     Dc = D // 2 if fmt == "nvfp4" else D
     if k_codes.shape[-1] != Dc or D % block:
@@ -136,8 +141,17 @@ def _check_packed(q, k_codes, k_scales, v_codes, v_scales, pos, fmt, block):
     for t in (k_scales, v_scales):
         if tuple(t.shape) != want_s:
             raise ValueError(f"scales shape {tuple(t.shape)} != {want_s}")
-    if tuple(pos.shape) != (2,):
-        raise ValueError("pos must be the (q_offset, kv_len) pair")
+    if tuple(pos.shape) != (2,) or pos.dtype != torch.int32:
+        raise ValueError("pos must be the int32 (q_offset, kv_len) pair")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError("q must be bf16 or f32")
+    code_dt = torch.uint8 if fmt == "nvfp4" else torch.float8_e4m3fn
+    scale_dt = torch.float8_e4m3fn if fmt == "nvfp4" else torch.bfloat16
+    for t, dt in ((k_codes, code_dt), (v_codes, code_dt),
+                  (k_scales, scale_dt), (v_scales, scale_dt)):
+        if t.dtype != dt:
+            raise ValueError(f"{fmt} cache operand must be {dt}, got "
+                             f"{t.dtype}")
 
 
 def flash_attention_packed(q: torch.Tensor, k_codes: torch.Tensor,
@@ -163,32 +177,29 @@ def flash_attention_packed(q: torch.Tensor, k_codes: torch.Tensor,
     dev = q.device
     B, Sq, H, D = q.shape
     Sk, KVH = k_codes.shape[1], k_codes.shape[2]
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError("q must be bf16 or f32")
-    code_dt = torch.uint8 if fmt == "nvfp4" else torch.float8_e4m3fn
-    scale_dt = torch.float8_e4m3fn if fmt == "nvfp4" else torch.bfloat16
-    for t, dt in ((k_codes, code_dt), (v_codes, code_dt),
-                  (k_scales, scale_dt), (v_scales, scale_dt)):
-        if t.dtype != dt or t.device != dev:
-            raise ValueError(f"{fmt} cache operand must be {dt} on {dev}")
-    if pos.dtype != torch.int32 or pos.device != dev:
-        raise ValueError("pos must be int32 on q's device")
+    if any(t.device != dev for t in (k_codes, k_scales, v_codes, v_scales,
+                                     pos)):
+        raise ValueError(f"the cache and pos must be on {dev}")
     if block % 2 or D % 32 or D > 256:
         raise ValueError(f"kernel takes even blocks and D in 32..256, "
                          f"got block {block}, D {D}")
     tensors = [t.contiguous() for t in (q, k_codes, k_scales, v_codes,
                                         v_scales, pos)]
+    if any(t.data_ptr() % 16 for t in tensors[1:5]):
+        raise ValueError("the cache must start on 16-byte boundaries")
+    qv, keys = k6_plan(Sq, H, KVH, D, Sk)
     out = torch.empty_like(tensors[0])
     from repro_torch.kernels import _build
-    fn = _build.library("flash_attn").flash_attention_packed_fwd
+    fn = _build.library("flash_attn_paged").flash_attention_packed_fwd
     if fn.argtypes is None:
-        fn.argtypes = [_P, _I, _P, _P, _P, _P, _P, _P] + [_I] * 10 + \
-            [ctypes.c_float, _P]
+        fn.argtypes = [_P, _I] + [_P] * 6 + [_I] * 11 + [ctypes.c_float] \
+            + [_I] * 2 + [_P]
         fn.restype = _I
     err = fn(tensors[0].data_ptr(), int(q.dtype == torch.bfloat16),
              *(t.data_ptr() for t in tensors[1:]), out.data_ptr(),
-             B, Sq, H, KVH, D, Sk, int(fmt == "nvfp4"), block, int(causal),
-             int(window or 0), _sm_scale(D),
+             B, Sq, H, KVH, D, Sk, k_scales.shape[-1],
+             PAGED_FORMATS.index(fmt), block, int(causal), int(window or 0),
+             _sm_scale(D), qv, keys,
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{PACKED_NAME} kernel launch failed: "
@@ -198,8 +209,6 @@ def flash_attention_packed(q: torch.Tensor, k_codes: torch.Tensor,
 
 
 # ---- K5 ------------------------------------------------------------------------
-
-PAGED_FORMATS = ("nvfp4", "fp8", "bf16")
 
 
 def _dequant_pages(codes, scales, fmt: str, block: int) -> torch.Tensor:
@@ -345,6 +354,21 @@ def k5_plan(B: int, Sq: int, H: int, KVH: int, D: int, page_size: int,
     return qv, keys, -(-buf // keys)
 
 
+# K6's plan on the card: K5's split-KV body over the contiguous cache (one
+# page of Sk rows per slot), always in one split.  At the lockstep decode
+# B * KVH blocks already cover the SMs and K5's combine launch alone costs
+# more than K6's byte bound; no workload has a cache long enough to measure
+# where more splits would pay.
+
+
+def k6_plan(Sq: int, H: int, KVH: int, D: int, Sk: int) -> Tuple[int, int]:
+    """(query vectors per block, keys of the one split) of K6, from static
+    shapes alone -- never from ``pos``: the split covers Sk in whole
+    K5_TILE-key tiles."""
+    qv = min(Sq * (H // KVH), k5_qmax(D))
+    return qv, -(-Sk // K5_TILE) * K5_TILE
+
+
 def flash_attention_paged(q: torch.Tensor, k_codes: torch.Tensor,
                           k_scales: torch.Tensor, v_codes: torch.Tensor,
                           v_scales: torch.Tensor, page_table: torch.Tensor,
@@ -441,11 +465,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     return o.reshape(B, Sq, H, D).to(q.dtype)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """Attention forward.  q: (B, Sq, H, D); k/v: (B, Sk, KVH, D); any Sq
-    and Sk (the ragged edge is masked)."""
+def _check_dense(q, k, v):
     B, Sq, H, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     if H % KVH:
@@ -453,18 +473,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if tuple(k.shape) != (B, Sk, KVH, D) or v.shape != k.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
+    if q.dtype not in (torch.bfloat16, torch.float32) \
+            or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("q, k, v must share one dtype, bf16 or f32")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Attention forward.  q: (B, Sq, H, D); k/v: (B, Sk, KVH, D), all bf16
+    or all f32; any Sq and Sk (the ragged edge is masked)."""
+    _check_dense(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if q.dtype not in (torch.bfloat16, torch.float32) \
-            or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError("q, k, v must share one dtype, bf16 or f32")
+    D = q.shape[3]
     if D not in (32, 64, 96, 128):
         raise ValueError(f"kernel takes head dims 32/64/96/128, got {D}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k, v must be on one device")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    B, Sq, H, _ = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    # the kernel copies rows in 16-byte pieces; with D % 32 == 0 every row
+    # is 16-byte aligned where the tensor's start is
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
     out = torch.empty_like(q)
     from repro_torch.kernels import _build
     fn = _build.library("flash_attn").flash_attention_fwd

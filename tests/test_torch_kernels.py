@@ -239,3 +239,38 @@ def test_flash_attention_rejects_bad_gqa():
     with pytest.raises(ValueError, match="GQA"):
         flash_attention(_t(q), _t(k), _t(v))
 
+
+def _bad_dtype_calls():
+    """(K6 or K7 call, message) pairs the wrappers refuse before they pick
+    the kernel or the plain version: the card's kernels take only these
+    dtypes, so the CPU path holds callers to them too."""
+    kc = torch.zeros((1, 32, 2, 16), dtype=torch.uint8)
+    ks = torch.zeros((1, 32, 2, 2), dtype=torch.uint8).view(
+        torch.float8_e4m3fn)
+    pos = torch.tensor([0, 1], dtype=torch.int32)
+    q6 = torch.zeros(1, 1, 2, 32)
+    c8 = torch.zeros((1, 32, 2, 32), dtype=torch.uint8)
+    s8 = torch.zeros((1, 32, 2, 2), dtype=torch.bfloat16)
+    q, k, v = (_t(a) for a in _qkv(1, 8, 8, 2, 2, 32, np.float32))
+    return {
+        "K6 int64 pos": (lambda: flash_attention_packed(
+            q6, kc, ks, kc, ks, pos.long()), "int32"),
+        "K6 f16 q": (lambda: flash_attention_packed(
+            q6.half(), kc, ks, kc, ks, pos), "bf16 or f32"),
+        "K6 scales as bytes": (lambda: flash_attention_packed(
+            q6, kc, ks.view(torch.uint8), kc, ks, pos), "float8_e4m3fn"),
+        "K6 fp8 codes as bytes": (lambda: flash_attention_packed(
+            q6, c8, s8, c8, s8, pos, fmt="fp8"), "float8_e4m3fn"),
+        "K7 f16": (lambda: flash_attention(q.half(), k.half(), v.half()),
+                   "bf16 or f32"),
+        "K7 mixed": (lambda: flash_attention(q, k.bfloat16(), v),
+                     "one dtype"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bad_dtype_calls()))
+def test_attention_wrappers_reject_bad_dtypes(case):
+    call, msg = _bad_dtype_calls()[case]
+    with pytest.raises(ValueError, match=msg):
+        call()
+

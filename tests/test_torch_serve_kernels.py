@@ -1,5 +1,5 @@
-"""K4's routes and K5's split plan, and the plain versions of K4 and K5 on
-the shapes the card's plans cut up, on the CPU.
+"""K4's routes, K5's and K6's split plans, and the plain versions of K5 and
+K6 on shapes that span several of the card's tiles, on the CPU.
 
   * ``k4_route`` at every M the serving paths give K4 (1: a prefill
     program's lm_head, 4 and 8: decode, 32: verify, 64: chunk and suffix
@@ -14,6 +14,11 @@ the shapes the card's plans cut up, on the CPU.
     (interpret mode) where the card's plan cuts every slot into several
     splits: a rolling sliding window whose slots have wrapped, and verify
     (Sq 4) with GQA over shuffled page tables.
+  * ``k6_plan``: static shapes only; its one split covers Sk in whole
+    tiles (no combine launch), and a block holds at most ``k5_qmax(D)``
+    query vectors.  K6's plain version within 2e-5 of JAX's
+    ``flash_attention_packed`` on a cache of 8 of the kernel's tiles, with
+    and without a window.
 
 The CUDA kernels are held to these plain versions on the card by
 ``chip_smoke.py``; here every wrapper gets CPU tensors and the launch
@@ -28,6 +33,8 @@ import pytest
 import torch
 
 from repro.core import quantize as jq
+from repro.kernels.flash_attn import \
+    flash_attention_packed as jax_flash_attention_packed
 from repro.kernels.flash_attn import \
     flash_attention_paged as jax_flash_attention_paged
 from repro_torch.core.quantize import NVFP4, BlockQuantSpec
@@ -166,5 +173,59 @@ def test_k5_plain_matches_jax_kernel_across_splits(case, fmt):
         torch.from_numpy(q), *(_t(p) for p in pools),
         torch.from_numpy(table), torch.from_numpy(kv_len),
         torch.from_numpy(q_off), fmt=fmt, causal=True, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=ATOL,
+                               atol=ATOL)
+
+
+# ---- K6: the plan ----------------------------------------------------------------
+
+
+def test_k6_plan_takes_static_shapes_only():
+    assert list(inspect.signature(fa.k6_plan).parameters) == [
+        "Sq", "H", "KVH", "D", "Sk"]
+
+
+# (Sq, H, KVH, D, Sk, qv): K6_CASES of chip_smoke.py (llama2-7b's lockstep
+# decode, tinyllama's G = 8), the smoke engine, a prefix of the same batch,
+# a cache that is not a whole number of tiles, and long caches
+@pytest.mark.parametrize("shape", [(1, 32, 32, 128, 256, 1),
+                                   (1, 32, 4, 64, 256, 8),
+                                   (1, 4, 4, 32, 64, 1),
+                                   (2, 32, 32, 128, 256, 2),
+                                   (1, 32, 32, 128, 200, 1),
+                                   (1, 4, 2, 32, 1024, 2),
+                                   (1, 32, 8, 128, 4096, 4)])
+def test_k6_plan_covers_the_cache(shape):
+    *dims, want = shape
+    Sq, H, KVH, D, Sk = dims
+    qv, keys = fa.k6_plan(*dims)
+    assert qv == want
+    assert keys % fa.K5_TILE == 0
+    assert keys - fa.K5_TILE < Sk <= keys
+    assert 1 <= qv <= min(fa.k5_qmax(D), Sq * (H // KVH))
+
+
+@pytest.mark.parametrize("fmt", ["nvfp4", "fp8"])
+@pytest.mark.parametrize("Sq,window", [(1, None), (1, 500), (3, None),
+                                       (3, 300)])
+def test_k6_plain_matches_jax_kernel_across_splits(fmt, Sq, window):
+    B, H, KVH, D, Sk, kv_len = 1, 4, 2, 32, 1024, 900
+    qv, keys = fa.k6_plan(Sq, H, KVH, D, Sk)
+    assert keys // fa.K5_TILE == 8                # 8 of the kernel's tiles
+    rng = np.random.default_rng(11)
+    k, v = (jnp.asarray((rng.standard_normal((B, Sk, KVH, D)) * sc
+                         ).astype(np.float32)) for sc in (2, 1))
+    kc, ks = jq.kv_quant_rows(k, fmt)
+    vc, vs = jq.kv_quant_rows(v, fmt)
+    q = rng.standard_normal((B, Sq, H, D)).astype(np.float32)
+    q_offset = kv_len - Sq
+    want = jax_flash_attention_packed(
+        jnp.asarray(q), kc, ks, vc, vs, fmt=fmt, causal=True, window=window,
+        kv_len=kv_len, q_offset=q_offset, block_q=Sq, block_kv=128,
+        interpret=True)
+    pos = torch.tensor([q_offset, kv_len], dtype=torch.int32)
+    got = fa.flash_attention_packed(
+        torch.from_numpy(q), *(_t(x) for x in (kc, ks, vc, vs)), pos,
+        fmt=fmt, causal=True, window=window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=ATOL,
                                atol=ATOL)
