@@ -35,7 +35,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
            K6_CASES and K6_EDGE (kv_len 1, one full 128-key tile, a window,
            a long cache of 16 tiles in one split); K7 runs K7_CASES and K7_EDGE
            (window, non-causal, ragged Sq != Sk, head dims 32 and 96); K5
-           its 30 cases.
+           its 30 cases.  K2 runs on the route ``k2_route`` picks ("vec":
+           16-byte lanes; "scalar": one thread a block), bit for bit:
+           K2_SPECS x K2_SHAPES x f32/bf16 x a given or computed tensor
+           scale, SR bits as a tensor; counter mode (bits hashed in the
+           kernel) for both SR specs at strides (K, 1) and (1, M); and
+           K2_EDGE (one row, ragged rows, K = 4112, views off 16-byte
+           alignment, which take "scalar"), SR in counter mode and as bits.
   serve    the lockstep Engine serving llama2-7b at full width from packed
            NVFP4 weights (random, seeded) with an nvfp4 KV cache: batch 4,
            prompt 64, 32 new tokens, greedy.  The launch counts are zeroed
@@ -62,8 +68,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
            per-leaf grads, parameter updates), the SR streams held bit for
            bit; then llama2-7b at full width, depth cut to 4 layers, batch
            4 x seq 1024, remat, AdamW: 1 warm + 3 timed steps with finite
-           metrics and K1's launches per step as the FQT dispatch rules
-           derive them, peak memory and one profiled step's idle share.
+           metrics, K1's launches per step as the FQT dispatch rules
+           derive them and K2's as one per sigma_q probe leaf (the probe's
+           quantizer runs K2 in counter mode), no other kernel, peak
+           memory and one profiled step's idle share and device ms of K1
+           and of K2; then, on one more step's gradients, every probe leaf
+           through K2 held to K2's plain version bit for bit, and sigma_q
+           from both equal.
   ops      the kernel-level public API (``kernels/ops.py``) as a user calls
            it: the unfused FQT GEMM at each forward GEMM shape of the
            train phase's llama2-7b (M = 4096 tokens; (K, N) = (4096, 4096),
@@ -85,9 +96,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
            route, and both routes at M 1-64 (the crossover); K5 at run A's
            decode, the verify and the chunk shapes; K6 at every K6_CASES row
            with the split plan it takes; K7 at every K7_CASES and K7_MAIN
-           row; and the device time of each launch inside one call of K1,
-           K3, K4 (each route), K5, K6 and K7, each taken in a fresh child
-           process (a profiler late in a long process drops device events).
+           row; K2 at 4096^2 f32 (computed and given tensor scale), bf16,
+           and at the sigma_q probe's largest leaf in counter mode; and the
+           device time of each launch inside one call of K1, K2 (its absmax
+           pre-pass and quantizer), K3, K4 (each route), K5, K6 and K7, each
+           taken in a fresh child process (a profiler late in a long
+           process drops device events).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -199,6 +213,15 @@ K2_SPECS = (
                       stochastic=True)),
     ("e3m4 b8", dict(scale_fmt="e3m4", block=8, two_level=False)))
 K2_SHAPES = ((4096, 4096), (4095, 4096))
+# K2 at its edges, each under every K2_SPECS spec whose block divides K, in
+# f32 and bf16: (label, M, K, storage offset in elements).  One row of one
+# block; a ragged 3 x 48; 7 x 96 (MXFP4's 32-value blocks: 8 f32 lanes);
+# K = 4112 (257 blocks of 16); views 1 and 3 elements into their storage,
+# not 16-byte aligned, so k2_route sends them to the "scalar" kernel.
+# "e3m4 b8" in bf16 is one 16-byte lane a block.
+K2_EDGE = (("one row", 1, 16, 0), ("3 rows", 3, 48, 0), ("7 rows", 7, 96, 0),
+           ("K 4112", 33, 4112, 0), ("offset 1", 64, 256, 1),
+           ("offset 3", 64, 256, 3))
 
 
 def emit(obj) -> None:
@@ -567,7 +590,28 @@ def phase_kernels(dev) -> dict:
         check(fm.FUSED_NAME, f"e3m4/e4m3 M={M} K={K} N={N} sr=11 counter "
               f"{str(out_dtype)[6:]} route {route}", got, want)
 
-    # K2: every spec x f32/bf16 x a given or computed tensor scale
+    # K2, bit for bit, on the route k2_route picks
+    k2_routes = set()
+
+    def k2_check(case, x, spec, rbits=None, tscale=None, counter=None):
+        aligned = all(t is None or t.data_ptr() % nq.LANE_BYTES == 0
+                      for t in (x, rbits))
+        route = nq.k2_route(spec.block, x.dtype, aligned)
+        k2_routes.add(route)
+        kw = dict(rbits=rbits, tscale=tscale, counter=counter)
+        got = nq.block_quantize(x, spec, **kw)
+        want = nq.block_quantize_plain(x, spec, **kw)
+        torch.cuda.synchronize(dev)
+        case = (f"{case} {str(x.dtype)[6:]} tscale="
+                f"{'given' if tscale is not None else 'computed'}"
+                f"{' counter ' + str(counter[1:]) if counter else ''}"
+                f" route {route}")
+        check(nq.NAME, case + " codes", got[0], want[0], compare_bits)
+        check(nq.NAME, case + " scales", got[1], want[1], compare_bits)
+
+    given = torch.full((), 0.25, device=dev)
+    # every spec x f32/bf16 x a given or computed tensor scale, SR bits as
+    # a tensor
     for M, K in K2_SHAPES:
         for name, fields in K2_SPECS:
             spec = BlockQuantSpec(**fields)
@@ -576,17 +620,42 @@ def phase_kernels(dev) -> dict:
             for dtype in (torch.float32, torch.bfloat16):
                 x = (torch.randn((M, K), generator=gen(dev, SEED), device=dev)
                      * 3).to(dtype)
-                for ts in (None, torch.full((), 0.25, device=dev)):
-                    got = nq.block_quantize(x, spec, rbits=rb, tscale=ts)
-                    want = nq.block_quantize_plain(x, spec, rbits=rb,
-                                                   tscale=ts)
-                    torch.cuda.synchronize(dev)
-                    case = (f"M={M} K={K} {name} {str(dtype)[6:]} tscale="
-                            f"{'given' if ts is not None else 'computed'}")
-                    check(nq.NAME, case + " codes", got[0], want[0],
-                          compare_bits)
-                    check(nq.NAME, case + " scales", got[1], want[1],
-                          compare_bits)
+                for ts in (None, given):
+                    k2_check(f"M={M} K={K} {name}", x, spec, rbits=rb,
+                             tscale=ts)
+    # counter mode (SR bits hashed in the kernel) for both SR specs: the
+    # tensor's own stream (K, 1) and its transpose's (1, M)
+    M, K = K2_SHAPES[0]
+    for name, fields in K2_SPECS:
+        spec = BlockQuantSpec(**fields)
+        if not spec.stochastic:
+            continue
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn((M, K), generator=gen(dev, SEED + 1), device=dev)
+                 * 3).to(dtype)
+            for strides in ((K, 1), (1, M)):
+                k2_check(f"M={M} K={K} {name}", x, spec,
+                         counter=(SEED + 4,) + strides)
+    # the edges, on both routes; SR in counter mode and with the same bits
+    # as a tensor
+    for label, M, K, offset in K2_EDGE:
+        for name, fields in K2_SPECS:
+            spec = BlockQuantSpec(**fields)
+            if K % spec.block:
+                continue
+            ctr = (SEED + 5, K, 1) if spec.stochastic else None
+            for dtype in (torch.float32, torch.bfloat16):
+                buf = (torch.randn(M * K + offset, generator=gen(dev, SEED + M),
+                                   device=dev) * 3).to(dtype)
+                x = buf[offset:].view(M, K)
+                for ts in (None, given):
+                    k2_check(f"{label} M={M} K={K} {name}", x, spec,
+                             tscale=ts, counter=ctr)
+                if ctr:
+                    k2_check(f"{label} M={M} K={K} {name} bits", x, spec,
+                             rbits=nq.counter_rbits((M, K), ctr, dev))
+    if k2_routes != {"vec", "scalar"}:
+        failures.append((nq.NAME, f"routes met {sorted(k2_routes)}"))
     # K3: bf16 and f32 codes at the unfused GEMM's shapes
     for K, N in OPS_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1112,7 +1181,8 @@ def device_time(prof, wall_ms, top=15, groups=None) -> dict:
     """Device busy time of a torch.profiler run: the union of the intervals
     of its device-side events (kernels, copies, sets; CUPTI's "Command
     Buffer Full" overhead marker is no device work), the time by name, and
-    the summed time of each of ``groups`` ({label: name substrings}).
+    the summed time of each of ``groups`` ({label: name substrings, or a
+    predicate on the name}).
     Host-side ranges (aten ops, autograd Functions) are left out: their
     "device time" repeats that of the kernels they launched."""
     from torch.autograd import DeviceType
@@ -1136,8 +1206,9 @@ def device_time(prof, wall_ms, top=15, groups=None) -> dict:
            "device_idle_share": (1 - busy_ms / wall_ms) if spans else None,
            "device_ms_by_kernel": {k: round(v, 4) for k, v in ranked}}
     for label, subs in (groups or {}).items():
-        out[label] = sum(v for k, v in by_name.items()
-                         if any(sub in k for sub in subs))
+        match = subs if callable(subs) else (
+            lambda k, subs=subs: any(sub in k for sub in subs))
+        out[label] = sum(v for k, v in by_name.items() if match(k))
     return out
 
 
@@ -1270,44 +1341,128 @@ def phase_train(dev, batch=4, seq=1024, n_layers=4, steps=3) -> dict:
     data = SyntheticLM(DataConfig(cfg.vocab_size, seq, batch))
     train_step = step_mod.make_train_step(cfg, qcfg, tcfg)
     per_step = sum(k1_step_gemms(cfg, qcfg, batch * seq).values())
+    # K2 once per sigma_q probe leaf (core/quantize.py's CUDA route)
+    probe_spec = probe_spec_of(tcfg)
+    leaves = len(probe_leaf_ids(state.params, probe_spec))
     history = []
     counters.reset()
     for i in range(1 + steps):                      # 1 warm + timed steps
         b = {"tokens": torch.from_numpy(data.batch(i)["tokens"]).to(dev)}
-        before = counters.snapshot()["fused_quant_matmul"]
+        before = counters.snapshot()
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         state, metrics = train_step(state, b)
         host = {k: float(v) for k, v in metrics.items()}
         torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0
-        host.update(step=i, ms=dt * 1e3, k1_launches=counters.snapshot()[
-            "fused_quant_matmul"] - before)
+        after = counters.snapshot()
+        host.update(step=i, ms=dt * 1e3, k1_launches=after[
+            "fused_quant_matmul"] - before["fused_quant_matmul"],
+            k2_launches=after["block_quantize"] - before["block_quantize"])
         history.append(host)
         emit({"phase": "train", "step": host})
     launches = counters.snapshot()
     timed = [h["ms"] for h in history[1:]]
     step_ms = statistics.median(timed)
+    want = {k: 0 for k in counters.COUNTS}
+    want.update(fused_quant_matmul=(1 + steps) * per_step,
+                block_quantize=(1 + steps) * leaves)
     info = {"phase": "train", "arch": full.name, "n_layers": n_layers,
             "step_ms_median": step_ms, "step_ms": timed,
             "tokens_per_s": batch * seq / (step_ms / 1e3),
             "setup_s": setup_s,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
             "k1_launches_per_step_expected": per_step,
-            "launches": launches}
+            "probe_leaves": leaves, "launches": launches,
+            "expected_launches": want}
     emit(info)
     for h in history:
-        if h["k1_launches"] != per_step:
-            raise AssertionError(f"step {h['step']}: {h['k1_launches']} K1 "
-                                 f"launches, expected {per_step}")
+        if h["k1_launches"] != per_step or h["k2_launches"] != leaves:
+            raise AssertionError(
+                f"step {h['step']}: {h['k1_launches']} K1 and "
+                f"{h['k2_launches']} K2 launches, expected {per_step} and "
+                f"{leaves}")
         if not all(math.isfinite(h[k]) for k in ("loss", "grad_norm", "gnr")):
             raise AssertionError(f"non-finite metrics at step {h['step']}")
-    if launches["fused_quant_matmul"] != (1 + steps) * per_step or any(
-            v for k, v in launches.items() if k != "fused_quant_matmul"):
-        raise AssertionError(f"launch counts {launches}")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
     info["breakdown"] = train_breakdown(train_step, state, data, 1 + steps,
                                         dev)
+    b = {"tokens": torch.from_numpy(data.batch(2 + steps)["tokens"]).to(dev)}
+    info["probe"] = probe_check(state.params, cfg, qcfg, b, 2 + steps,
+                                probe_spec)
     return info
+
+
+def probe_spec_of(tcfg):
+    """The sigma_q probe's spec (train/step.py: NVFP4-SR unless given)."""
+    from repro_torch.core.quantize import NVFP4
+    return tcfg.sigma_spec or NVFP4.with_rounding(True)
+
+
+def probe_leaf_ids(tree, spec) -> list:
+    """Indices of the sigma_q probe's leaves, by its own rule
+    (train/step.py:_estimate_sigma_q): the reference's leaves, per-layer
+    ones stacked, of >= 2 dims with a last axis that is a multiple of the
+    block."""
+    from repro_torch.train import step as step_mod
+    return [i for i, (group, stacked) in enumerate(
+        step_mod._reference_leaves(tree))
+        if group[0].ndim + int(stacked) >= 2
+        and group[0].shape[-1] % spec.block == 0]
+
+
+def probe_check(params, cfg, qcfg, batch, step, spec) -> dict:
+    """The sigma_q probe at full width on one step's gradients: every
+    leaf through core/quantize.py's K2 route against K2's plain version on
+    the card, given the same counter (probe seed, K, 1) and tensor scale,
+    codes and scales bit for bit; sigma_q from both, and from the probe
+    itself, equal."""
+    import torch
+    from repro_torch.core import quantize as cq
+    from repro_torch.kernels import nvfp4_quant as nq
+    from repro_torch.train import step as step_mod
+    _, _, grads = step_mod.loss_and_grads(
+        params, cfg, qcfg, batch, seed=step_mod.step_seed(step), remat=True)
+    sums, den, rows, bad = {}, 0.0, [], []
+    with torch.no_grad():
+        groups = step_mod._reference_leaves(grads)
+        for i in probe_leaf_ids(grads, spec):
+            group, stacked = groups[i]
+            g32 = (torch.stack(group) if stacked else group[0]).to(
+                torch.float32)
+            seed, K = step_mod.probe_seed(step, i), g32.shape[-1]
+            got = cq.block_quantize(g32, spec, axis=-1, seed=seed)
+            ts = cq._tensor_scale(torch.amax(torch.abs(g32)), spec)
+            codes, scales = nq.block_quantize_plain(
+                g32.reshape(-1, K), spec, tscale=ts, counter=(seed, K, 1))
+            want = cq.QuantizedTensor(
+                codes.reshape(g32.shape),
+                scales.reshape(got.scales.shape).to(g32.dtype), ts,
+                got.axis, got.block)
+            r = {"leaf": i, "shape": list(g32.shape),
+                 "codes": compare_bits(got.codes, want.codes)["ok"],
+                 "scales": compare_bits(got.scales, want.scales)["ok"],
+                 "tscale": bool(torch.equal(got.tscale, want.tscale))}
+            rows.append(r)
+            if not (r["codes"] and r["scales"] and r["tscale"]):
+                bad.append(i)
+            for name, q in (("k2", got), ("plain", want)):
+                sq = torch.sum(torch.square(q.dequant() - g32))
+                sums[name] = sq if name not in sums else sums[name] + sq
+            den += float(g32.numel())
+            del g32, got, want, codes, scales
+        sigma = {k: float(torch.sqrt(v / max(den, 1.0) + 1e-30))
+                 for k, v in sums.items()}
+        sigma["probe"] = float(step_mod._estimate_sigma_q(grads, step, spec))
+    ok = not bad and sigma["k2"] == sigma["plain"] == sigma["probe"]
+    out = {"phase": "train", "check": "sigma_q probe: K2 route vs plain, "
+           "bit for bit", "step": step, "leaves": rows, "values": den,
+           "sigma_q": sigma, "ok": ok}
+    emit(out)
+    if not ok:
+        raise AssertionError(f"probe check failed: leaves {bad}, {sigma}")
+    return out
 
 
 def phase_ops(dev) -> dict:
@@ -1410,6 +1565,12 @@ def phase_ops(dev) -> dict:
     return {"launches": launches}
 
 
+# K2's kernels (csrc/block_quantize.cu): the "vec" route's absmax pre-pass
+# and quantizer, the "scalar" route's quantizer
+K2_KERNELS = ("absmax_vec_kernel", "block_quantize_vec_kernel",
+              "block_quantize_scalar_kernel")
+
+
 def train_breakdown(train_step, state, data, step, dev) -> dict:
     """Device time by kernel and the device idle share of one profiled
     train step (torch.profiler)."""
@@ -1424,11 +1585,17 @@ def train_breakdown(train_step, state, data, step, dev) -> dict:
         float(metrics["loss"])
         torch.cuda.synchronize(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # K1's kernels: absmax, the operand quantizer and the GEMM (the only
-    # kernels of fp4_common.cuh and fp4_gemm.cuh a train step launches)
+    # K1's kernels: absmax, the operand quantizer and the GEMM (of
+    # fp4_common.cuh and fp4_gemm.cuh); K2's (the sigma_q probe), whose
+    # names may also hold "fp4::" in their argument types, apart
+    def k2(name):
+        return any(k in name for k in K2_KERNELS)
+
+    def k1(name):
+        return not k2(name) and ("fp4::" in name or "fp4gemm::" in name)
     out = {"profiled_step_wall_ms": wall_ms,
            **device_time(prof, wall_ms, top=20,
-                         groups={"k1_device_ms": ("fp4::", "fp4gemm::")})}
+                         groups={"k1_device_ms": k1, "k2_device_ms": k2})}
     emit({"phase": "train", "breakdown": out})
     return out
 
@@ -1565,6 +1732,7 @@ BREAKDOWNS = {
     "suffix": ("flash_attention_paged", "kv_combine_kernel"),
     "k6 decode": ("flash_attention_packed", "kv_split_kernel"),
     "k7 prefill": ("flash_attention", "flash_mma_kernel"),
+    "k2 4096^2 f32": ("block_quantize", "block_quantize_vec_kernel"),
 }
 
 
@@ -1574,6 +1742,7 @@ def breakdown_call(case, dev):
     from repro_torch.core.quantize import NVFP4
     from repro_torch.kernels import flash_attn as fa
     from repro_torch.kernels import fp4_matmul as fm
+    from repro_torch.kernels import nvfp4_quant as nq
     bf16 = torch.bfloat16
     if case in ("fwd 4096^3", "lm_head dX"):
         # K1's forward at 4096^3; the lm_head's dX, SR on its (4096, 32000)
@@ -1598,6 +1767,9 @@ def breakdown_call(case, dev):
     if case == "k7 prefill":               # the lockstep prefill
         q, k, v = k7_inputs(4, 64, 32, 32, 128, BF16_VALUED, dev)
         return lambda: fa.flash_attention(q, k, v, causal=True)
+    if case == "k2 4096^2 f32":   # the absmax pre-pass, then the quantizer
+        x = torch.randn((4096, 4096), generator=gen(dev, SEED), device=dev) * 3
+        return lambda: nq.block_quantize(x, NVFP4)
     args, window, _, _, _ = k5_time_inputs(case, dev)
     return lambda: fa.flash_attention_paged(*args, window=window)
 
@@ -1641,7 +1813,7 @@ K4_CROSS_M = (1, 4, 8, 16, 32, 64)
 def phase_times(dev) -> dict:
     import torch
     import torch.nn.functional as F
-    from repro_torch.core.quantize import NVFP4, kv_dequant
+    from repro_torch.core.quantize import NVFP4, _tensor_scale, kv_dequant
     from repro_torch.kernels import flash_attn as fa
     from repro_torch.kernels import fp4_matmul as fm
     from repro_torch.kernels import nvfp4_quant as nq
@@ -1786,14 +1958,36 @@ def phase_times(dev) -> dict:
         # K2 at (4096, 4096) f32, the forward spec (NVFP4 RtN, computed
         # tensor scale): x read once, f32 codes and scales written.  Its
         # f32 operations (~10 a value, 0.0025 ms at 67 TFLOP/s) lie far
-        # below the bytes; no single PyTorch call computes it.
+        # below the bytes; no single PyTorch call computes it.  Then the
+        # tensor scale given (no absmax pre-pass), bf16, and the sigma_q
+        # probe's largest leaf: the stacked MLP gradients (4 x 11008, 4096)
+        # f32, NVFP4-SR in counter mode, the scale given as core/quantize.py
+        # gives it, and RtN at that shape beside it.
         M = K = 4096
         x = torch.randn((M, K), generator=gen(dev, SEED), device=dev) * 3
-        record(nq.NAME, (M, K, "float32"),
-               lambda: nq.block_quantize(x, NVFP4),
-               lambda: nq.block_quantize_plain(x, NVFP4), None,
-               4 * M * K * 2 + 4 * M * K // 16, 0)
-        del x
+        xb = x.to(torch.bfloat16)
+        ts = torch.full((), 0.25, device=dev)
+        Mp, sr = 4 * 11008, NVFP4.with_rounding(True)
+        xp = torch.randn((Mp, K), generator=gen(dev, SEED), device=dev) * 1e-4
+        tsp = _tensor_scale(torch.amax(torch.abs(xp)), sr)
+        ctr = (SEED + 7, K, 1)
+        for case, args, kw, reps in (
+                ((M, K, "float32"), (x, NVFP4), {}, 20),
+                ((M, K, "float32", "given tscale"), (x, NVFP4),
+                 dict(tscale=ts), 20),
+                ((M, K, "bfloat16"), (xb, NVFP4), {}, 20),
+                ((Mp, K, "float32", "nvfp4 sr counter"), (xp, sr),
+                 dict(tscale=tsp, counter=ctr), 5),
+                ((Mp, K, "float32", "nvfp4 rtn"), (xp, NVFP4),
+                 dict(tscale=tsp), 5)):
+            t = args[0]
+            record(nq.NAME, case,
+                   lambda: nq.block_quantize(*args, **kw),
+                   lambda: nq.block_quantize_plain(*args, **kw), None,
+                   2 * t.numel() * t.element_size() + 4 * t.numel() // 16,
+                   0, reps=reps,
+                   route=nq.k2_route(16, t.dtype, t.data_ptr() % 16 == 0))
+        del x, xb, xp
         # K3 at 4096^3 on f32 codes; the yardstick is torch.matmul on the
         # bf16-dequantized operands
         ac, asc, bc, bsc, ts = k3_inputs(M, K, K, torch.float32, dev)
@@ -1816,8 +2010,9 @@ def phase_times(dev) -> dict:
 
 
 # the representative case of each kernel in the summary line: the launch the
-# main path makes most often (K2, K3: the unfused GEMM's square shape, K2 on
-# f32; K4: decode, wq/wk/wv/wo; K5: run A's decode;
+# main path makes most often (K3: the unfused GEMM's square shape; K2: that
+# shape on f32, the case every PR has timed; K4: decode, wq/wk/wv/wo; K5:
+# run A's decode;
 # K6: decode at the middle of the run; K7: prefill, f32 operands holding
 # bf16 values as _attn_prefill passes them)
 SUMMARY = {
@@ -1878,14 +2073,14 @@ def main(argv=None) -> int:
     if set(PHASES) - {"env"} <= set(phases):
         # each kernel's launches on the main path that runs it: K4, K6, K7
         # in the lockstep serve, K5 over runs A and B of the continuous
-        # engine, K1 in training, K2 and K3 in the unfused GEMMs of ops
+        # engine, K1 and K2 (the sigma_q probe) in training, K3 in the
+        # unfused GEMMs of ops
         launches = dict(results["serve"]["launches"])
         launches["flash_attention_paged"] = \
             results["serve_continuous"]["launches"]["flash_attention_paged"]
-        launches["fused_quant_matmul"] = \
-            results["train"]["launches"]["fused_quant_matmul"]
-        for name in ("block_quantize", "block_matmul"):
-            launches[name] = results["ops"]["launches"][name]
+        for name in ("fused_quant_matmul", "block_quantize"):
+            launches[name] = results["train"]["launches"][name]
+        launches["block_matmul"] = results["ops"]["launches"]["block_matmul"]
         line = []
         for name, (case, route, src, replaces) in SUMMARY.items():
             row = results["times"][(name, case)]

@@ -102,8 +102,16 @@ def block_quantize(x: torch.Tensor, spec: BlockQuantSpec, *, axis: int = -1,
                    seed: Optional[int] = None) -> QuantizedTensor:
     """Quantize x to (codes, scales, tscale) along ``axis``.  SR takes
     uniforms ``u`` of x's shape, or draws them from ``counter_bits(seed)``
-    (threefry keys of the reference are not reproducible here)."""
+    (threefry keys of the reference are not reproducible here).
+
+    A bf16 or f32 CUDA tensor blocked along its last axis, RtN or SR from
+    ``seed``, goes through K2 (``kernels/nvfp4_quant.block_quantize``) on
+    its 2-D reshape, the SR bits hashed in the kernel in counter mode: the
+    same codes, scales and tensor scale bit for bit, without drawing the
+    bits tensor.  Everything else is the torch code below."""
     axis = axis % x.ndim
+    if _takes_k2(x, spec, axis, u, seed):
+        return _block_quantize_k2(x, spec, seed)
     orig_dtype = x.dtype
     xf = x.to(torch.float32)
     xb = _blocked(xf, axis, spec.block)
@@ -127,6 +135,37 @@ def block_quantize(x: torch.Tensor, spec: BlockQuantSpec, *, axis: int = -1,
     codes = codes.reshape(x.shape).to(orig_dtype)
     return QuantizedTensor(codes=codes, scales=scales.to(orig_dtype),
                            tscale=tscale, axis=axis, block=spec.block)
+
+
+def _takes_k2(x: torch.Tensor, spec: BlockQuantSpec, axis: int,
+              u: Optional[torch.Tensor], seed: Optional[int]) -> bool:
+    """``block_quantize`` runs K2: a bf16 or f32 CUDA tensor blocked along
+    its last axis (``axis`` already taken mod ndim), RtN or SR from a seed
+    (K2 takes bits, not uniforms)."""
+    return (x.device.type == "cuda" and axis == x.ndim - 1 and u is None
+            and x.dtype in (torch.float32, torch.bfloat16)
+            and (not spec.stochastic or seed is not None))
+
+
+def _block_quantize_k2(x: torch.Tensor, spec: BlockQuantSpec,
+                       seed: Optional[int]) -> QuantizedTensor:
+    """``block_quantize`` along the last axis of a CUDA tensor through K2:
+    the tensor scale as the torch code computes it (|x| and its max are
+    exact in bf16, so no f32 copy is made), then K2 on the (-1, K) reshape
+    with that scale given and, for SR, counter (seed, K, 1), which names
+    ``counter_bits(seed, x.shape)``'s flat indices."""
+    from repro_torch.kernels import nvfp4_quant    # the kernels import us
+    K = x.shape[-1]
+    tscale = _tensor_scale(torch.amax(torch.abs(x)), spec)
+    counter = ((int(seed) & formats.M32, K, 1) if spec.stochastic
+               else None)
+    codes, scales = nvfp4_quant.block_quantize(
+        x.contiguous().reshape(-1, K), spec, tscale=tscale, counter=counter)
+    return QuantizedTensor(
+        codes=codes.reshape(x.shape),
+        scales=scales.reshape(tuple(x.shape[:-1]) + (K // spec.block,)
+                              ).to(x.dtype),
+        tscale=tscale, axis=x.ndim - 1, block=spec.block)
 
 
 def fake_quant(x: torch.Tensor, spec: BlockQuantSpec, *, axis: int = -1,

@@ -31,13 +31,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core import formats
 from repro_torch.core.quantize import (NVFP4, BlockQuantSpec,
                                        PackedQuantizedTensor, _tensor_scale)
 from repro_torch.kernels import common as c
 from repro_torch.kernels import counters
-from repro_torch.kernels.nvfp4_quant import (_QuantParams, quant_blocks,
-                                             rbits_ptr)
+from repro_torch.kernels.nvfp4_quant import (Counter, _QuantParams, _SrBits,
+                                             counter_rbits, quant_blocks,
+                                             rbits_ptr, sr_source)
 
 NAME = "packed_block_matmul"
 FUSED_NAME = "fused_quant_matmul"
@@ -255,22 +255,9 @@ def packed_matmul(a: torch.Tensor, w: PackedQuantizedTensor,
 
 
 # ---- K1: fused_quant_matmul ------------------------------------------------------
-
-# K1's counter mode for one SR operand: (seed32, row_stride, col_stride).
-# Element (r, c) takes formats.counter_bits(seed32) at the flat index
-# r * row_stride + c * col_stride (mod 2^32): (cols, 1) is the operand's own
-# counter_bits stream, (1, rows) that of its transpose.
-Counter = Tuple[int, int, int]
-
-
-def counter_rbits(shape, counter: Counter, device=None) -> torch.Tensor:
-    """The bits K1's counter mode hashes for an operand of ``shape``
-    (int32 holding the uint32 patterns)."""
-    seed, rs, cs = counter
-    R, C = shape
-    idx = (torch.arange(R, dtype=torch.int64, device=device)[:, None] * rs
-           + torch.arange(C, dtype=torch.int64, device=device)[None, :] * cs)
-    return formats.counter_bits_at(seed, idx & formats.M32)
+#
+# An SR operand's ``Counter`` and ``counter_rbits`` live in nvfp4_quant.py:
+# K2 takes the same counter mode.
 
 
 def bf16_exact(spec: BlockQuantSpec) -> bool:
@@ -311,13 +298,6 @@ def fused_quant_matmul_plain(a: torch.Tensor, b: torch.Tensor,
     ad, tsa = _quantized_operand(a, spec_a, a_rbits, along_rows=False)
     bd, tsb = _quantized_operand(b, spec_b, b_rbits, along_rows=True)
     return (torch.matmul(ad, bd) * (tsa * tsb)).to(out_dtype)
-
-
-class _SrBits(ctypes.Structure):
-    """``fp4::SrBits`` of csrc/fp4_common.cuh: one operand's SR source."""
-    _fields_ = [("rbits", _P), ("seed", ctypes.c_uint32),
-                ("row_stride", ctypes.c_uint32),
-                ("col_stride", ctypes.c_uint32), ("counter", _I)]
 
 
 def _fused_lib():
@@ -398,17 +378,9 @@ def fused_quant_matmul(a: torch.Tensor, b: torch.Tensor,
     core = k1_route(spec_a, spec_b) == "core"
     if core and K % 8:
         raise ValueError(f"K={K}: the tensor-core route needs K % 8 == 0")
-    srcs = []
-    for name, spec, rb, ctr in (("a", spec_a, a_rbits, a_counter),
-                                ("b", spec_b, b_rbits, b_counter)):
-        if not spec.stochastic:
-            srcs.append(_SrBits(None, 0, 0, 0, 0))
-        elif ctr is not None:
-            seed, rs, cs = (int(v) & formats.M32 for v in ctr)
-            srcs.append(_SrBits(None, seed, rs, cs, 1))
-        else:
-            srcs.append(_SrBits(rbits_ptr(f"{name}_rbits", rb, dev), 0, 0,
-                                0, 0))
+    srcs = [sr_source(f"{name}_rbits", spec, rb, ctr, dev)
+            for name, spec, rb, ctr in (("a", spec_a, a_rbits, a_counter),
+                                        ("b", spec_b, b_rbits, b_counter))]
     ws_amax = torch.empty(2, dtype=torch.int32, device=dev)
     ws_ts = torch.empty(2, dtype=torch.float32, device=dev)
     if core:     # bf16 A' (M, K) and B' transposed to (N, K)
