@@ -44,13 +44,22 @@ Phases, each printing JSON lines; any failure exits non-zero:
            alignment, which take "scalar"), SR in counter mode and as bits.
   serve    the lockstep Engine serving llama2-7b at full width from packed
            NVFP4 weights (random, seeded) with an nvfp4 KV cache: batch 4,
-           prompt 64, 32 new tokens, greedy.  The launch counts are zeroed
-           just before and read just after; every kernel of the path must
-           have run the expected number of times.  Outputs are checked for
-           range and finiteness, and the same Engine at smoke size on the
-           card is held to the plain versions on the CPU.  The breakdown
-           reports device ms by kernel group (K4-K7) per decode step and
-           for one prefill (profiler).
+           prompt 64, 32 new tokens, greedy.  The main path replays its two
+           programs as CUDA graphs (serve/graphs.py; two warm-up generates
+           capture them); the same prompts then run through an eager
+           engine (``cuda_graphs=False``), and both streams must be equal
+           token for token.  The launch counts are zeroed just before and
+           read just after each side's run (a replay counts the launches
+           its capture recorded); every kernel of the path must have run
+           the expected number of times on both sides.  Outputs are checked
+           for range and finiteness, and the same graphed Engine at smoke
+           size on the card, over two generates, is held to the plain
+           versions on the CPU.  The breakdowns report the replayed
+           prefill and decode-step ms (CUDA events), the idle share of a
+           profiled graphed generate, and, on the eager side, device ms by
+           kernel group (K4-K7) per decode step and for one prefill
+           (profiler); captures and their seconds and peak memory
+           (allocated and reserved) on both sides.
   serve_continuous
            the ContinuousEngine: (a) at smoke size on the card held to the
            same engine on the CPU's plain versions (prefix cache + chunked
@@ -59,10 +68,17 @@ Phases, each printing JSON lines; any failure exits non-zero:
            KV pool, as two runs of 16 requests (2 arriving per tick, 32
            new tokens each, greedy, no EOS): run A with the shared-prefix
            cache and 64-token chunked prefill, run B with cold prefills
-           (K7) and speculative verify-k (k = 4, 16-layer draft).  The
-           launch counts are zeroed just before each run and must equal
-           the counts derived from the engine's program calls, which in
-           turn must agree with the scheduler's own records.
+           (K7) and speculative verify-k (k = 4, 16-layer draft).  Each run
+           goes through an engine whose five programs replay as CUDA graphs
+           (the main path) and through an eager one; the streams must be
+           equal token for token.  On both sides the launch counts are
+           zeroed just before the run and must equal the counts derived
+           from the engine's program calls, which in turn must agree with
+           the scheduler's own records, and the five ``*_compiles`` must
+           equal those of the CPU engine (smoke size) on the same trace.
+           The smoke-size check runs each engine twice (the second run on
+           the carry reset in place, or on its warm prefix cache) and
+           holds the compile counts too.
   train    one llama2-60m smoke train step (nvfp4_paper_config) on the
            card held to the same step on the CPU's plain versions (loss,
            per-leaf grads, parameter updates), the SR streams held bit for
@@ -763,6 +779,33 @@ def _first_divergence_ok(got, want, margins, tol=0.02):
     return len(got) == len(want), None
 
 
+def program_captures(eng) -> dict:
+    """{program: {"signatures", "captures", "capture_s"}} of an engine's
+    serving programs (serve/graphs.py)."""
+    return {n: {"signatures": p.cache_size, "captures": p.captures,
+                "capture_s": p.capture_s} for n, p in eng.programs.items()}
+
+
+def start_mark(dev) -> dict:
+    """Device memory when a measured run starts (the peaks are reset here):
+    the other engines alive in the process hold some of it."""
+    import torch
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    return {"start_mem_bytes": torch.cuda.memory_allocated(dev),
+            "start_reserved_bytes": torch.cuda.memory_reserved(dev)}
+
+
+def memory_mark(dev) -> dict:
+    """Peak device memory since the last reset: allocated (what the caching
+    allocator handed out) and reserved (what it holds, graph pools
+    included: a replay's intermediates live there without being
+    allocated)."""
+    import torch
+    return {"peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(dev)}
+
+
 def phase_serve(dev, batch=4, prompt_len=64, max_new=32, max_len=256):
     import numpy as np
     import torch
@@ -772,7 +815,9 @@ def phase_serve(dev, batch=4, prompt_len=64, max_new=32, max_len=256):
     from repro_torch.serve import Engine, ServeConfig
     from repro_torch.serve.packing import weight_store_bytes
 
-    # (a) the same Engine at smoke size: card (kernels) vs CPU (plain)
+    # (a) the same Engine at smoke size: card (kernels, CUDA graphs) vs CPU
+    # (plain); two generates, so the second replays the captured prefill
+    # and both replay the decode step
     small = get_config("llama2-7b").smoke()
     p_cpu = registry.init_params(small, seed=SEED, device="cpu")
     rng = np.random.default_rng(SEED)
@@ -781,25 +826,32 @@ def phase_serve(dev, batch=4, prompt_len=64, max_new=32, max_len=256):
     ref = Engine(small, p_cpu, scfg, device="cpu")
     out_ref = ref.generate(prompts, max_new=16)
     eng_s = Engine(small, p_cpu, scfg, device=dev)
-    out_card = eng_s.generate(prompts, max_new=16)
-    small_checks = [_first_divergence_ok(a.tolist(), b.tolist(), m)
-                    for a, b, m in zip(out_card, out_ref, ref.margins)]
-    agree = float(np.mean([np.mean(a == b) for a, b in
-                           zip(out_card, out_ref)]))
-    emit({"phase": "serve", "check": "smoke-size card vs CPU plain",
-          "arch": small.name, "streams_ok": [c[0] for c in small_checks],
-          "first_divergence": [c[1] for c in small_checks],
-          "token_agreement": agree})
-    if not all(c[0] for c in small_checks):
-        raise AssertionError("card and CPU streams differ at a decisive step")
+    for rep in range(2):
+        out_card = eng_s.generate(prompts, max_new=16)
+        small_checks = [_first_divergence_ok(a.tolist(), b.tolist(), m)
+                        for a, b, m in zip(out_card, out_ref, ref.margins)]
+        agree = float(np.mean([np.mean(a == b) for a, b in
+                               zip(out_card, out_ref)]))
+        emit({"phase": "serve", "check": "smoke-size card (graphs) vs CPU "
+              "plain", "generate": rep, "arch": small.name,
+              "streams_ok": [c[0] for c in small_checks],
+              "first_divergence": [c[1] for c in small_checks],
+              "token_agreement": agree,
+              "programs": program_captures(eng_s)})
+        if not all(c[0] for c in small_checks):
+            raise AssertionError("card and CPU streams differ at a decisive "
+                                 "step")
 
-    # (b) llama2-7b at full width
+    # (b) llama2-7b at full width: the graphed engine (the main path) and
+    # the same prompts through an eager one
     cfg = get_config("llama2-7b")
     t0 = time.perf_counter()
     params = registry.init_params(cfg, seed=SEED, device=dev)
-    eng = Engine(cfg, params, ServeConfig(batch_size=batch, max_len=max_len,
-                                          kv_cache_format="nvfp4"),
-                 device=dev)
+    scfg = ServeConfig(batch_size=batch, max_len=max_len,
+                       kv_cache_format="nvfp4")
+    engines = {"graphs": Engine(cfg, params, scfg, device=dev),
+               "eager": Engine(cfg, params, scfg, device=dev,
+                               cuda_graphs=False)}
     del params
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
@@ -807,43 +859,108 @@ def phase_serve(dev, batch=4, prompt_len=64, max_new=32, max_len=256):
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, prompt_len)
                for _ in range(batch)]
-    eng.generate(prompts, max_new=2)                 # warm-up, not counted
+    # warm-up, not counted: the graphed engine's first generate runs each
+    # program eagerly once and captures the decode step, its second
+    # captures the prefill; after that every call replays
+    for side, eng in engines.items():
+        for _ in range(2 if side == "graphs" else 1):
+            eng.generate(prompts, max_new=2)
     torch.cuda.synchronize(dev)
-    counters.reset()
-    t0 = time.perf_counter()
-    out = eng.generate(prompts, max_new=max_new)
-    torch.cuda.synchronize(dev)
-    dt = time.perf_counter() - t0
-    launches = counters.snapshot()
-    steps = eng.steps
     gemms = 7 * cfg.n_layers + 1          # q k v o gate up down, + lm_head
-    want = {"fused_quant_matmul": 0, "block_quantize": 0, "block_matmul": 0,
-            "packed_block_matmul": gemms * (1 + steps),
-            "flash_attention_paged": 0,
-            "flash_attention": cfg.n_layers,
-            "flash_attention_packed": cfg.n_layers * steps}
-    ntok = sum(len(o) for o in out)
-    margins = np.asarray(eng.margins)
-    info = {"phase": "serve", "arch": cfg.name, "batch": batch,
-            "prompt_len": prompt_len, "max_new": max_new,
-            "kv_cache_format": "nvfp4", "decode_steps": steps,
-            "tokens": ntok, "seconds": dt, "tokens_per_s": ntok / dt,
-            "setup_s": setup_s,
-            "weight_store_bytes": weight_store_bytes(eng.params),
-            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
-            "first_tokens": [o[:8].tolist() for o in out],
-            "launches": launches, "expected_launches": want}
-    emit(info)
-    if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
-    if len(out) != batch or any(len(o) != steps for o in out):
-        raise AssertionError("wrong output shape")
-    if any(((o < 0) | (o >= cfg.vocab_size)).any() for o in out):
-        raise AssertionError("token id outside the vocabulary")
-    if not np.isfinite(margins).all():
-        raise AssertionError("non-finite logits")
-    info["breakdown"] = serve_breakdown(eng, prompts, dev)
+    sides, outs = {}, {}
+    for side, eng in engines.items():
+        start = start_mark(dev)
+        counters.reset()
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, max_new=max_new)
+        torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        launches = counters.snapshot()
+        steps = eng.steps
+        want = {"fused_quant_matmul": 0, "block_quantize": 0,
+                "block_matmul": 0,
+                "packed_block_matmul": gemms * (1 + steps),
+                "flash_attention_paged": 0,
+                "flash_attention": cfg.n_layers,
+                "flash_attention_packed": cfg.n_layers * steps}
+        ntok = sum(len(o) for o in out)
+        margins = np.asarray(eng.margins)
+        info = {"phase": "serve", "side": side, "arch": cfg.name,
+                "batch": batch, "prompt_len": prompt_len,
+                "max_new": max_new, "kv_cache_format": "nvfp4",
+                "decode_steps": steps, "tokens": ntok, "seconds": dt,
+                "tokens_per_s": ntok / dt, "setup_s": setup_s,
+                "weight_store_bytes": weight_store_bytes(eng.params),
+                **start, **memory_mark(dev),
+                "first_tokens": [o[:8].tolist() for o in out],
+                "programs": program_captures(eng),
+                "launches": launches, "expected_launches": want}
+        emit(info)
+        if launches != want:
+            raise AssertionError(f"{side}: launch counts {launches} != "
+                                 f"{want}")
+        if len(out) != batch or any(len(o) != steps for o in out):
+            raise AssertionError("wrong output shape")
+        if any(((o < 0) | (o >= cfg.vocab_size)).any() for o in out):
+            raise AssertionError("token id outside the vocabulary")
+        if not np.isfinite(margins).all():
+            raise AssertionError("non-finite logits")
+        sides[side], outs[side] = info, (out, margins)
+    same = all(np.array_equal(a, b) for a, b in zip(outs["graphs"][0],
+                                                    outs["eager"][0]))
+    margin_diff = float(np.max(np.abs(outs["graphs"][1] - outs["eager"][1])))
+    emit({"phase": "serve", "check": "graphs vs eager at full width",
+          "streams_equal": same, "max_abs_margin_diff": margin_diff})
+    if not same:
+        raise AssertionError("graphed and eager streams differ")
+    info = dict(sides["graphs"])
+    info["eager"] = sides["eager"]
+    info["streams_equal"], info["max_abs_margin_diff"] = same, margin_diff
+    info["graph_breakdown"] = graph_breakdown(engines["graphs"], prompts,
+                                              dev)
+    info["breakdown"] = serve_breakdown(engines["eager"], prompts, dev)
     return info
+
+
+def graph_breakdown(eng, prompts, dev, steps=8) -> dict:
+    """The graphed engine's programs replayed on their own: prefill and
+    decode-step times (CUDA events around each replay), and one profiled
+    generate's device time by kernel and idle share."""
+    import numpy as np
+    import torch
+    from repro_torch.models import registry
+    toks = torch.from_numpy(np.stack(prompts).astype(np.int64)).to(dev)
+    registry.reset_decode_state(eng._carry)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 + steps)]
+    prefill, decode = eng.programs["prefill"], eng.programs["decode"]
+    captures = (prefill.captures, decode.captures)
+    ev[0].record()
+    logits = prefill(toks)
+    ev[1].record()
+    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+    done = torch.zeros((toks.shape[0],), dtype=torch.bool, device=dev)
+    for i in range(steps):
+        _, done, nxt, _ = decode(nxt, done)
+        ev[2 + i].record()
+    torch.cuda.synchronize(dev)
+    if (prefill.captures, decode.captures) != captures:
+        raise AssertionError("a replay of a seen signature captured anew")
+    decode_ms = [ev[1 + i].elapsed_time(ev[2 + i]) for i in range(steps)]
+    out = {"prefill_ms": ev[0].elapsed_time(ev[1]),
+           "decode_step_ms": statistics.median(decode_ms)}
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.generate(prompts, max_new=steps)
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out.update({"profiled_generate_new_tokens": steps,
+                "profiled_wall_ms": wall_ms,
+                **device_time(prof, wall_ms, top=12, groups=SERVE_GROUPS)})
+    emit({"phase": "serve", "graph_breakdown": out})
+    return out
 
 
 # device kernels of K4 (its quantizer, GEMV, pre-pass, f32 tiles and the
@@ -1032,7 +1149,17 @@ def continuous_requests(vocab, n=16, shared=128, lens=(64, 192), max_new=32,
     ).astype(np.int32), max_new=max_new, arrival=i // 2) for i in range(n)]
 
 
+COMPILES = ("prefill_compiles", "prefill_suffix_compiles", "chunk_compiles",
+            "decode_compiles", "verify_compiles")
+
+
+def compiles(eng) -> dict:
+    """A ContinuousEngine's compile counts (distinct signatures a program)."""
+    return {c: getattr(eng, c) for c in COMPILES}
+
+
 def phase_serve_continuous(dev) -> dict:
+    import gc
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1040,7 +1167,9 @@ def phase_serve_continuous(dev) -> dict:
     from repro_torch.models import registry
     from repro_torch.serve import ContinuousEngine, ServeConfig
 
-    # (a) the same ContinuousEngine at smoke size: card (kernels) vs CPU
+    # (a) the same ContinuousEngine at smoke size: card (kernels, CUDA
+    # graphs) vs CPU, two runs on each engine (the second on the carry the
+    # first left, reset in place, or with its warm prefix cache)
     small = get_config("llama2-7b").smoke()
     p_cpu = registry.init_params(small, seed=SEED, device="cpu")
     for label, extra, shared in (
@@ -1052,30 +1181,39 @@ def phase_serve_continuous(dev) -> dict:
         reqs = continuous_requests(small.vocab_size, n=6, shared=shared,
                                    lens=(8, 40), max_new=12)
         ref = ContinuousEngine(small, p_cpu, scfg, device="cpu")
-        want = ref.run(reqs)
-        card = ContinuousEngine(small, p_cpu, scfg, device=dev).run(reqs)
-        checks = {r: _first_divergence_ok(card[r].tolist(), want[r].tolist(),
-                                          ref.margins[r]) for r in want}
-        emit({"phase": "serve_continuous", "check": "smoke-size card vs CPU "
-              "plain", "case": label, "arch": small.name,
-              "streams_ok": [c[0] for c in checks.values()],
-              "first_divergence": [c[1] for c in checks.values()]})
-        if sorted(card) != sorted(want) or \
-                not all(c[0] for c in checks.values()):
-            raise AssertionError(f"{label}: card and CPU streams differ at a "
-                                 f"decisive step")
+        eng = ContinuousEngine(small, p_cpu, scfg, device=dev)
+        for rep in range(2):
+            want = ref.run(reqs)
+            card = eng.run(reqs)
+            checks = {r: _first_divergence_ok(card[r].tolist(),
+                                              want[r].tolist(),
+                                              ref.margins[r]) for r in want}
+            emit({"phase": "serve_continuous", "check": "smoke-size card "
+                  "(graphs) vs CPU plain", "case": label, "run": rep,
+                  "arch": small.name,
+                  "streams_ok": [c[0] for c in checks.values()],
+                  "first_divergence": [c[1] for c in checks.values()],
+                  "compiles_card": compiles(eng), "compiles_cpu": compiles(ref),
+                  "programs": program_captures(eng)})
+            if sorted(card) != sorted(want) or \
+                    not all(c[0] for c in checks.values()):
+                raise AssertionError(f"{label}: card and CPU streams differ "
+                                     f"at a decisive step")
+            if compiles(eng) != compiles(ref):
+                raise AssertionError(f"{label}: compile counts differ")
 
-    # (b) llama2-7b at full width and depth
+    # (b) llama2-7b at full width and depth: runs A and B through graphed
+    # engines (the main path) and the same traces through eager ones
     cfg = get_config("llama2-7b")
     t0 = time.perf_counter()
     params = registry.init_params(cfg, seed=SEED, device=dev)
     base = dict(max_slots=8, max_len=512, page_size=16,
                 kv_cache_format="nvfp4", decode_chunk=8, eos_id=-1)
-    engines = {
-        "A": ContinuousEngine(cfg, params, ServeConfig(
-            **base, prefix_cache=True, prefill_chunk=64), device=dev),
-        "B": ContinuousEngine(cfg, params, ServeConfig(**base, spec_k=4),
-                              device=dev)}
+    configs = {"A": ServeConfig(**base, prefix_cache=True, prefill_chunk=64),
+               "B": ServeConfig(**base, spec_k=4)}
+    engines = {(name, side): ContinuousEngine(
+        cfg, params, sc, device=dev, cuda_graphs=side == "graphs")
+        for name, sc in configs.items() for side in ("graphs", "eager")}
     del params
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
@@ -1084,97 +1222,145 @@ def phase_serve_continuous(dev) -> dict:
             "B": continuous_requests(cfg.vocab_size, shared=0)}
     out = {"setup_s": setup_s, "launches": {k: 0 for k in counters.COUNTS}}
     for name in ("A", "B"):
-        eng = engines.pop(name)
         reqs = runs[name]
-        log = ProgramLog(eng)
-        torch.cuda.reset_peak_memory_stats(dev)
-        counters.reset()
+        # the compile counts of the CPU engine on the same trace (smoke
+        # size: the token ids taken modulo its vocabulary; lengths,
+        # arrivals and so every signature are the trace's own)
         t0 = time.perf_counter()
-        res = eng.run(reqs)
-        torch.cuda.synchronize(dev)
-        dt = time.perf_counter() - t0
-        launches = counters.snapshot()
-        calls = dict(log.calls)
-        sched, st = eng.scheduler, eng.scheduler.stats
-        want = expected_launches(cfg, calls, eng.draft_layers,
-                                 eng.scfg.spec_k or 0)
-        # the program calls as the scheduler's records count them: every
-        # admission's last prefill chunk (or its whole prompt) is one suffix
-        # (A) or cold (B) prefill, the other logged chunks are chunk calls,
-        # and each tick adds its decode steps (A) or its one verify (B)
-        sched_calls = ({"_prefill_chunk": len(sched.prefill_log)
-                        - st["admitted"], "_prefill_suffix": st["admitted"],
-                        "_decode": st["decode_steps"]} if name == "A" else
-                       {"_prefill": st["admitted"],
-                        "_verify": st["decode_steps"]})
-        summary = eng.metrics.summary()
-        ntok = sum(len(v) for v in res.values())
-        margins = np.concatenate([eng.margins[r] for r in res])
-        toks = np.concatenate([res[r] for r in res])
-        prog_ms = log.ms()
-        info = {"phase": "serve_continuous", "run": name, "arch": cfg.name,
-                "config": {k: getattr(eng.scfg, k) for k in (
-                    "max_slots", "max_len", "page_size", "kv_cache_format",
-                    "decode_chunk", "prefix_cache", "prefill_chunk",
-                    "spec_k")}, "draft_layers": eng.draft_layers,
-                "requests": len(reqs), "completed": st["completed"],
-                "tokens": ntok, "seconds": dt, "tokens_per_s": ntok / dt,
-                "ticks": summary["ticks"],
-                "wall_ms_per_tick": dt * 1e3 / summary["ticks"],
-                "program_calls": calls,
-                "program_ms_median": {k: v[0] for k, v in prog_ms.items()},
-                "program_ms_total": {k: v[1] for k, v in prog_ms.items()},
-                "ttft_ticks": summary["ttft_ticks"],
-                "tpot_ticks": summary["tpot_ticks"],
-                "prefix_hit_rate": sched.prefix_hit_rate,
-                "prefix_tokens_skipped": st["prefix_tokens_skipped"],
-                "preemptions": st["preemptions"],
-                "spec_accepted_per_tick_slot":
-                    summary.get("spec_accepted_per_tick_slot"),
-                "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
-                "kv_pool_bytes": sum(c.nbytes() for c in eng._carry),
-                "launches": launches, "expected_launches": want,
-                "scheduler_calls": sched_calls,
-                "first_tokens": [res[r][:8].tolist() for r in sorted(res)[:4]]}
-        # the device idle share, from a second, shorter run (8 other
-        # requests) in which the profiler records 8 consecutive decode calls
-        # (a tick of run A) or one verify call (a tick of run B) once every
-        # request has arrived, and in run B also its third cold prefill
-        # (K7): the profiler's cost stays out of the numbers above
-        prog, first, n = ("_decode", 8, 8) if name == "A" else ("_verify", 4,
-                                                                 1)
-        log.profile = ((prog, calls[prog] + first, n),) + (
-            (("_prefill", calls["_prefill"] + 2, 1),) if name == "B" else ())
-        eng.run(continuous_requests(cfg.vocab_size, n=8,
-                                    shared=128 if name == "A" else 0,
-                                    max_new=16, seed=SEED + 1))
-        missing = [p[0] for p in log.profile if p[0] not in log.breakdown]
-        if missing:
-            raise AssertionError(f"run {name}: the profiled run made too few "
-                                 f"{missing} calls")
-        info["breakdown"] = log.breakdown[prog]
-        if name == "B":
-            info["prefill_breakdown"] = log.breakdown["_prefill"]
-        emit(info)
-        out[name] = info
-        for k, v in launches.items():
-            out["launches"][k] += v
-        if launches != want:
-            raise AssertionError(f"run {name}: launch counts {launches} != "
-                                 f"{want}")
-        if any(calls[k] != v for k, v in sched_calls.items()):
-            raise AssertionError(f"run {name}: program calls {calls} "
-                                 f"disagree with the scheduler {sched_calls}")
-        if sorted(res) != [r.rid for r in reqs] or \
-                any(len(v) != 32 for v in res.values()):
-            raise AssertionError(f"run {name}: wrong outputs")
-        if ((toks < 0) | (toks >= cfg.vocab_size)).any():
-            raise AssertionError("token id outside the vocabulary")
-        if not np.isfinite(margins).all():
-            raise AssertionError("non-finite logits")
-        del eng
-        torch.cuda.empty_cache()
+        cpu = ContinuousEngine(small, p_cpu, configs[name], device="cpu")
+        cpu.run([dataclasses.replace(r, prompt=r.prompt % small.vocab_size)
+                 for r in reqs])
+        cpu_compiles, cpu_s = compiles(cpu), time.perf_counter() - t0
+        streams = {}
+        for side in ("graphs", "eager"):
+            eng = engines.pop((name, side))
+            info, res, margins = continuous_run(eng, name, side, reqs, cfg,
+                                                dev)
+            info["cpu_compiles"], info["cpu_compiles_s"] = cpu_compiles, cpu_s
+            emit(info)
+            if info["compiles"] != cpu_compiles:
+                raise AssertionError(f"run {name} {side}: compile counts "
+                                     f"{info['compiles']} != the CPU "
+                                     f"engine's {cpu_compiles}")
+            streams[side] = (res, margins)
+            if side == "graphs":
+                out[name] = info
+                for k, v in info["launches"].items():
+                    out["launches"][k] += v
+            else:
+                out[name]["eager"] = info
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        (res_g, mg_g), (res_e, mg_e) = streams["graphs"], streams["eager"]
+        same = sorted(res_g) == sorted(res_e) and all(
+            np.array_equal(res_g[r], res_e[r]) for r in res_g)
+        margin_diff = max(float(np.max(np.abs(mg_g[r] - mg_e[r])))
+                          for r in res_g)
+        emit({"phase": "serve_continuous", "run": name,
+              "check": "graphs vs eager at full width",
+              "streams_equal": same, "max_abs_margin_diff": margin_diff})
+        out[name]["streams_equal"] = same
+        out[name]["max_abs_margin_diff"] = margin_diff
+        if not same:
+            raise AssertionError(f"run {name}: graphed and eager streams "
+                                 f"differ")
     return out
+
+
+def continuous_run(eng, name, side, reqs, cfg, dev):
+    """One timed run of a trace with its checks, then a shorter profiled
+    run for the idle share.  Returns (the run's record, its streams, its
+    greedy margins)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import counters
+    log = ProgramLog(eng)
+    start = start_mark(dev)
+    counters.reset()
+    t0 = time.perf_counter()
+    res = eng.run(reqs)
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    launches = counters.snapshot()
+    mem = memory_mark(dev)
+    calls = dict(log.calls)
+    sched, st = eng.scheduler, eng.scheduler.stats
+    want = expected_launches(cfg, calls, eng.draft_layers,
+                             eng.scfg.spec_k or 0)
+    # the program calls as the scheduler's records count them: every
+    # admission's last prefill chunk (or its whole prompt) is one suffix
+    # (A) or cold (B) prefill, the other logged chunks are chunk calls,
+    # and each tick adds its decode steps (A) or its one verify (B)
+    sched_calls = ({"_prefill_chunk": len(sched.prefill_log)
+                    - st["admitted"], "_prefill_suffix": st["admitted"],
+                    "_decode": st["decode_steps"]} if name == "A" else
+                   {"_prefill": st["admitted"],
+                    "_verify": st["decode_steps"]})
+    summary = eng.metrics.summary()
+    ntok = sum(len(v) for v in res.values())
+    run_margins = dict(eng.margins)
+    margins = np.concatenate([eng.margins[r] for r in res])
+    toks = np.concatenate([res[r] for r in res])
+    prog_ms = log.ms()
+    info = {"phase": "serve_continuous", "run": name, "side": side,
+            "arch": cfg.name,
+            "config": {k: getattr(eng.scfg, k) for k in (
+                "max_slots", "max_len", "page_size", "kv_cache_format",
+                "decode_chunk", "prefix_cache", "prefill_chunk",
+                "spec_k")}, "draft_layers": eng.draft_layers,
+            "requests": len(reqs), "completed": st["completed"],
+            "tokens": ntok, "seconds": dt, "tokens_per_s": ntok / dt,
+            "ticks": summary["ticks"],
+            "wall_ms_per_tick": dt * 1e3 / summary["ticks"],
+            "program_calls": calls,
+            "program_ms_median": {k: v[0] for k, v in prog_ms.items()},
+            "program_ms_total": {k: v[1] for k, v in prog_ms.items()},
+            "ttft_ticks": summary["ttft_ticks"],
+            "tpot_ticks": summary["tpot_ticks"],
+            "prefix_hit_rate": sched.prefix_hit_rate,
+            "prefix_tokens_skipped": st["prefix_tokens_skipped"],
+            "preemptions": st["preemptions"],
+            "spec_accepted_per_tick_slot":
+                summary.get("spec_accepted_per_tick_slot"),
+            **start, **mem,
+            "kv_pool_bytes": sum(c.nbytes() for c in eng._carry),
+            "compiles": compiles(eng), "programs": program_captures(eng),
+            "launches": launches, "expected_launches": want,
+            "scheduler_calls": sched_calls,
+            "first_tokens": [res[r][:8].tolist() for r in sorted(res)[:4]]}
+    # the device idle share, from a second, shorter run (8 other requests)
+    # in which the profiler records 8 consecutive decode calls (a tick of
+    # run A) or one verify call (a tick of run B) once every request has
+    # arrived, and in run B also its third cold prefill (K7): the
+    # profiler's cost stays out of the numbers above
+    prog, first, n = ("_decode", 8, 8) if name == "A" else ("_verify", 4, 1)
+    log.profile = ((prog, calls[prog] + first, n),) + (
+        (("_prefill", calls["_prefill"] + 2, 1),) if name == "B" else ())
+    eng.run(continuous_requests(cfg.vocab_size, n=8,
+                                shared=128 if name == "A" else 0,
+                                max_new=16, seed=SEED + 1))
+    missing = [p[0] for p in log.profile if p[0] not in log.breakdown]
+    if missing:
+        raise AssertionError(f"run {name} {side}: the profiled run made too "
+                             f"few {missing} calls")
+    info["breakdown"] = log.breakdown[prog]
+    if name == "B":
+        info["prefill_breakdown"] = log.breakdown["_prefill"]
+    if launches != want:
+        raise AssertionError(f"run {name} {side}: launch counts {launches} "
+                             f"!= {want}")
+    if any(calls[k] != v for k, v in sched_calls.items()):
+        raise AssertionError(f"run {name} {side}: program calls {calls} "
+                             f"disagree with the scheduler {sched_calls}")
+    if sorted(res) != [r.rid for r in reqs] or \
+            any(len(v) != 32 for v in res.values()):
+        raise AssertionError(f"run {name} {side}: wrong outputs")
+    if ((toks < 0) | (toks >= cfg.vocab_size)).any():
+        raise AssertionError("token id outside the vocabulary")
+    if not np.isfinite(margins).all():
+        raise AssertionError("non-finite logits")
+    return info, res, run_margins
 
 
 def device_time(prof, wall_ms, top=15, groups=None) -> dict:

@@ -337,6 +337,11 @@ class KVCache:
         return KVCache(z, torch.zeros_like(z),
                        torch.zeros((), dtype=torch.int32, device=device))
 
+    def reset(self) -> None:
+        """Back to ``init``'s state, in place."""
+        for t in (self.k, self.v, self.length):
+            t.zero_()
+
     @property
     def buf(self) -> int:
         return self.k.shape[1]
@@ -379,6 +384,13 @@ class PackedKVCache:
                              torch.zeros((), dtype=torch.int32, device=device),
                              fmt, block)
 
+    def reset(self) -> None:
+        """Back to ``init``'s state, in place."""
+        for t in (self.k_codes, self.v_codes, self.length):
+            t.zero_()
+        for t in (self.k_scales, self.v_scales):
+            t.fill_(1.0)
+
     @property
     def buf(self) -> int:
         return self.k_codes.shape[1]
@@ -414,6 +426,13 @@ def make_kv_cache(batch: int, buf: int, n_kv: int, hd: int,
 def _storage_view(t: torch.Tensor) -> torch.Tensor:
     """float8 storage as its bytes (a bit-preserving view for copies)."""
     return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def dyn_rows(start, n: int, device) -> torch.Tensor:
+    """int64 indices ``start + [0, n)``.  ``start`` is a host int or an
+    int32 device scalar: the start operand of ``lax.dynamic_slice``, so one
+    recorded program (a CUDA graph) serves every value."""
+    return torch.arange(n, dtype=torch.int64, device=device) + start
 
 
 # ---- paged (continuous-batching) KV cache -----------------------------------------
@@ -525,6 +544,16 @@ class PagedKVCache:
         return PagedKVCache(codes, scales, codes.clone(), scales.clone(),
                             page_table, lengths, fmt, block, page_size)
 
+    def reset(self) -> None:
+        """Back to ``init``'s state, in place: empty pools, every length 0
+        and every page-table row on the trash page (the shared table and
+        lengths too)."""
+        for t in (self.k_codes, self.v_codes, self.lengths):
+            t.zero_()
+        for t in (self.k_scales, self.v_scales):
+            t.fill_(1.0)
+        self.page_table.fill_(TRASH_PAGE)
+
     # ---- writes (in place) ------------------------------------------------
 
     def _scatter(self, phys: torch.Tensor, off: torch.Tensor,
@@ -538,32 +567,36 @@ class PagedKVCache:
                          (self.v_codes, vcod), (self.v_scales, vsc)):
             _storage_view(dst).index_put_(idx, _storage_view(src))
 
-    def write_prompt(self, slot: int, k: torch.Tensor, v: torch.Tensor,
+    def write_prompt(self, slot, k: torch.Tensor, v: torch.Tensor,
                      plen) -> "PagedKVCache":
         """Prefill-into-slot: write a fresh (1, Sp, KVH, D) sequence at
         logical positions [0, Sp) of ``slot`` and set its length to
-        ``plen`` (rows in [plen, Sp) are right-pad, masked at read)."""
+        ``plen`` (rows in [plen, Sp) are right-pad, masked at read).
+        ``slot`` and ``plen``: host ints or int32 device scalars."""
         if k.shape[1] > self.buf:
             raise ValueError(f"prefill length {k.shape[1]} exceeds slot "
                              f"capacity {self.buf}")
         return self.write_prompt_at(slot, k, v, 0, plen)
 
-    def write_prompt_at(self, slot: int, k: torch.Tensor, v: torch.Tensor,
-                        start: int, plen) -> "PagedKVCache":
+    def write_prompt_at(self, slot, k: torch.Tensor, v: torch.Tensor,
+                        start, plen) -> "PagedKVCache":
         """Suffix prefill: write a fresh (1, Sp, KVH, D) sequence at logical
         positions [start, start + Sp) of ``slot`` and set its length to
         ``plen`` (the TOTAL length).  Right-pad positions past the slot
-        buffer go to the trash page."""
-        Sp = k.shape[1]
-        t = torch.arange(start, start + Sp, dtype=torch.int32,
-                         device=k.device)
+        buffer go to the trash page.  ``slot``, ``start`` and ``plen``:
+        host ints or int32 device scalars (gathers and a select, never a
+        host read)."""
+        Sp, dev = k.shape[1], k.device
+        t = dyn_rows(start, Sp, dev).to(torch.int32)
         page = torch.clamp(t // self.page_size, 0,
                            self.page_table.shape[1] - 1)
-        phys = self.page_table[slot][page.to(torch.int64)]
+        row = self.page_table.index_select(0, dyn_rows(slot, 1, dev))[0]
+        phys = row[page.to(torch.int64)]
         phys = torch.where(t < self.buf, phys,
                            torch.full_like(phys, TRASH_PAGE))
         self._scatter(phys, t % self.page_size, k[0], v[0])
-        self.lengths[slot] = plen
+        mine = torch.arange(self.lengths.shape[0], device=dev) == slot
+        self.lengths.copy_(torch.where(mine, plen, self.lengths))
         return self
 
     def write_token(self, k: torch.Tensor, v: torch.Tensor,
@@ -677,7 +710,7 @@ def _write_cache(cache, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     S, buf = k.shape[1], cache.buf
     if S > buf:
         raise ValueError(f"{S} new tokens exceed the cache buffer {buf}")
-    start = cache.length
+    start = cache.length.clone()
     idx = (start + torch.arange(S, dtype=torch.int32, device=k.device)) % buf
     idx = idx.to(torch.int64)
     if isinstance(cache, PackedKVCache):
@@ -689,7 +722,7 @@ def _write_cache(cache, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     else:
         cache.k.index_copy_(1, idx, k.to(cache.k.dtype))
         cache.v.index_copy_(1, idx, v.to(cache.v.dtype))
-    cache.length = start + S
+    cache.length.add_(S)          # in place: a graph replay reads it anew
     return start
 
 
@@ -719,7 +752,10 @@ def attn_apply(p, x: torch.Tensor, ctx: QCtx, *, n_heads: int, n_kv: int,
         ``write_mask`` freezing mid-prefill slots; K5 with per-slot
         (q_offset, kv_len), the rolling kpos under a window;
       * S > 1 (batched verify): S teacher-forced rows per slot, K5.
-    ``slot``, ``plen`` and ``pfx`` are host ints.  Returns (out, cache)."""
+    ``slot``, ``plen`` and ``pfx`` are host ints or int32 device scalars
+    (dynamic operands: the serving programs pass device scalars, so one
+    recorded CUDA graph serves every slot and length).  Returns (out,
+    cache)."""
     B, S, _ = x.shape
     dev = x.device
     q = ctx.dense(x, p["wq"], p.get("bq")).reshape(B, S, n_heads, hd)
@@ -727,9 +763,8 @@ def attn_apply(p, x: torch.Tensor, ctx: QCtx, *, n_heads: int, n_kv: int,
     v = ctx.dense(x, p["wv"], p.get("bv")).reshape(B, S, n_kv, hd)
     paged = isinstance(cache, PagedKVCache)
     if paged and slot is not None:
-        base = 0 if pfx is None else int(pfx)
-        positions = torch.arange(base, base + S, dtype=torch.int32,
-                                 device=dev)
+        positions = dyn_rows(0 if pfx is None else pfx, S, dev).to(
+            torch.int32)
     elif paged:             # per-slot positions, (B, S)
         positions = cache.lengths[:, None] + torch.arange(
             S, dtype=torch.int32, device=dev)[None, :]
@@ -790,10 +825,11 @@ def _attn_paged(q, k, v, cache: PagedKVCache, positions, *, causal, window,
                 "shared-prefix suffix prefill needs a linear cache; SWA "
                 "rolling buffers rewrite shared pages")
         cache.write_prompt_at(slot, k, v, pfx, S if plen is None else plen)
+        row = dyn_rows(slot, 1, q.device)
         return _attn_decode_paged(
             q, cache, q_offsets=positions[:1],
-            kv_len=cache.lengths[slot:slot + 1], causal=causal, window=None,
-            page_table=cache.page_table[slot:slot + 1])
+            kv_len=cache.lengths.index_select(0, row), causal=causal,
+            window=None, page_table=cache.page_table.index_select(0, row))
     if slot is not None:
         # prefill-into-slot (B == 1): attend within the fresh tokens (right-
         # pad rows are garbage queries whose outputs the caller drops)

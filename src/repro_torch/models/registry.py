@@ -4,6 +4,7 @@
   loss_fn(params, cfg, qcfg, batch, seed, remat)  -> (loss, aux)
   forward(params, cfg, qcfg, batch, seed, remat)  -> (logits, aux)
   make_decode_state(cfg, batch, max_len, ...)     -> per-layer caches
+  reset_decode_state(carry)                       -> the same, emptied in place
   prefill(params, cfg, qcfg, tokens, carry)       -> (last logits, carry)
   decode_step(params, cfg, qcfg, tokens, carry)   -> (logits, carry)
   prefill_slot / prefill_suffix / prefill_chunk   -> continuous batching
@@ -75,6 +76,14 @@ def make_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                                   device=resolve_device(device))
 
 
+def reset_decode_state(carry) -> None:
+    """Empty ``make_decode_state``'s carry IN PLACE (zeroed pools and
+    lengths, page tables on the trash page): the engines keep one carry
+    at fixed addresses, which their recorded programs read and write."""
+    for cache in carry:
+        cache.reset()
+
+
 def prefill(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, carry):
     """Fill the decode carry from a prompt.  Returns (last_logits, carry)."""
     _dense_only(cfg)
@@ -92,28 +101,32 @@ def decode_step(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, carry,
 
 
 def prefill_slot(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
-                 carry, slot: int, plen: int, *, seed: int = 0):
+                 carry, slot, plen, *, seed: int = 0):
     """Prefill ONE slot of a paged carry from a right-padded (1, Sp)
-    prompt.  Returns (logits (1, V), carry)."""
+    prompt.  ``slot``/``plen``: host ints or int32 device scalars, as the
+    reference takes ints or traced values.  Returns (logits (1, V),
+    carry)."""
     _dense_only(cfg)
     return transformer.prefill_slot(params, cfg, qcfg, tokens, carry, slot,
                                     plen, seed=seed)
 
 
 def prefill_suffix(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
-                   carry, slot: int, plen: int, pfx: int, *, seed: int = 0):
+                   carry, slot, plen, pfx, *, seed: int = 0):
     """Prefill ONE slot from a right-padded (1, Sp) prompt SUFFIX whose
-    first ``pfx`` tokens are cached in shared prefix pages.  Returns
-    (logits (1, V), carry)."""
+    first ``pfx`` tokens are cached in shared prefix pages (``slot``/
+    ``plen``/``pfx``: host ints or int32 device scalars).  Returns (logits
+    (1, V), carry)."""
     _dense_only(cfg)
     return transformer.prefill_suffix(params, cfg, qcfg, tokens, carry,
                                       slot, plen, pfx, seed=seed)
 
 
 def prefill_chunk(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
-                  carry, slot: int, off: int, *, seed: int = 0):
+                  carry, slot, off, *, seed: int = 0):
     """Write one FULL intermediate chunk (1, C) of a prompt into a paged
-    slot at [off, off + C).  Returns the carry."""
+    slot at [off, off + C) (``slot``/``off``: host ints or int32 device
+    scalars).  Returns the carry."""
     _dense_only(cfg)
     return transformer.prefill_chunk(params, cfg, qcfg, tokens, carry, slot,
                                      off, seed=seed)

@@ -20,8 +20,8 @@ from repro_torch.core.fqt import QuantConfig
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (TRASH_PAGE, PagedKVCache, QCtx,
                                        attn_apply, attn_params, dense_init,
-                                       embed_init, make_kv_cache, mlp_apply,
-                                       mlp_params, rmsnorm)
+                                       dyn_rows, embed_init, make_kv_cache,
+                                       mlp_apply, mlp_params, rmsnorm)
 
 _SEED_STRIDE = 0x9E3779B9                   # per-layer SR seed stride
 
@@ -172,39 +172,45 @@ def prefill(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, caches):
     return _logits(params, cfg, qcfg, x), caches
 
 
+def _token_at(x, i):
+    """x[:, i:i + 1] for a host int or int32 device scalar ``i``."""
+    return x.index_select(1, dyn_rows(i, 1, x.device))
+
+
 def prefill_slot(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
-                 caches, slot: int, plen: int, *, seed=0):
+                 caches, slot, plen, *, seed=0):
     """Prefill ONE paged slot from a right-padded (1, Sp) prompt; ``plen``
-    is the true prompt length.  Returns (logits at the last prompt token
-    (1, V), caches)."""
+    is the true prompt length.  ``slot`` and ``plen`` are host ints or
+    int32 device scalars (dynamic operands).  Returns (logits at the last
+    prompt token (1, V), caches)."""
     x = params["embed"][tokens]
     x, caches = apply_layers(params, cfg, qcfg, x, seed, caches=caches,
                              slot=slot, plen=plen)
-    x = rmsnorm(x[:, plen - 1:plen], params["ln_f"], cfg.norm_eps)
+    x = rmsnorm(_token_at(x, plen - 1), params["ln_f"], cfg.norm_eps)
     return _logits(params, cfg, qcfg, x, seed)[:, 0], caches
 
 
 def prefill_suffix(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
-                   caches, slot: int, plen: int, pfx: int, *, seed=0):
+                   caches, slot, plen, pfx, *, seed=0):
     """Prefill ONE paged slot from a right-padded (1, Sp) prompt SUFFIX
     whose first ``pfx`` tokens are already cached in the slot's pages;
     ``plen`` is the TOTAL prompt length.  The suffix rows are written at
     [pfx, plen) and the queries attend through the paged cache (K5).
+    ``slot``, ``plen`` and ``pfx``: host ints or int32 device scalars.
     Returns (logits at the last prompt token (1, V), caches)."""
     x = params["embed"][tokens]
     x, caches = apply_layers(params, cfg, qcfg, x, seed, caches=caches,
                              slot=slot, plen=plen, pfx=pfx)
-    x = rmsnorm(x[:, plen - pfx - 1:plen - pfx], params["ln_f"],
-                cfg.norm_eps)
+    x = rmsnorm(_token_at(x, plen - pfx - 1), params["ln_f"], cfg.norm_eps)
     return _logits(params, cfg, qcfg, x, seed)[:, 0], caches
 
 
 def prefill_chunk(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
-                  caches, slot: int, off: int, *, seed=0):
+                  caches, slot, off, *, seed=0):
     """Write ONE full intermediate (1, C) chunk of a prompt into a paged
     slot at [off, off + C), attending through the paged cache (the suffix
-    machinery: chunking cannot change any value).  No logits.  Returns the
-    caches."""
+    machinery: chunking cannot change any value).  ``slot`` and ``off``:
+    host ints or int32 device scalars.  No logits.  Returns the caches."""
     x = params["embed"][tokens]
     C = x.shape[1]
     _, caches = apply_layers(params, cfg, qcfg, x, seed, caches=caches,

@@ -6,19 +6,28 @@ once at engine build (the K4 kernel).
 
   * ``Engine`` -- LOCKSTEP batches: prompts are left-padded with token 0
     (the pads attended unmasked, as in the reference), prefill attention
-    is K7 and decode attention over the nvfp4/fp8 cache K6.  Done/EOS
-    bookkeeping stays on the device and the host syncs once per
-    ``decode_chunk`` steps.
+    is K7 and decode attention over the nvfp4/fp8 cache K6.  Two programs,
+    ``_prefill`` and ``_decode`` (the reference's ``_decode_impl``: done/
+    EOS bookkeeping, the decode step and the greedy pick on the device);
+    the host syncs once per ``decode_chunk`` steps.
   * ``ContinuousEngine`` -- continuous batching over a PAGED block-
     quantized KV cache.  The request lifecycle (queue, slots, demand
     paging, preemption, the shared-prefix cache, abort/timeout) is the
-    host-side ``serve/scheduler.py``; the device runs five programs, plain
-    methods here: prefill-into-slot (attention K7), suffix prefill and
-    chunked prefill (K5 through the paged cache), batched decode with a
-    write mask (K5), and speculative verify-k with exact rollback (K5).
-    The page table has a numpy mirror on the host; a tick uploads it in
-    one copy from pinned memory before the programs that read it, and
-    reads back once, at the end of the tick.
+    host-side ``serve/scheduler.py``; the device runs five programs:
+    prefill-into-slot (attention K7), suffix prefill and chunked prefill
+    (K5 through the paged cache), batched decode with a write mask (K5),
+    and speculative verify-k with exact rollback (K5).  The page table has
+    a numpy mirror on the host; a tick uploads it in one copy from pinned
+    memory before the programs that read it, and reads back once, at the
+    end of the tick.
+
+Each program is a ``serve.graphs.Program``: on the card one CUDA graph per
+static signature (``cuda_graphs=False`` runs them eagerly), on the CPU the
+eager body.  The engines keep one KV carry at fixed addresses and reset it
+in place; slot, lengths and offsets reach the programs as int32 device
+scalars.  ``ContinuousEngine`` reports each program's compile count
+(distinct signatures) as the reference does, and with a tracer emits its
+``jit_compile`` instants and ``jit_compiles`` counter.
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import TRASH_PAGE
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serve import packing
+from repro_torch.serve.graphs import Program
 from repro_torch.serve.metrics import MetricsRecorder
 from repro_torch.serve.scheduler import Request, Scheduler
 
@@ -93,18 +103,60 @@ def _greedy_margin(logits: torch.Tensor) -> torch.Tensor:
     return top2[..., 0] - top2[..., 1]
 
 
+def _head(lg: torch.Tensor, scfg: ServeConfig):
+    """A program's last step on (B, V) logits: the greedy pick (or, under
+    temperature sampling, the logits, which the host draws from after the
+    program) and the greedy margin."""
+    pick = (lg if scfg.temperature > 0
+            else torch.argmax(lg, dim=-1).to(torch.int32))
+    return pick, _greedy_margin(lg)
+
+
 class Engine:
-    """Single-model LOCKSTEP serving engine (dense family)."""
+    """Single-model LOCKSTEP serving engine (dense family).
+
+    ``cuda_graphs`` (default True): on the card each program replays as
+    one CUDA graph per signature; False runs them eagerly (the comparison
+    path).  The CPU always runs them eagerly."""
 
     def __init__(self, cfg: ModelConfig, params, scfg: ServeConfig,
                  qcfg: Optional[fqt.QuantConfig] = None,
-                 pack_weights: bool = True, device=None):
+                 pack_weights: bool = True, device=None,
+                 cuda_graphs: bool = True):
         self.device = resolve_device(device)
         self.cfg, self.scfg = cfg, scfg
         self.qcfg, self.params = _packed(cfg, params, qcfg, pack_weights,
                                          self.device)
         self.margins: List[np.ndarray] = []   # per-step greedy margins
         self.steps = 0                        # decode steps of the last run
+        self._carry = None                    # one carry, reset per run
+        graphs = cuda_graphs and self.device.type == "cuda"
+        self.programs = {"prefill": Program("prefill", self._prefill_impl,
+                                            graphs),
+                         "decode": Program("decode", self._decode_impl,
+                                           graphs)}
+
+    # ---- the two programs ----------------------------------------------------
+
+    def _prefill_impl(self, tokens):
+        """Fill the (empty) carry from the left-padded prompts: last-token
+        logits (B, V)."""
+        logits, _ = registry.prefill(self.params, self.cfg, self.qcfg,
+                                     tokens, self._carry)
+        return logits
+
+    def _decode_impl(self, tokens, done):
+        """One lockstep decode step with on-device done/EOS bookkeeping
+        (the reference's ``_decode_impl``): emit = the masked output token,
+        done accumulates the EOS mask; then the greedy pick (or, under
+        temperature, the logits the host samples from) and its margin."""
+        eos = self.scfg.eos_id
+        emit = torch.where(done, eos, tokens)
+        done = done | (tokens == eos)
+        logits, _ = registry.decode_step(self.params, self.cfg, self.qcfg,
+                                         emit[:, None].to(torch.int64),
+                                         self._carry)
+        return (emit, done) + _head(logits[:, -1], self.scfg)
 
     @torch.no_grad()
     def generate(self, prompts: List[np.ndarray],
@@ -120,11 +172,13 @@ class Engine:
             toks[i, plen - len(p):] = p       # left-pad with token 0
         toks = torch.from_numpy(toks).to(dev)
 
-        carry = registry.make_decode_state(
-            cfg, scfg.batch_size, scfg.max_len,
-            kv_cache_format=scfg.kv_cache_format, device=dev)
-        last_logits, carry = registry.prefill(self.params, cfg, self.qcfg,
-                                              toks, carry)
+        if self._carry is None:
+            self._carry = registry.make_decode_state(
+                cfg, scfg.batch_size, scfg.max_len,
+                kv_cache_format=scfg.kv_cache_format, device=dev)
+        else:
+            registry.reset_decode_state(self._carry)
+        last_logits = self.programs["prefill"](toks)
         gen = None
         if scfg.temperature > 0:
             gen = torch.Generator(device=dev)
@@ -132,18 +186,16 @@ class Engine:
         margins = [_greedy_margin(last_logits)]
         nxt = _sample(last_logits, scfg, gen)
         done = torch.zeros((scfg.batch_size,), dtype=torch.bool, device=dev)
-        eos = torch.full((), scfg.eos_id, dtype=torch.int32, device=dev)
         emitted = []                          # device tensors; no per-step sync
         sync = max(1, scfg.decode_chunk)
+        decode = self.programs["decode"]
         for t in range(max_new):
-            emit = torch.where(done, eos, nxt)
-            done = done | (nxt == eos)
-            logits, carry = registry.decode_step(
-                self.params, cfg, self.qcfg, emit[:, None].to(torch.int64),
-                carry)
-            margins.append(_greedy_margin(logits[:, -1]))
-            nxt = _sample(logits[:, -1], scfg, gen)
-            emitted.append(emit)
+            # the outputs are the graph's buffers: keep copies of what stays
+            emit, done, nxt, margin = decode(nxt, done)
+            if gen is not None:
+                nxt = _sample(nxt, scfg, gen)
+            margins.append(margin.clone())
+            emitted.append(emit.clone())
             # transfer the done mask once per decode_chunk, not per token
             if (t + 1) % sync == 0 and bool(done.all()):
                 break
@@ -211,7 +263,8 @@ class ContinuousEngine:
 
     def __init__(self, cfg: ModelConfig, params, scfg: ServeConfig,
                  qcfg: Optional[fqt.QuantConfig] = None,
-                 pack_weights: bool = True, device=None, tracer=None):
+                 pack_weights: bool = True, device=None, tracer=None,
+                 cuda_graphs: bool = True):
         if cfg.family == "moe" or cfg.n_experts:
             raise NotImplementedError(
                 "continuous batching of the moe family arrives with its "
@@ -277,67 +330,120 @@ class ContinuousEngine:
         if scfg.temperature > 0:
             self._gen = torch.Generator(device=self.device)
         self.scheduler: Optional[Scheduler] = None
-        self._carry = None
+        self._carry = None                  # allocated once, reset in place
         self._pt_host: Optional[np.ndarray] = None   # host page-table mirror
         self._pt_dirty = False
         self.margins: Dict[int, np.ndarray] = {}
+        graphs = cuda_graphs and self.device.type == "cuda"
+        self.programs = {name: Program(name, body, graphs) for name, body in (
+            ("prefill", self._prefill_impl),
+            ("prefill_suffix", self._prefill_suffix_impl),
+            ("prefill_chunk", self._prefill_chunk_impl),
+            ("decode", self._decode_impl),
+            ("verify", self._verify_impl))}
+
+    # ---- compile introspection (the reference's jit cache sizes) -------------
+
+    @property
+    def prefill_compiles(self) -> int:
+        return self.programs["prefill"].cache_size
+
+    @property
+    def prefill_suffix_compiles(self) -> int:
+        return self.programs["prefill_suffix"].cache_size
+
+    @property
+    def chunk_compiles(self) -> int:
+        return self.programs["prefill_chunk"].cache_size
+
+    @property
+    def decode_compiles(self) -> int:
+        return self.programs["decode"].cache_size
+
+    @property
+    def verify_compiles(self) -> int:
+        return self.programs["verify"].cache_size
 
     # ---- the five device programs --------------------------------------------
+    # ``*_impl`` are the program bodies (operands: tensors or None; slot,
+    # plen, pfx and off are int32 device scalars).  The methods without the
+    # suffix call the program and return tensors the caller owns; under
+    # temperature sampling they draw from the program's logits on the host
+    # side of the graph.
 
-    def _pick(self, logits: torch.Tensor, rids, steps) -> torch.Tensor:
-        """(B, V) logits -> (B,) int32 picks: argmax, or per-request draws
-        from the seeded generator (rids/steps: host ints per row)."""
+    def _draw(self, out: torch.Tensor, rids, steps) -> torch.Tensor:
+        """(B,) int32 picks owned by the caller: the program's greedy picks,
+        or per-request draws from its (B, V) logits with the seeded
+        generator (rids/steps: host ints per row)."""
         if self.scfg.temperature <= 0.0:
-            return torch.argmax(logits, dim=-1).to(torch.int32)
+            return out.clone()
         picks = []
-        for i in range(logits.shape[0]):
+        for i in range(out.shape[0]):
             self._gen.manual_seed(_stream_seed(self.scfg.seed, rids[i],
                                                steps[i]))
-            picks.append(_sample(logits[i:i + 1], self.scfg, self._gen))
+            picks.append(_sample(out[i:i + 1], self.scfg, self._gen))
         return torch.cat(picks)
 
-    def _prefill(self, tokens, plen: int, slot: int, rid: int):
-        """Prefill one slot from a right-padded (1, prefill_len) prompt and
-        pick that request's first token (device scalars)."""
+    def _prefill_impl(self, tokens, plen, slot):
         logits, _ = registry.prefill_slot(self.params, self.cfg, self.qcfg,
                                           tokens, self._carry, slot, plen)
-        return (self._pick(logits, [rid], [0])[0],
-                _greedy_margin(logits)[0])
+        return _head(logits, self.scfg)
 
-    def _prefill_suffix(self, tokens, plen: int, pfx: int, slot: int,
-                        rid: int):
-        """Warm-prefix (or final-chunk) prefill: the slot's page row
-        already holds [0, pfx); write + attend only the SUFFIX."""
+    def _prefill(self, tokens, plen, slot, rid: int):
+        """Prefill one slot from a right-padded (1, prefill_len) prompt and
+        pick that request's first token (device scalars)."""
+        pick, margin = self.programs["prefill"](tokens, plen, slot)
+        return self._draw(pick, [rid], [0])[0], margin[0].clone()
+
+    def _prefill_suffix_impl(self, tokens, plen, pfx, slot):
         logits, _ = registry.prefill_suffix(self.params, self.cfg,
                                             self.qcfg, tokens, self._carry,
                                             slot, plen, pfx)
-        return (self._pick(logits, [rid], [0])[0],
-                _greedy_margin(logits)[0])
+        return _head(logits, self.scfg)
 
-    def _prefill_chunk(self, tokens, slot: int, off: int) -> None:
-        """Chunked prefill, intermediate chunk: write one FULL
-        (1, prefill_chunk) slice of a prompt at [off, off + C)."""
+    def _prefill_suffix(self, tokens, plen, pfx, slot, rid: int):
+        """Warm-prefix (or final-chunk) prefill: the slot's page row
+        already holds [0, pfx); write + attend only the SUFFIX."""
+        pick, margin = self.programs["prefill_suffix"](tokens, plen, pfx,
+                                                       slot)
+        return self._draw(pick, [rid], [0])[0], margin[0].clone()
+
+    def _prefill_chunk_impl(self, tokens, slot, off):
         registry.prefill_chunk(self.params, self.cfg, self.qcfg, tokens,
                                self._carry, slot, off)
+
+    def _prefill_chunk(self, tokens, slot, off) -> None:
+        """Chunked prefill, intermediate chunk: write one FULL
+        (1, prefill_chunk) slice of a prompt at [off, off + C)."""
+        self.programs["prefill_chunk"](tokens, slot, off)
+
+    def _decode_impl(self, tokens, mask):
+        logits, _ = registry.decode_step(self.params, self.cfg, self.qcfg,
+                                         tokens[:, None].to(torch.int64),
+                                         self._carry, write_mask=mask)
+        return _head(logits[:, -1], self.scfg)
 
     def _decode(self, tokens, mask, rids, steps):
         """One token for every slot; ``mask`` ((n_slots,) bool or None):
         slots not decoding this tick write to the trash page with frozen
         lengths."""
-        logits, _ = registry.decode_step(self.params, self.cfg, self.qcfg,
-                                         tokens[:, None].to(torch.int64),
-                                         self._carry, write_mask=mask)
-        lg = logits[:, -1]
-        return self._pick(lg, rids, steps), _greedy_margin(lg)
+        pick, margin = self.programs["decode"](tokens, mask)
+        return self._draw(pick, rids, steps), margin.clone()
 
     def _verify(self, tokens, mask):
+        """Speculative verify-k (``_verify_impl``): returns (picks (B, k),
+        margins (B, k), n_emit (B,), next token (B,)), owned by the
+        caller."""
+        return tuple(t.clone() for t in self.programs["verify"](tokens,
+                                                                mask))
+
+    def _verify_impl(self, tokens, mask):
         """Speculative verify-k: the layer-truncated self-draft proposes
         k-1 greedy tokens per slot (on the shared pools, its own lengths),
         ONE teacher-forced pass of the block through the full model
         verifies it, the longest matching prefix plus one corrected token
         is accepted (n_emit in 1..k), and ``truncate_to`` rolls every
-        layer's lengths back over the rejected rows.  Returns (picks
-        (B, k), margins (B, k), n_emit (B,), next token (B,))."""
+        layer's lengths back over the rejected rows."""
         k = self.scfg.spec_k
         dparams, dcarry = registry.draft_view(self.params, self._carry,
                                               self.draft_layers)
@@ -432,11 +538,14 @@ class ContinuousEngine:
                               prefix_cache_pages=scfg.prefix_cache_pages,
                               prefill_chunk=scfg.prefill_chunk,
                               tracer=self.tracer)
-            self._carry = registry.make_decode_state(
-                self.cfg, self.n_slots, scfg.max_len,
-                kv_cache_format=scfg.kv_cache_format,
-                page_size=scfg.page_size, total_pages=sched.total_pages,
-                device=dev)
+            if self._carry is None:
+                self._carry = registry.make_decode_state(
+                    self.cfg, self.n_slots, scfg.max_len,
+                    kv_cache_format=scfg.kv_cache_format,
+                    page_size=scfg.page_size, total_pages=sched.total_pages,
+                    device=dev)
+            else:           # the programs hold its addresses: reset in place
+                registry.reset_decode_state(self._carry)
             self._pt_host = np.full((self.n_slots, self.n_pages_slot),
                                     TRASH_PAGE, np.int32)
             self._pt_dirty = False
@@ -470,7 +579,17 @@ class ContinuousEngine:
         pending: Dict[int, tuple] = {}      # slot -> (tok, margin) DEVICE
                                             # scalars, read with the tick's
                                             # one transfer
+        # compile observation (host side, with a live tracer only): a
+        # program whose signature count grew in a tick emits one
+        # jit_compile instant at the tick's end, as the reference does
         trc = self.tracer
+        compiled = {n: p.cache_size for n, p in self.programs.items()}
+
+        def scalars(*vals):
+            """Host ints -> int32 device scalars (one pinned copy): the
+            programs' dynamic operands."""
+            t = _h2d(np.asarray(vals, np.int32), dev)
+            return [t[i] for i in range(len(vals))]
 
         def first_token(slot, req, tok):
             steps[slot] = 1
@@ -508,14 +627,15 @@ class ContinuousEngine:
                 if chunked:
                     continue
                 sfx = self._padded(np.asarray(req.prompt[pfx:]), prefill_pad)
+                plen_d, pfx_d, slot_d = scalars(len(req.prompt), pfx, slot)
                 if sched.prefix_cache is not None:
                     # prefix-cache mode: EVERY admission (cold: pfx == 0)
                     # runs the quantize-then-attend suffix program, so warm
                     # admissions equal cold starts bit for bit
                     tok, margin = self._prefill_suffix(
-                        sfx, len(req.prompt), pfx, slot, req.rid)
+                        sfx, plen_d, pfx_d, slot_d, req.rid)
                 else:
-                    tok, margin = self._prefill(sfx, len(req.prompt), slot,
+                    tok, margin = self._prefill(sfx, plen_d, slot_d,
                                                 req.rid)
                 pending[slot] = (tok, margin)
                 first_token(slot, req, tok)
@@ -525,12 +645,12 @@ class ContinuousEngine:
                 if not last:
                     chunk = _h2d(np.asarray(req.prompt[start:start + clen],
                                             np.int64)[None], dev)
-                    self._prefill_chunk(chunk, slot, start)
+                    self._prefill_chunk(chunk, *scalars(slot, start))
                     continue
                 sfx = self._padded(np.asarray(req.prompt[start:]),
                                    prefill_pad)
-                tok, margin = self._prefill_suffix(sfx, len(req.prompt),
-                                                   start, slot, req.rid)
+                tok, margin = self._prefill_suffix(
+                    sfx, *scalars(len(req.prompt), start, slot), req.rid)
                 pending[slot] = (tok, margin)
                 first_token(slot, req, tok)
 
@@ -625,6 +745,14 @@ class ContinuousEngine:
                 met.spec_tick(emitted_counts, scfg.spec_k)
             sched.count_tick(T, n_active=len(active))
             met.tick(queue_depth=len(sched.queue), n_active=len(active))
+            if trc.enabled:
+                for name, prog in self.programs.items():
+                    n = prog.cache_size
+                    if n != compiled[name]:
+                        trc.instant("engine", "jit_compile", program=name,
+                                    cache_size=n)
+                        trc.counter("jit_compiles", n - compiled[name])
+                        compiled[name] = n
             trc.end("engine", "tick")
             tick += 1
 
