@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU: serve
-(lockstep and continuous batching) and train.
+(lockstep and continuous batching), train, and the pipeline from training
+through checkpoint/restart and the packed export to serving.
 
     python3 chip_smoke.py                    # every phase, one CUDA card
     python3 chip_smoke.py --phases env,kernels
@@ -91,6 +92,27 @@ Phases, each printing JSON lines; any failure exits non-zero:
            and of K2; then, on one more step's gradients, every probe leaf
            through K2 held to K2's plain version bit for bit, and sigma_q
            from both equal.
+  pipeline the paper's train -> restart -> export -> serve pipeline through
+           ``train.Trainer`` at llama2-7b's full width, depth cut to 2
+           layers (a checkpoint of the state is ~9.3 GB), batch 4 x seq
+           1024, nvfp4_paper_config, remat, sigma_q probe: 6 uninterrupted
+           steps; then 3 steps checkpointed (``checkpoint/ckpt.py``, the
+           reference's format, in a temporary directory under build/) and a
+           fresh Trainer with a step-clock tracer resuming from it to step
+           6.  The two final states must be equal bit for bit (params,
+           master, m, v), and so must loss and grad norm of the resumed
+           steps; every step launches K1 as k1_step_gemms derives and K2
+           once per probe leaf; the trace has one gnr gauge and one ratio
+           gauge per reference leaf per logged step and validates.  The
+           exported packed artifact (``serve_packed``) must equal the
+           packing of the final parameters bit for bit; served through a
+           graphed ``Engine(pack_weights=False)`` (batch 4, prompt 64, 16
+           new tokens, greedy, nvfp4 KV cache) it must give the stream and
+           greedy margins, bit for bit, of an Engine built from the final
+           parameters, with K4, K6 and K7 launched as expected on both.
+           Reports free disk, seconds and bytes of every save, restore and
+           export, the artifact's bytes per GEMM parameter, the
+           telemetry's host ms per logged step and peak memory.
   ops      the kernel-level public API (``kernels/ops.py``) as a user calls
            it: the unfused FQT GEMM at each forward GEMM shape of the
            train phase's llama2-7b (M = 4096 tokens; (K, N) = (4096, 4096),
@@ -138,8 +160,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PHASES = ("env", "kernels", "serve", "serve_continuous", "train", "ops",
-          "times")
+PHASES = ("env", "kernels", "serve", "serve_continuous", "train",
+          "pipeline", "ops", "times")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core peak
 SEED = 0
@@ -866,7 +888,6 @@ def phase_serve(dev, batch=4, prompt_len=64, max_new=32, max_len=256):
         for _ in range(2 if side == "graphs" else 1):
             eng.generate(prompts, max_new=2)
     torch.cuda.synchronize(dev)
-    gemms = 7 * cfg.n_layers + 1          # q k v o gate up down, + lm_head
     sides, outs = {}, {}
     for side, eng in engines.items():
         start = start_mark(dev)
@@ -877,12 +898,7 @@ def phase_serve(dev, batch=4, prompt_len=64, max_new=32, max_len=256):
         dt = time.perf_counter() - t0
         launches = counters.snapshot()
         steps = eng.steps
-        want = {"fused_quant_matmul": 0, "block_quantize": 0,
-                "block_matmul": 0,
-                "packed_block_matmul": gemms * (1 + steps),
-                "flash_attention_paged": 0,
-                "flash_attention": cfg.n_layers,
-                "flash_attention_packed": cfg.n_layers * steps}
+        want = lockstep_launches(cfg, steps)
         ntok = sum(len(o) for o in out)
         margins = np.asarray(eng.margins)
         info = {"phase": "serve", "side": side, "arch": cfg.name,
@@ -1651,6 +1667,299 @@ def probe_check(params, cfg, qcfg, batch, step, spec) -> dict:
     return out
 
 
+# ---- train -> restart -> export -> serve -------------------------------------------
+
+
+def same_bits(a, b) -> bool:
+    """Two leaves (tensors or ints) hold the same bits."""
+    import torch
+    if not isinstance(a, torch.Tensor):
+        return a == b
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}[a.element_size()]
+        a, b = a.view(view), b.view(view)
+    return bool(torch.equal(a, b))
+
+
+def differing_leaves(a, b) -> list:
+    """Names of the reference leaves of two port trees whose bits differ."""
+    from repro_torch.checkpoint import ckpt
+    la, lb = ckpt.reference_leaves(a), ckpt.reference_leaves(b)
+    if [n for n, _, _ in la] != [n for n, _, _ in lb]:
+        return ["<structure>"]
+    return [n for (n, pa, _), (_, pb, _) in zip(la, lb)
+            if not all(same_bits(x, y) for x, y in zip(pa, pb))]
+
+
+def lockstep_launches(cfg, steps) -> dict:
+    """Each kernel's launches of one lockstep generate of ``steps`` decode
+    steps: K4 for every GEMM (7 a layer + lm_head) of the prefill and of each
+    step, K7 once a layer in the prefill, K6 once a layer a step."""
+    gemms = 7 * cfg.n_layers + 1
+    return {"fused_quant_matmul": 0, "block_quantize": 0, "block_matmul": 0,
+            "packed_block_matmul": gemms * (1 + steps),
+            "flash_attention_paged": 0,
+            "flash_attention": cfg.n_layers,
+            "flash_attention_packed": cfg.n_layers * steps}
+
+
+def dir_bytes(path) -> int:
+    return sum(p.stat().st_size for p in Path(path).rglob("*")
+               if p.is_file())
+
+
+class CkptLog:
+    """``checkpoint.ckpt.save`` and ``restore`` timed while the phase runs:
+    each call's op (save, export: a save under serve_packed, restore),
+    step, seconds and bytes on disk; a save of a step that exists writes
+    nothing (``skipped``)."""
+
+    def __init__(self):
+        from repro_torch.checkpoint import ckpt
+        self.ckpt, self.rows = ckpt, []
+        self._save, self._restore = ckpt.save, ckpt.restore
+
+    def __enter__(self):
+        def save(d, step, tree, **kw):
+            final = Path(d) / f"step_{step:08d}"
+            skipped = final.is_dir()
+            t0 = time.perf_counter()
+            path = self._save(d, step, tree, **kw)
+            self.rows.append({
+                "op": "export" if Path(d).name == "serve_packed" else "save",
+                "step": step, "seconds": time.perf_counter() - t0,
+                "bytes": dir_bytes(path), "skipped": skipped})
+            return path
+
+        def restore(d, step, like):
+            t0 = time.perf_counter()
+            out = self._restore(d, step, like)
+            self.rows.append({"op": "restore", "step": step,
+                              "seconds": time.perf_counter() - t0,
+                              "bytes": dir_bytes(Path(d)
+                                                 / f"step_{step:08d}")})
+            return out
+        self.ckpt.save, self.ckpt.restore = save, restore
+        return self
+
+    def __exit__(self, *exc):
+        self.ckpt.save, self.ckpt.restore = self._save, self._restore
+
+
+def count_steps(trainer) -> list:
+    """Wrap ``trainer.data.batch``: the launch counts snapshotted before
+    each step's batch (append one more after the run) give each step's
+    launches as their differences."""
+    from repro_torch.kernels import counters
+    marks, batch = [], trainer.data.batch
+
+    def counted(step, *a, **kw):
+        marks.append(counters.snapshot())
+        return batch(step, *a, **kw)
+    trainer.data.batch = counted
+    return marks
+
+
+def step_launches(marks) -> list:
+    return [{k: b[k] - a[k] for k in a} for a, b in zip(marks, marks[1:])]
+
+
+def time_telemetry(trainer) -> list:
+    """Host ms of each ``_emit_telemetry`` call (one per logged step)."""
+    ms, emit_ = [], trainer._emit_telemetry
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        emit_(*a, **kw)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    trainer._emit_telemetry = timed
+    return ms
+
+
+def phase_pipeline(dev, batch=4, seq=1024, n_layers=2, steps=6, split=3,
+                   log_every=2, prompt_len=64, max_new=16) -> dict:
+    """The paper's pipeline through ``Trainer``: train, checkpoint, restart,
+    export the packed artifact, serve it."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.core import fqt, qaf
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import counters
+    from repro_torch.obs import Tracer, validate_events
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.serve.packing import pack_model_params
+    from repro_torch.train import TrainConfig, Trainer, TrainerConfig
+
+    full = get_config("llama2-7b")
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    qcfg, tcfg = fqt.nvfp4_paper_config(), TrainConfig(remat=True)
+    data = DataConfig(cfg.vocab_size, seq, batch)
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="pipeline_", dir=ROOT / "build"))
+    ck = str(work / "ckpt")
+    emit({"phase": "pipeline", "arch": full.name, "cut": {
+        "n_layers": [full.n_layers, n_layers]}, "batch": batch, "seq": seq,
+        "steps": steps, "split_at": split, "quant": "nvfp4_paper_config",
+        "remat": True, "free_disk_bytes": shutil.disk_usage(work).free})
+    per_step = sum(k1_step_gemms(cfg, qcfg, batch * seq).values())
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    try:
+        with CkptLog() as log:
+            # step 1: the uninterrupted run
+            straight = Trainer(cfg, qcfg, tcfg,
+                               TrainerConfig(total_steps=steps), data,
+                               device=dev)
+            marks = count_steps(straight)
+            counters.reset()
+            state_a = straight.run()
+            marks.append(counters.snapshot())
+            per = step_launches(marks)
+            # step 2: the split run, the second half a fresh Trainer with a
+            # tracer on the same directory
+            rc = dict(ckpt_every=split, ckpt_dir=ck, keep_ckpts=1,
+                      log_every=log_every)
+            first = Trainer(cfg, qcfg, tcfg, TrainerConfig(
+                total_steps=split, **rc), data, device=dev)
+            marks = count_steps(first)
+            first.run()
+            marks.append(counters.snapshot())
+            per += step_launches(marks)
+            trc = Tracer(clock="step", process="train")
+            second = Trainer(cfg, qcfg, tcfg, TrainerConfig(
+                total_steps=steps, **rc), data, device=dev, tracer=trc)
+            marks, tele_ms = count_steps(second), time_telemetry(second)
+            state_b = second.run()
+            marks.append(counters.snapshot())
+            per += step_launches(marks)
+        leaves = len(probe_leaf_ids(state_b.params, probe_spec_of(tcfg)))
+        want_step = {k: 0 for k in counters.COUNTS}
+        want_step.update(fused_quant_matmul=per_step, block_quantize=leaves)
+        bad_steps = [i for i, c in enumerate(per) if c != want_step]
+        differ = differing_leaves(state_a, state_b)
+        hist_a = {h["step"]: h for h in straight.history}
+        metrics_equal = all(
+            (h["loss"], h["grad_norm"]) == (hist_a[h["step"]]["loss"],
+                                            hist_a[h["step"]]["grad_norm"])
+            for h in second.history)
+        events = trc.trace_events()
+        logged = [s for s in range(split, steps) if s % log_every == 0]
+        gnr_ts = [e["ts"] for e in events if e["name"] == "gnr"]
+        n_ref = len(ckpt.reference_leaves(state_b.params))
+        n_ratio = sum(e["name"].startswith("ratio") for e in events)
+        problems = validate_events(events)
+        del state_a
+        # the exported artifact against the final parameters' own packing
+        spec = qaf.qaf_quant_config(qcfg).fwd_w
+        want_art = pack_model_params(cfg, state_b.params, spec)
+        with CkptLog() as rlog:
+            art_step, artifact = ckpt.restore_latest(
+                str(work / "ckpt" / "serve_packed"), want_art)
+        art_differ = differing_leaves(artifact, want_art)
+        del want_art
+        gemm_params = tscales = art_bytes = 0
+        for name, parts, _ in ckpt.reference_leaves(artifact):
+            n = sum(p.numel() * p.element_size() for p in parts)
+            if name.endswith(".packed"):
+                gemm_params += 2 * sum(p.numel() for p in parts)
+            if name.endswith(".tscale"):
+                tscales += sum(p.numel() for p in parts)
+            if name.endswith((".packed", ".scales", ".tscale")):
+                art_bytes += n
+        rows = log.rows + rlog.rows
+        io = {"rows": rows, "checkpoint_dir_bytes": dir_bytes(work)}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    train_s = time.perf_counter() - t_phase
+    info = {"phase": "pipeline", "arch": full.name, "n_layers": n_layers,
+            "k1_launches_per_step": [c["fused_quant_matmul"] for c in per],
+            "k2_launches_per_step": [c["block_quantize"] for c in per],
+            "expected_per_step": want_step,
+            "bad_steps": bad_steps, "events": second.events,
+            "differing_leaves": differ, "metrics_equal": metrics_equal,
+            "logged_steps": logged, "gnr_ts": gnr_ts,
+            "ratio_gauges": n_ratio, "reference_leaves": n_ref,
+            "trace_problems": problems, "trace_events": len(events),
+            "telemetry_host_ms": tele_ms, "artifact_step": art_step,
+            "artifact_differing_leaves": art_differ,
+            "artifact_bytes_per_gemm_param": art_bytes / gemm_params,
+            "artifact_bound_per_gemm_param": 0.5625 + 4 * tscales
+            / gemm_params, "io": io, "train_seconds": train_s,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+    emit(info)
+    if bad_steps:
+        raise AssertionError(f"steps {bad_steps}: launches "
+                             f"{[per[i] for i in bad_steps]} != {want_step}")
+    if differ or not metrics_equal:
+        raise AssertionError(f"restarted run differs from the uninterrupted "
+                             f"one: leaves {differ}, metrics equal "
+                             f"{metrics_equal}")
+    if second.events[0] != {"kind": "restore", "step": split}:
+        raise AssertionError(f"first event {second.events[0]}")
+    if gnr_ts != logged or n_ratio != n_ref * len(logged) or problems:
+        raise AssertionError(f"trace: gnr at {gnr_ts} (logged {logged}), "
+                             f"{n_ratio} ratio gauges, {problems}")
+    if art_step != steps or art_differ:
+        raise AssertionError(f"artifact step {art_step}, leaves {art_differ}")
+    if not info["artifact_bytes_per_gemm_param"] <= \
+            info["artifact_bound_per_gemm_param"]:
+        raise AssertionError("artifact larger than packed NVFP4")
+
+    # serve the artifact (graphed, pack_weights=False) and the final
+    # parameters (packed at build) on the same prompts
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, prompt_len)
+               for _ in range(batch)]
+    scfg = ServeConfig(batch_size=batch, max_len=prompt_len + max_new + 16,
+                       kv_cache_format="nvfp4")
+    engines = {"artifact": Engine(cfg, artifact, scfg, pack_weights=False,
+                                  device=dev),
+               "final_params": Engine(cfg, state_b.params, scfg, device=dev)}
+    del artifact, state_b
+    sides = {}
+    for side, eng in engines.items():
+        for _ in range(2):           # eager, then capture; later calls replay
+            eng.generate(prompts, max_new=2)
+        counters.reset()
+        out = eng.generate(prompts, max_new=max_new)
+        torch.cuda.synchronize(dev)
+        launches = counters.snapshot()
+        want = lockstep_launches(cfg, eng.steps)
+        margins = np.asarray(eng.margins, np.float32)
+        sides[side] = {"launches": launches, "expected_launches": want,
+                       "programs": program_captures(eng),
+                       "first_tokens": [o[:8].tolist() for o in out]}
+        if launches != want:
+            raise AssertionError(f"{side}: launch counts {launches} != {want}")
+        if len(out) != batch or any(len(o) != eng.steps for o in out) \
+                or not np.isfinite(margins).all():
+            raise AssertionError(f"{side}: wrong or non-finite output")
+        sides[side]["out"], sides[side]["margins"] = out, margins
+    a, b = sides["artifact"], sides["final_params"]
+    same = all(np.array_equal(x, y) for x, y in zip(a.pop("out"),
+                                                    b.pop("out")))
+    margins_equal = bool(np.array_equal(a.pop("margins"),
+                                        b.pop("margins")))
+    serve = {"phase": "pipeline", "check": "artifact (pack_weights=False, "
+             "graphs) vs final params (packed at build)", "batch": batch,
+             "prompt_len": prompt_len, "max_new": max_new, "sides": sides,
+             "streams_equal": same, "margins_equal": margins_equal}
+    emit(serve)
+    if not (same and margins_equal):
+        raise AssertionError("the artifact serves another stream")
+    info["serve"] = serve
+    return info
+
+
 def phase_ops(dev) -> dict:
     """The unfused FQT GEMM through ``kernels/ops.py`` at llama2-7b's forward
     GEMM shapes, held to the plain versions and to K1."""
@@ -2251,7 +2560,8 @@ def main(argv=None) -> int:
         results[p] = {"env": phase_env, "kernels": phase_kernels,
                       "serve": phase_serve,
                       "serve_continuous": phase_serve_continuous,
-                      "train": phase_train, "ops": phase_ops,
+                      "train": phase_train, "pipeline": phase_pipeline,
+                      "ops": phase_ops,
                       "times": phase_times}[p](dev)
         emit({"phase": p, "done": True,
               "seconds": round(time.perf_counter() - t0, 3)})

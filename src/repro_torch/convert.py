@@ -20,13 +20,13 @@ from repro_torch.models.config import ModelConfig
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
-    """numpy array (bf16 through its 16-bit pattern) -> torch tensor."""
-    a = np.asarray(a)
+    """numpy array (bf16 through its 16-bit pattern) -> torch tensor of the
+    same shape (0-d stays 0-d)."""
+    a = np.array(a, order="C")
     if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()
-                             ).view(torch.bfloat16)
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+        t = torch.from_numpy(a)
     return t.to(device)
 
 

@@ -175,6 +175,35 @@ def fake_quant(x: torch.Tensor, spec: BlockQuantSpec, *, axis: int = -1,
     return block_quantize(x, spec, axis=axis, u=u, seed=seed).dequant()
 
 
+def scale_health(x: torch.Tensor, spec: BlockQuantSpec, *,
+                 axis: int = -1) -> dict:
+    """Block-scale saturation/underflow counts for telemetry.
+
+    Replays ``_block_scales``' rounding on ``x`` (torch, on its device) and
+    counts blocks whose raw scale exceeds the scale format's max (E4M3:
+    448; the two-level tensor scale should make this impossible, so a
+    nonzero count flags an overflowing tensor) and blocks whose nonzero
+    absmax rounds to a zero scale (underflow: ``_block_scales`` clamps it
+    to 1, quantizing the block to zero).  Returns plain ints: one host
+    read, so call it outside a step."""
+    axis = axis % x.ndim
+    xf = x.to(torch.float32)
+    absmax = torch.amax(torch.abs(_blocked(xf, axis, spec.block)),
+                        dim=axis + 1)
+    if spec.scale_fmt == "e8m0":
+        scale = formats.e8m0_floor(absmax) / (2.0 ** spec.data.emax)
+        saturated = torch.zeros((), dtype=torch.int64, device=x.device)
+    else:
+        tscale = _tensor_scale(torch.amax(torch.abs(xf)), spec)
+        raw = absmax / (spec.data.max * tscale)
+        scale = formats.quantize_rtn(raw, spec.scale)
+        saturated = torch.sum(raw > spec.scale.max)
+    underflow = torch.sum((scale <= 0) & (absmax > 0))
+    sat, under = torch.stack([saturated, underflow]).tolist()
+    return {"blocks": absmax.numel(), "saturated": int(sat),
+            "underflow": int(under)}
+
+
 # ---- packed storage -------------------------------------------------------------
 
 # E2M1 magnitudes indexed by the 3 low nibble bits (float4_e2m1fn layout)

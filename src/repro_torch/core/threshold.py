@@ -10,6 +10,7 @@ The state's scalars stay device tensors: no host sync inside a step.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -51,3 +52,12 @@ def update(state: ThresholdState, grad_norm: torch.Tensor, n_params: int,
     step = state.step + 1
     crossed = (ema < cfg.threshold) & (step >= cfg.min_steps)
     return ThresholdState(ema, sigma_q, step, crossed)
+
+
+def layer_ratio(grad_norm: float, sigma_q: float, n_params: int) -> float:
+    """One layer's ||g_i|| / (sigma_q sqrt(d_i)), the per-layer section 4
+    statistic, in Python floats (host-side telemetry: the trainer maps it
+    over the per-leaf gradient norms to flag layers whose own signal sank
+    under the sqrt(3) floor while the global ratio still clears it)."""
+    return float(grad_norm) / (float(sigma_q)
+                               * math.sqrt(max(int(n_params), 1)) + 1e-30)

@@ -8,7 +8,8 @@
   python -m repro_torch.launch.serve --smoke --queue 8 --prefix-cache \\
       --device cpu
 
-Initializes random parameters from a seeded ``torch.Generator``, builds the
+Initializes random parameters from a seeded ``torch.Generator`` (or
+restores a params checkpoint over them with ``--ckpt-dir``), builds the
 engine (weights packed to NVFP4 once) and runs synthetic prompts through
 prefill + decode, reporting tokens/s.  With ``--queue`` (implied by
 ``--prefix-cache``, ``--prefill-chunk``, ``--spec-decode`` and ``--trace``)
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.checkpoint import ckpt
 from repro_torch.configs import get_config
 from repro_torch.core import fqt
 from repro_torch.models import registry
@@ -84,8 +86,13 @@ def main(argv=None):
                     help="record a Chrome-trace-event JSON of the serve run "
                          "(simulated tick clock) and write it to PATH "
                          "(implies --queue)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="restore the latest params checkpoint in this "
+                         "directory over the seeded init")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the torch.Generator for weight init")
+                    help="seed of the torch.Generator for weight init "
+                         "(ignored with --ckpt-dir when a checkpoint is "
+                         "restored)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the "
                          "kernels' plain versions)")
@@ -96,6 +103,11 @@ def main(argv=None):
     if args.smoke:
         cfg = cfg.smoke()
     params = registry.init_params(cfg, seed=args.seed, device=dev)
+    if args.ckpt_dir:
+        step, restored = ckpt.restore_latest(args.ckpt_dir, params)
+        if restored is not None:
+            params = restored
+            print(f"restored step-{step} checkpoint")
     kv_fmt = args.kv_cache_format or ("bf16" if args.bf16 else "nvfp4")
     scfg = ServeConfig(batch_size=args.batch, max_len=args.max_len,
                        temperature=args.temperature, kv_cache_format=kv_fmt,

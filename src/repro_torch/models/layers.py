@@ -84,6 +84,43 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
     return (w * 0.02).to(dtype)
 
 
+class _EmbedLookup(torch.autograd.Function):
+    """``table[tokens]`` with a deterministic backward.  The gradient of the
+    gather sums g over repeated tokens.  torch's own backward,
+    ``index_put_(accumulate=True)``, adds them one by one in token order on
+    the CPU (as the reference's scatter-add does there), but with atomics
+    on CUDA, in an order that changes from run to run.  On CUDA it is
+    therefore one GEMM, one-hot(tokens)^T @ g in g's dtype with f32
+    accumulation: the same sums in a fixed order, so a restarted run repeats
+    an uninterrupted one bit for bit."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.vocab = table.shape[0]
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        tokens, = ctx.saved_tensors
+        flat = tokens.reshape(-1)
+        g2 = g.reshape(flat.numel(), -1)
+        if not g.is_cuda:
+            return g.new_zeros((ctx.vocab, g2.shape[1])).index_put_(
+                (flat,), g2, accumulate=True), None
+        onehot = (flat[:, None] == torch.arange(
+            ctx.vocab, device=flat.device)).to(g.dtype)
+        return onehot.T @ g2, None
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of the embedding ``table`` (V, d) at ``tokens``; differentiable
+    in ``table`` with a deterministic backward (``_EmbedLookup``)."""
+    if table.requires_grad and torch.is_grad_enabled():
+        return _EmbedLookup.apply(table, tokens)
+    return table[tokens]
+
+
 # ---- norms / activations ---------------------------------------------------------
 
 

@@ -20,7 +20,8 @@ from repro_torch.core.fqt import QuantConfig
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (TRASH_PAGE, PagedKVCache, QCtx,
                                        attn_apply, attn_params, dense_init,
-                                       dyn_rows, embed_init, make_kv_cache,
+                                       dyn_rows, embed_init, embed_lookup,
+                                       make_kv_cache,
                                        mlp_apply, mlp_params, rmsnorm)
 
 _SEED_STRIDE = 0x9E3779B9                   # per-layer SR seed stride
@@ -118,7 +119,7 @@ def forward(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, *,
             seed: int = 0, remat: bool = True):
     """Full-sequence forward (training).  Returns (logits, aux_loss); the
     dense family has no auxiliary loss."""
-    x = params["embed"][tokens]
+    x = embed_lookup(params["embed"], tokens)
     x, _ = apply_layers(params, cfg, qcfg, x, seed, remat=remat)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

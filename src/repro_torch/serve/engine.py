@@ -39,6 +39,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core import fqt
+from repro_torch.core.quantize import PackedQuantizedTensor
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import TRASH_PAGE
@@ -77,8 +78,8 @@ class ServeConfig:
     def __post_init__(self):
         if self.mesh is not None:
             raise NotImplementedError(
-                "mesh-native serving is not ported (ROADMAP Queue 1 item "
-                "12, distributed); the port serves on one device")
+                "mesh-native serving is not ported (ROADMAP Queue 1: "
+                "distributed/sharding.py); the port serves on one device")
 
 
 def _sample(logits: torch.Tensor, scfg: ServeConfig,
@@ -268,11 +269,11 @@ class ContinuousEngine:
         if cfg.family == "moe" or cfg.n_experts:
             raise NotImplementedError(
                 "continuous batching of the moe family arrives with its "
-                "slice (ROADMAP Queue 1 item 9)")
+                "slice (ROADMAP Queue 1: models/moe.py)")
         if cfg.family == "encdec":
             raise NotImplementedError(
                 "continuous batching of the encdec (whisper) family arrives "
-                "with its slice (ROADMAP Queue 1 item 11)")
+                "with its slice (ROADMAP Queue 1: models/whisper.py)")
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"continuous batching serves the dense family; "
@@ -788,4 +789,8 @@ def _to_device(tree, dev):
         return type(tree)(_to_device(v, dev) for v in tree)
     if isinstance(tree, torch.Tensor):
         return tree.to(dev)
+    if isinstance(tree, PackedQuantizedTensor):      # an exported artifact
+        return dataclasses.replace(tree, packed=tree.packed.to(dev),
+                                   scales=tree.scales.to(dev),
+                                   tscale=tree.tscale.to(dev))
     return tree

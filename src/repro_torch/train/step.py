@@ -23,6 +23,7 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
+from repro_torch.checkpoint.ckpt import reference_leaves
 from repro_torch.core import fqt, threshold
 from repro_torch.core.formats import M32
 from repro_torch.core.quantize import NVFP4, fake_quant
@@ -48,6 +49,8 @@ class TrainConfig:
     remat: bool = True
     probe_sigma: bool = True     # estimate sigma_q each step
     sigma_spec: Any = None       # spec of the sigma_q probe (NVFP4-SR)
+    layer_stats: bool = False    # per-leaf ||g|| in metrics (telemetry:
+                                 # the trainer's per-layer sqrt(3) series)
 
 
 def init_state(cfg: ModelConfig, tcfg: TrainConfig, *, seed: int = 0,
@@ -78,20 +81,9 @@ def step_seed(step: int) -> int:
 def _reference_leaves(tree) -> List[Tuple[List[torch.Tensor], bool]]:
     """The leaves in the reference's tree order (dict keys sorted), each as
     (tensors, stacked): the per-layer leaves of one name form one group,
-    which the reference holds as one (n_layers, ...) leaf."""
-    def walk(t):
-        if isinstance(t, dict):
-            return [g for k in sorted(t) for g in walk(t[k])]
-        return [t]
-    out = []
-    for k in sorted(tree):
-        if k == "layers":
-            per_layer = [walk(lp) for lp in tree[k]]
-            out += [([pl[j] for pl in per_layer], True)
-                    for j in range(len(per_layer[0]))]
-        else:
-            out += [([t], False) for t in walk(tree[k])]
-    return out
+    which the reference holds as one (n_layers, ...) leaf
+    (``checkpoint.ckpt.reference_leaves`` without the names)."""
+    return [(parts, stacked) for _, parts, stacked in reference_leaves(tree)]
 
 
 def probe_seed(step: int, leaf: int) -> int:
@@ -172,6 +164,14 @@ def make_train_step(cfg: ModelConfig, qcfg: fqt.QuantConfig,
             "gnr": thr_state.ratio_ema,          # gradient-to-noise ratio
             "thr_crossed": thr_state.crossed.to(torch.float32),
         }
+        if tcfg.layer_stats:
+            # one f32 norm per reference leaf (a stacked group's over all
+            # its layers), in reference order, left on the device: the
+            # trainer reads it with the other metrics in one transfer
+            metrics["layer_gnorms"] = torch.stack([
+                torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                               for g in group))
+                for group, _ in _reference_leaves(grads)])
         return TrainState(step + 1, params, opt, thr_state), metrics
 
     return train_step

@@ -209,7 +209,7 @@ def test_spec_stream_equals_plain_decode(models):
 
 def test_continuous_config_errors(models):
     cfg, tparams = models["llama2-7b"]
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="distributed/sharding.py"):
         ServeConfig(mesh="tp=2")
     with pytest.raises(ValueError, match="draft_layers"):
         ContinuousEngine(cfg, tparams, ServeConfig(draft_layers=1),
@@ -219,10 +219,10 @@ def test_continuous_config_errors(models):
                                                    temperature=1.0),
                          device="cpu")
     import dataclasses
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="models/moe.py"):
         ContinuousEngine(dataclasses.replace(cfg, family="moe"), tparams,
                          ServeConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="models/whisper.py"):
         ContinuousEngine(dataclasses.replace(cfg, family="encdec"), tparams,
                          ServeConfig(), device="cpu")
 

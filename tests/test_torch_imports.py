@@ -1,4 +1,4 @@
-"""The port stands alone: no jax and nothing of ``repro`` in
+"""The port stands alone: no jax, no ml_dtypes and nothing of ``repro`` in
 ``src/repro_torch`` or ``chip_smoke.py``, checked in the source (AST) and
 in a fresh interpreter; and ``chip_smoke.py`` refuses to run where it has no
 card or no repository beside it."""
@@ -18,7 +18,7 @@ FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
 def _imported_modules(tree: ast.AST):
@@ -56,15 +56,18 @@ def test_scan_sees_the_whole_port():
     names = {p.relative_to(PORT).as_posix() for p in FILES[:-1]}
     assert {"kernels/fp4_matmul.py", "kernels/flash_attn.py",
             "kernels/ref.py", "kernels/nvfp4_quant.py", "kernels/ops.py",
-            "serve/engine.py", "launch/serve.py", "convert.py"} <= names
+            "serve/engine.py", "launch/serve.py", "convert.py",
+            "checkpoint/ckpt.py", "train/trainer.py"} <= names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
+    assert _forbidden("ml_dtypes")
     assert not _forbidden("repro_torch.core")
 
 
 def test_launcher_import_pulls_in_no_jax_or_repro():
-    code = ("import sys, repro_torch.launch.serve\n"
+    code = ("import sys, repro_torch.launch.serve, "
+            "repro_torch.launch.train, repro_torch.checkpoint\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro'))\n"
+            "('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
             "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], env=_env(),
                        capture_output=True, text=True, timeout=300)
