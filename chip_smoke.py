@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU: serve
-(lockstep and continuous batching), train, and the pipeline from training
-through checkpoint/restart and the packed export to serving.
+(lockstep and continuous batching), train, the pipeline from training
+through checkpoint/restart and the packed export to serving, and the dense
+and moe archs at full width.
 
     python3 chip_smoke.py                    # every phase, one CUDA card
     python3 chip_smoke.py --phases env,kernels
@@ -34,7 +35,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
            4096^2 at M = K4_GEMV_MAX_M and one row more (each route meets
            the crossover), and E3M4 data above it (the "f32" route).  K6 runs
            K6_CASES and K6_EDGE (kv_len 1, one full 128-key tile, a window,
-           a long cache of 16 tiles in one split); K7 runs K7_CASES and K7_EDGE
+           a long cache of 16 tiles in one split) and K6_ROLL (the rolling
+           rule of a sliding-window buffer of 64 and of 4096 rows, below,
+           at and past the buffer, GQA); K7 runs K7_CASES and K7_EDGE
            (window, non-causal, ragged Sq != Sk, head dims 32 and 96); K5
            its 30 cases.  K2 runs on the route ``k2_route`` picks ("vec":
            16-byte lanes; "scalar": one thread a block), bit for bit:
@@ -113,6 +116,33 @@ Phases, each printing JSON lines; any failure exits non-zero:
            Reports free disk, seconds and bytes of every save, restore and
            export, the artifact's bytes per GEMM parameter, the
            telemetry's host ms per logged step and peak memory.
+  archs    the dense and moe archs at full width, weights from the streaming
+           packer (``packing.init_packed_params``, one layer at a time;
+           its seconds, bytes and peak memory printed), nvfp4 KV, greedy.
+           Each arch's smoke config first runs through the graphed engines
+           on the card against the CPU's plain versions (lockstep for
+           codeqwen1.5-7b, qwen2.5-32b, Mixtral with a prompt past its
+           window, Qwen3-MoE; continuous for the moe pair), streams equal.
+           Run a: codeqwen1.5-7b at full depth, lockstep batch 4 x prompt
+           64, 32 new, then ContinuousEngine on run A's traffic.  Run b:
+           qwen2.5-32b at full depth (64 layers), batch 4 x 64, 16 new.
+           Run c: Mixtral-8x7B at full depth, batch 4 x 64, 32 new; one
+           request of 4160 prompt tokens and 64 new over its rolling
+           4096-row buffer (K7 with the window, K6 with the rolling rule);
+           8 requests through ContinuousEngine.  Run d: Qwen3-MoE at full
+           width, depth cut to 4 layers, ContinuousEngine with the prefix
+           cache, 64-token chunks and verify-k 4 (2-layer draft).  Each
+           lockstep run goes through a graphed Engine (the main path) and
+           an eager one, streams equal, launches as ``lockstep_launches``
+           derives them (K4 ``layer_gemms`` a layer: each expert's three
+           on its capacity rows) on both; each continuous run is checked
+           as in serve_continuous.  Prefill and decode-step ms, tokens/s,
+           idle share and peak memory per run.  Run e: Mixtral at full
+           width, depth cut to 2 layers, through ``Trainer`` (batch 1 x
+           seq 1024, nvfp4_paper_config, remat, 3 steps): K1 launches per
+           step as ``k1_step_gemms`` derives them (the experts' GEMMs on
+           their capacity rows), K2 once per sigma_q probe leaf, loss and
+           nll finite and loss > nll (the router's aux term).
   ops      the kernel-level public API (``kernels/ops.py``) as a user calls
            it: the unfused FQT GEMM at each forward GEMM shape of the
            train phase's llama2-7b (M = 4096 tokens; (K, N) = (4096, 4096),
@@ -133,7 +163,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
            the train step runs it; K4 at every main-path shape with its
            route, and both routes at M 1-64 (the crossover); K5 at run A's
            decode, the verify and the chunk shapes; K6 at every K6_CASES row
-           with the split plan it takes; K7 at every K7_CASES and K7_MAIN
+           with the split plan it takes and on run c's rolling caches
+           (K6_ROLL_TIMES); K7 at every K7_CASES and K7_MAIN
            row; K2 at 4096^2 f32 (computed and given tensor scale), bf16,
            and at the sigma_q probe's largest leaf in counter mode; and the
            device time of each launch inside one call of K1, K2 (its absmax
@@ -161,7 +192,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("env", "kernels", "serve", "serve_continuous", "train",
-          "pipeline", "ops", "times")
+          "pipeline", "archs", "ops", "times")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core peak
 SEED = 0
@@ -190,6 +221,15 @@ K6_EDGE = (
     (4, 32, 32, 128, 256, 1, None), (4, 32, 32, 128, 256, 128, None),
     (4, 32, 32, 128, 256, 80, 24), (4, 32, 32, 128, 2048, 1500, None),
     (4, 32, 32, 128, 2048, 1500, 600))
+# K6 over a ROLLING (sliding-window) lockstep cache, decode rows: (B, H, KVH,
+# D, buffer, tokens written) with the window = the buffer, as Mixtral's
+# min(max_len, 4096): tokens below, at and past the buffer (rows
+# overwritten), on a 64-row buffer and on the 4096-row buffer of run c's long
+# request (GQA, G = 4)
+K6_ROLL = tuple((4, 32, 8, 128, 64, n) for n in (40, 64, 65, 200)) + tuple(
+    (1, 32, 8, 128, 4096, n) for n in (3000, 4096, 4161, 4223, 9000))
+# K6 timed on run c's rolling caches: (B, H, KVH, D, buffer, tokens written)
+K6_ROLL_TIMES = ((4, 32, 8, 128, 256, 80), (1, 32, 8, 128, 4096, 4192))
 # K5 at the continuous path's shapes: (label, B, Sq, H, KVH, D, page, pages,
 # per-slot lengths, q_offsets ("last": length - Sq), window).  The decode,
 # verify and window cases give one slot length 0 (an empty slot); the page
@@ -394,8 +434,10 @@ def k4_inputs(M, K, N, dev, seed=SEED):
 
 
 def k6_inputs(B, H, KVH, D, Sk, kv_len, q_dtype, dev, fmt="nvfp4",
-              seed=SEED):
-    """A decode row (q_offset = kv_len - 1) over a random cache."""
+              seed=SEED, written=None):
+    """A decode row (q_offset = kv_len - 1) over a random cache; with
+    ``written`` the row of a rolling buffer of Sk rows that holds ``written``
+    tokens (q_offset = written - 1, kv_len = min(written, Sk))."""
     import torch
     from repro_torch.core.quantize import kv_quant_rows
     g = gen(dev, seed)
@@ -404,7 +446,9 @@ def k6_inputs(B, H, KVH, D, Sk, kv_len, q_dtype, dev, fmt="nvfp4",
                      ).to(torch.bfloat16)
     kc, ks = kv_quant_rows(kv[0], fmt)
     vc, vs = kv_quant_rows(kv[1], fmt)
-    pos = torch.tensor([kv_len - 1, kv_len], dtype=torch.int32, device=dev)
+    pos = [kv_len - 1, kv_len] if written is None else [written - 1,
+                                                         min(written, Sk)]
+    pos = torch.tensor(pos, dtype=torch.int32, device=dev)
     return q, kc, ks, vc, vs, pos
 
 
@@ -762,6 +806,22 @@ def phase_kernels(dev) -> dict:
                       f"B={B} H={H} KVH={KVH} D={D} Sk={Sk} kv_len={kv_len} "
                       f"window={window} {fmt} q {str(q_dtype)[6:]} plan "
                       f"{plan}", got, want)
+    for B, H, KVH, D, Sk, n in K6_ROLL:
+        for fmt in ("nvfp4", "fp8"):
+            for q_dtype in (torch.float32, torch.bfloat16):
+                q, kc, ks, vc, vs, pos = k6_inputs(B, H, KVH, D, Sk, None,
+                                                   q_dtype, dev, fmt,
+                                                   written=n)
+                got = fa.flash_attention_packed(q, kc, ks, vc, vs, pos,
+                                                fmt=fmt, window=Sk,
+                                                rolling=True)
+                want = fa.flash_attention_packed_plain(
+                    q, kc, ks, vc, vs, pos, fmt=fmt, window=Sk, rolling=True)
+                torch.cuda.synchronize(dev)
+                check(fa.PACKED_NAME,
+                      f"rolling B={B} H={H} KVH={KVH} D={D} buffer={Sk} "
+                      f"written={n} {fmt} q {str(q_dtype)[6:]}", got, want)
+                del q, kc, ks, vc, vs, got, want
     for label, B, Sq, H, KVH, D, psz, npg, lens, qo, window in K5_CASES:
         for fmt in ("nvfp4", "fp8", "bf16"):
             for q_dtype in (torch.float32, torch.bfloat16):
@@ -938,7 +998,7 @@ def phase_serve(dev, batch=4, prompt_len=64, max_new=32, max_len=256):
     return info
 
 
-def graph_breakdown(eng, prompts, dev, steps=8) -> dict:
+def graph_breakdown(eng, prompts, dev, steps=8, phase="serve") -> dict:
     """The graphed engine's programs replayed on their own: prefill and
     decode-step times (CUDA events around each replay), and one profiled
     generate's device time by kernel and idle share."""
@@ -975,7 +1035,7 @@ def graph_breakdown(eng, prompts, dev, steps=8) -> dict:
     out.update({"profiled_generate_new_tokens": steps,
                 "profiled_wall_ms": wall_ms,
                 **device_time(prof, wall_ms, top=12, groups=SERVE_GROUPS)})
-    emit({"phase": "serve", "graph_breakdown": out})
+    emit({"phase": phase, "graph_breakdown": out})
     return out
 
 
@@ -1132,17 +1192,18 @@ class ProgramLog:
 
 def expected_launches(cfg, calls, draft_layers=0, spec_k=0) -> dict:
     """Each kernel's launches from the engine's program calls: every GEMM of
-    every program is K4 (7 per layer, + lm_head where a program samples);
+    every program is K4 (``layer_gemms`` per layer, + lm_head where a
+    program samples);
     K5 reads the paged cache in decode, verify (and the draft's k - 1
     decode steps), suffix and chunk prefill; K7 is cold prefill-into-slot
     attention."""
-    L = cfg.n_layers
+    L, g = cfg.n_layers, layer_gemms(cfg)
     head = calls["_prefill"] + calls["_prefill_suffix"] + calls["_decode"] \
         + calls["_verify"]
     draft_steps = (spec_k - 1) * calls["_verify"]
     return {"fused_quant_matmul": 0, "block_quantize": 0, "block_matmul": 0,
-            "packed_block_matmul": 7 * L * (head + calls["_prefill_chunk"])
-            + head + (7 * draft_layers + 1) * draft_steps,
+            "packed_block_matmul": g * L * (head + calls["_prefill_chunk"])
+            + head + (g * draft_layers + 1) * draft_steps,
             "flash_attention_paged": L * (calls["_decode"] + calls["_verify"]
                                           + calls["_prefill_suffix"]
                                           + calls["_prefill_chunk"])
@@ -1284,7 +1345,8 @@ def phase_serve_continuous(dev) -> dict:
     return out
 
 
-def continuous_run(eng, name, side, reqs, cfg, dev):
+def continuous_run(eng, name, side, reqs, cfg, dev,
+                   phase="serve_continuous"):
     """One timed run of a trace with its checks, then a shorter profiled
     run for the idle share.  Returns (the run's record, its streams, its
     greedy margins)."""
@@ -1304,22 +1366,24 @@ def continuous_run(eng, name, side, reqs, cfg, dev):
     sched, st = eng.scheduler, eng.scheduler.stats
     want = expected_launches(cfg, calls, eng.draft_layers,
                              eng.scfg.spec_k or 0)
-    # the program calls as the scheduler's records count them: every
-    # admission's last prefill chunk (or its whole prompt) is one suffix
-    # (A) or cold (B) prefill, the other logged chunks are chunk calls,
-    # and each tick adds its decode steps (A) or its one verify (B)
+    # the program calls as the scheduler's records count them: with the
+    # prefix cache or chunked prefill every admission's last prefill chunk
+    # (or its whole prompt) is one suffix prefill and the other logged
+    # chunks are chunk calls, else each admission is one cold prefill; each
+    # tick adds its decode steps, or its one verify under speculation
+    scfg = eng.scfg
+    warm = scfg.prefix_cache or scfg.prefill_chunk is not None
     sched_calls = ({"_prefill_chunk": len(sched.prefill_log)
-                    - st["admitted"], "_prefill_suffix": st["admitted"],
-                    "_decode": st["decode_steps"]} if name == "A" else
-                   {"_prefill": st["admitted"],
-                    "_verify": st["decode_steps"]})
+                    - st["admitted"], "_prefill_suffix": st["admitted"]}
+                   if warm else {"_prefill": st["admitted"]})
+    sched_calls["_verify" if eng.spec else "_decode"] = st["decode_steps"]
     summary = eng.metrics.summary()
     ntok = sum(len(v) for v in res.values())
     run_margins = dict(eng.margins)
     margins = np.concatenate([eng.margins[r] for r in res])
     toks = np.concatenate([res[r] for r in res])
     prog_ms = log.ms()
-    info = {"phase": "serve_continuous", "run": name, "side": side,
+    info = {"phase": phase, "run": name, "side": side,
             "arch": cfg.name,
             "config": {k: getattr(eng.scfg, k) for k in (
                 "max_slots", "max_len", "page_size", "kv_cache_format",
@@ -1346,22 +1410,22 @@ def continuous_run(eng, name, side, reqs, cfg, dev):
             "scheduler_calls": sched_calls,
             "first_tokens": [res[r][:8].tolist() for r in sorted(res)[:4]]}
     # the device idle share, from a second, shorter run (8 other requests)
-    # in which the profiler records 8 consecutive decode calls (a tick of
-    # run A) or one verify call (a tick of run B) once every request has
-    # arrived, and in run B also its third cold prefill (K7): the
-    # profiler's cost stays out of the numbers above
-    prog, first, n = ("_decode", 8, 8) if name == "A" else ("_verify", 4, 1)
+    # in which the profiler records 8 consecutive decode calls (a tick
+    # without speculation) or one verify call (a tick with it) once every
+    # request has arrived, and, where admissions prefill cold, the third
+    # cold prefill (K7): the profiler's cost stays out of the numbers above
+    prog, first, n = ("_verify", 4, 1) if eng.spec else ("_decode", 8, 8)
     log.profile = ((prog, calls[prog] + first, n),) + (
-        (("_prefill", calls["_prefill"] + 2, 1),) if name == "B" else ())
+        () if warm else (("_prefill", calls["_prefill"] + 2, 1),))
     eng.run(continuous_requests(cfg.vocab_size, n=8,
-                                shared=128 if name == "A" else 0,
+                                shared=128 if scfg.prefix_cache else 0,
                                 max_new=16, seed=SEED + 1))
     missing = [p[0] for p in log.profile if p[0] not in log.breakdown]
     if missing:
         raise AssertionError(f"run {name} {side}: the profiled run made too "
                              f"few {missing} calls")
     info["breakdown"] = log.breakdown[prog]
-    if name == "B":
+    if not warm:
         info["prefill_breakdown"] = log.breakdown["_prefill"]
     if launches != want:
         raise AssertionError(f"run {name} {side}: launch counts {launches} "
@@ -1370,7 +1434,7 @@ def continuous_run(eng, name, side, reqs, cfg, dev):
         raise AssertionError(f"run {name} {side}: program calls {calls} "
                              f"disagree with the scheduler {sched_calls}")
     if sorted(res) != [r.rid for r in reqs] or \
-            any(len(v) != 32 for v in res.values()):
+            any(len(res[r.rid]) != r.max_new for r in reqs):
         raise AssertionError(f"run {name} {side}: wrong outputs")
     if ((toks < 0) | (toks >= cfg.vocab_size)).any():
         raise AssertionError("token id outside the vocabulary")
@@ -1441,8 +1505,8 @@ def k1_step_gemms(cfg, qcfg, tokens, remat=True) -> dict:
     from repro_torch.core.fqt import _if_divisible as div
     from repro_torch.core.fqt import _use_k1
 
-    def upd(spec):
-        return None if spec is None or tokens % spec.block else spec
+    def upd(spec, M):
+        return None if spec is None or M % spec.block else spec
 
     def sr(*specs):
         return tuple(bool(sp.stochastic) for sp in specs)
@@ -1452,22 +1516,33 @@ def k1_step_gemms(cfg, qcfg, tokens, remat=True) -> dict:
     def add(key, n):
         out[key] = out.get(key, 0) + n
 
-    def gemm(K, N, qc, times, fwd_times):
+    def gemm(K, N, qc, times, fwd_times, M=tokens):
         a, w = div(qc.fwd_a, K), div(qc.fwd_w, K)
         if _use_k1(a, w, K):
-            add(("fwd", tokens, K, N) + sr(a, w), fwd_times)
+            add(("fwd", M, K, N) + sr(a, w), fwd_times)
         g, wt = div(qc.bwd_g, N), div(qc.bwd_w, N)
         if _use_k1(g, wt, N):
-            add(("dX", tokens, N, K) + sr(g, wt), times)
-        ua, ug = upd(qc.upd_a), upd(qc.upd_g)
-        if _use_k1(ua, ug, tokens):
-            add(("dW", K, tokens, N) + sr(ua, ug), times)
+            add(("dX", M, N, K) + sr(g, wt), times)
+        ua, ug = upd(qc.upd_a, M), upd(qc.upd_g, M)
+        if _use_k1(ua, ug, M):
+            add(("dW", K, M, N) + sr(ua, ug), times)
 
     d, f = cfg.d_model, cfg.d_ff
     qd, kv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
-    L = cfg.n_layers
-    for K, N in ((d, qd), (d, kv), (d, kv), (qd, d), (d, f), (d, f), (f, d)):
-        gemm(K, N, qcfg, L, L * (2 if remat else 1))
+    L, fwd = cfg.n_layers, 2 if remat else 1
+    for K, N in ((d, qd), (d, kv), (d, kv), (qd, d)):
+        gemm(K, N, qcfg, L, L * fwd)
+    if cfg.n_experts:
+        # each expert's GEMMs run on its capacity rows of every group
+        from repro_torch.models.moe import _capacity
+        G = cfg.moe_groups if (cfg.moe_groups
+                               and tokens % cfg.moe_groups == 0) else 1
+        M, E = G * _capacity(tokens // G, cfg), cfg.n_experts
+        for K, N in ((d, f), (d, f), (f, d)):
+            gemm(K, N, qcfg, L * E, L * E * fwd, M)
+    else:
+        for K, N in ((d, f), (d, f), (f, d)):
+            gemm(K, N, qcfg, L, L * fwd)
     head = qcfg if cfg.quantize_lm_head else fqt.QuantConfig()
     gemm(d, cfg.padded_vocab, head, 1, 1)
     return out
@@ -1694,11 +1769,19 @@ def differing_leaves(a, b) -> list:
             if not all(same_bits(x, y) for x, y in zip(pa, pb))]
 
 
+def layer_gemms(cfg) -> int:
+    """Weight GEMMs of one layer's forward: wq, wk, wv, wo and the MLP's
+    three, or each expert's three (a moe layer runs every expert on its
+    capacity rows, empty or not)."""
+    return 4 + 3 * (cfg.n_experts or 1)
+
+
 def lockstep_launches(cfg, steps) -> dict:
     """Each kernel's launches of one lockstep generate of ``steps`` decode
-    steps: K4 for every GEMM (7 a layer + lm_head) of the prefill and of each
-    step, K7 once a layer in the prefill, K6 once a layer a step."""
-    gemms = 7 * cfg.n_layers + 1
+    steps: K4 for every GEMM (``layer_gemms`` a layer + lm_head) of the
+    prefill and of each step, K7 once a layer in the prefill, K6 once a
+    layer a step."""
+    gemms = layer_gemms(cfg) * cfg.n_layers + 1
     return {"fused_quant_matmul": 0, "block_quantize": 0, "block_matmul": 0,
             "packed_block_matmul": gemms * (1 + steps),
             "flash_attention_paged": 0,
@@ -1958,6 +2041,375 @@ def phase_pipeline(dev, batch=4, seq=1024, n_layers=2, steps=6, split=3,
         raise AssertionError("the artifact serves another stream")
     info["serve"] = serve
     return info
+
+
+# ---- archs: the dense and moe families at full width ------------------------
+
+# the smoke configs held card (graphs) vs CPU in phase archs, and the lockstep
+# prompt length of each (Mixtral's past its 64-token window: the buffer rolls)
+ARCH_SMOKE = ("codeqwen1.5-7b", "qwen2.5-32b", "mixtral-8x7b",
+              "qwen3-moe-235b-a22b")
+QWEN3_LAYERS = 4          # qwen3-moe-235b-a22b: depth cut 94 -> 4 (run d)
+MOE_TRAIN_LAYERS = 2      # Mixtral training: depth cut 32 -> 2 (run e)
+
+
+def packed_init(cfg, dev) -> tuple:
+    """The serving tree of a random init, built by the streaming packer
+    (``packing.init_packed_params``: one layer at a time), with its
+    seconds, bytes and the peak device memory of the build."""
+    import gc
+    import torch
+    from repro_torch.core import fqt
+    from repro_torch.serve import packing
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = start_mark(dev)
+    t0 = time.perf_counter()
+    params = packing.init_packed_params(cfg, gen(dev, SEED),
+                                        fqt.qaf_config().fwd_w, device=dev)
+    torch.cuda.synchronize(dev)
+    info = {"init_s": time.perf_counter() - t0,
+            "weight_store_bytes": packing.weight_store_bytes(params),
+            **start, "init_peak_mem_bytes":
+                torch.cuda.max_memory_allocated(dev)}
+    emit({"phase": "archs", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "packed_init": info})
+    return params, info
+
+
+def archs_smoke(dev) -> list:
+    """Each arch's smoke config through the graphed engines on the card and
+    the same engines on the CPU's plain versions: lockstep (two generates)
+    for every arch, continuous batching for the moe pair (Mixtral's window
+    rolling, Qwen3 with the prefix cache, chunked prefill and verify-k);
+    streams equal (or first apart at a near-tie) and compile counts equal."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.serve import ContinuousEngine, Engine, ServeConfig
+    rows = []
+    for arch in ARCH_SMOKE:
+        small = get_config(arch).smoke()
+        p_cpu = registry.init_params(small, seed=SEED, device="cpu")
+        rng = np.random.default_rng(SEED)
+        plen = 80 if small.sliding_window else 16
+        prompts = [rng.integers(0, small.vocab_size, plen) for _ in range(4)]
+        scfg = ServeConfig(batch_size=4, max_len=128, kv_cache_format="nvfp4",
+                           eos_id=-1)
+        ref = Engine(small, p_cpu, scfg, device="cpu")
+        out_ref = ref.generate(prompts, max_new=16)
+        eng = Engine(small, p_cpu, scfg, device=dev)
+        for rep in range(2):
+            out = eng.generate(prompts, max_new=16)
+            checks = [_first_divergence_ok(a.tolist(), b.tolist(), m)
+                      for a, b, m in zip(out, out_ref, ref.margins)]
+            row = {"phase": "archs", "check": "smoke-size lockstep card "
+                   "(graphs) vs CPU plain", "arch": arch, "generate": rep,
+                   "prompt_len": plen,
+                   "streams_ok": [c[0] for c in checks],
+                   "first_divergence": [c[1] for c in checks]}
+            emit(row)
+            rows.append(row)
+            if not all(c[0] for c in checks):
+                raise AssertionError(f"{arch}: card and CPU streams differ "
+                                     f"at a decisive step")
+        if not small.n_experts:
+            continue
+        extra = (dict(prefix_cache=True, prefill_chunk=16, spec_k=4,
+                      draft_layers=1) if small.sliding_window is None
+                 else {})
+        cs = ServeConfig(max_slots=4, max_len=128, page_size=16,
+                         decode_chunk=4, eos_id=-1, **extra)
+        reqs = continuous_requests(small.vocab_size, n=6,
+                                   shared=32 if extra else 0,
+                                   lens=(8, 40) if extra else (30, 60),
+                                   max_new=12)
+        ref = ContinuousEngine(small, p_cpu, cs, device="cpu")
+        eng = ContinuousEngine(small, p_cpu, cs, device=dev)
+        for rep in range(2):
+            want, card = ref.run(reqs), eng.run(reqs)
+            checks = {r: _first_divergence_ok(card[r].tolist(),
+                                              want[r].tolist(),
+                                              ref.margins[r]) for r in want}
+            row = {"phase": "archs", "check": "smoke-size continuous card "
+                   "(graphs) vs CPU plain", "arch": arch, "run": rep,
+                   "config": extra,
+                   "streams_ok": [c[0] for c in checks.values()],
+                   "first_divergence": [c[1] for c in checks.values()],
+                   "compiles_card": compiles(eng),
+                   "compiles_cpu": compiles(ref)}
+            emit(row)
+            rows.append(row)
+            if sorted(card) != sorted(want) or \
+                    not all(c[0] for c in checks.values()):
+                raise AssertionError(f"{arch}: continuous card and CPU "
+                                     f"streams differ at a decisive step")
+            if compiles(eng) != compiles(ref):
+                raise AssertionError(f"{arch}: compile counts differ")
+    return rows
+
+
+def archs_lockstep(label, cfg, params, dev, batch, prompt_len, max_new,
+                   max_len) -> dict:
+    """One lockstep run through a graphed Engine (the main path) and the
+    same prompts through an eager one: streams equal, launches as
+    ``lockstep_launches`` derives them on both sides, tokens in the
+    vocabulary and finite margins; then the graphed engine's prefill and
+    decode-step times and a profiled generate's idle share."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.kernels import counters
+    from repro_torch.serve import Engine, ServeConfig
+    scfg = ServeConfig(batch_size=batch, max_len=max_len,
+                       kv_cache_format="nvfp4", eos_id=-1)
+    engines = {"graphs": Engine(cfg, params, scfg, device=dev),
+               "eager": Engine(cfg, params, scfg, device=dev,
+                               cuda_graphs=False)}
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, prompt_len)
+               for _ in range(batch)]
+    for side, eng in engines.items():       # warm-up: run, capture, replay
+        for _ in range(2 if side == "graphs" else 1):
+            eng.generate(prompts, max_new=2)
+    torch.cuda.synchronize(dev)
+    sides, outs = {}, {}
+    for side, eng in engines.items():
+        start = start_mark(dev)
+        counters.reset()
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, max_new=max_new)
+        torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        launches = counters.snapshot()
+        want = lockstep_launches(cfg, eng.steps)
+        margins = np.asarray(eng.margins)
+        ntok = sum(len(o) for o in out)
+        info = {"phase": "archs", "run": label, "side": side,
+                "arch": cfg.name, "n_layers": cfg.n_layers, "batch": batch,
+                "prompt_len": prompt_len, "max_new": max_new,
+                "max_len": max_len, "kv_buffer": eng._carry[0].buf,
+                "rolling": cfg.sliding_window is not None
+                and prompt_len + max_new > eng._carry[0].buf,
+                "decode_steps": eng.steps, "tokens": ntok, "seconds": dt,
+                "tokens_per_s": ntok / dt, **start, **memory_mark(dev),
+                "first_tokens": [o[:8].tolist() for o in out],
+                "programs": program_captures(eng), "launches": launches,
+                "expected_launches": want}
+        emit(info)
+        if launches != want:
+            raise AssertionError(f"{label} {side}: launch counts {launches} "
+                                 f"!= {want}")
+        if len(out) != batch or any(len(o) != max_new for o in out):
+            raise AssertionError(f"{label} {side}: wrong output shape")
+        if any(((o < 0) | (o >= cfg.vocab_size)).any() for o in out):
+            raise AssertionError("token id outside the vocabulary")
+        if not np.isfinite(margins).all():
+            raise AssertionError("non-finite logits")
+        sides[side], outs[side] = info, (out, margins)
+    same = all(np.array_equal(a, b) for a, b in zip(outs["graphs"][0],
+                                                    outs["eager"][0]))
+    margin_diff = float(np.max(np.abs(outs["graphs"][1] - outs["eager"][1])))
+    emit({"phase": "archs", "run": label, "check": "graphs vs eager",
+          "streams_equal": same, "max_abs_margin_diff": margin_diff})
+    if not same:
+        raise AssertionError(f"{label}: graphed and eager streams differ")
+    del engines["eager"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    info = dict(sides["graphs"])
+    info["eager"] = sides["eager"]
+    info["streams_equal"], info["max_abs_margin_diff"] = same, margin_diff
+    info["graph_breakdown"] = graph_breakdown(engines["graphs"], prompts, dev,
+                                              phase="archs")
+    return info
+
+
+def archs_continuous(label, cfg, params, dev, reqs, **fields) -> dict:
+    """One continuous-batching run through a graphed ContinuousEngine:
+    ``continuous_run``'s checks (launches from the program calls, program
+    calls from the scheduler, outputs) and its profiled tick."""
+    import gc
+    import torch
+    from repro_torch.serve import ContinuousEngine, ServeConfig
+    scfg = ServeConfig(max_slots=8, max_len=512, page_size=16,
+                       kv_cache_format="nvfp4", decode_chunk=8, eos_id=-1,
+                       **fields)
+    eng = ContinuousEngine(cfg, params, scfg, device=dev)
+    info, _, _ = continuous_run(eng, label, "graphs", reqs, cfg, dev,
+                                phase="archs")
+    info["n_layers"] = cfg.n_layers
+    emit(info)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+def archs_train(dev, seq=1024, steps=3) -> dict:
+    """Mixtral at full width, depth cut to MOE_TRAIN_LAYERS, through
+    ``Trainer``: batch 1 x seq, nvfp4_paper_config, remat, the sigma_q
+    probe.  Every step launches K1 as ``k1_step_gemms`` derives it (the
+    experts' GEMMs on their capacity rows) and K2 once per probe leaf;
+    loss and nll finite with loss > nll (the router's aux term)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import fqt, qaf
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import counters
+    from repro_torch.train import TrainConfig, Trainer, TrainerConfig
+    full = get_config("mixtral-8x7b")
+    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    qcfg, tcfg = fqt.nvfp4_paper_config(), TrainConfig(remat=True)
+    per_step = sum(k1_step_gemms(cfg, qcfg, seq).values())
+    trainer = Trainer(cfg, qcfg, tcfg, TrainerConfig(
+        total_steps=steps, log_every=1, qaf=qaf.QAFConfig(enabled=False)),
+        DataConfig(cfg.vocab_size, seq, 1), device=dev)
+    marks = count_steps(trainer)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    counters.reset()
+    t0 = time.perf_counter()
+    state = trainer.run()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    marks.append(counters.snapshot())
+    per = step_launches(marks)
+    leaves = len(probe_leaf_ids(state.params, probe_spec_of(tcfg)))
+    hist = trainer.history
+    timed = [h["dt"] * 1e3 for h in hist[1:]]
+    info = {"phase": "archs", "run": "e", "arch": full.name, "cut": {
+        "n_layers": [full.n_layers, MOE_TRAIN_LAYERS]}, "batch": 1,
+            "seq": seq, "steps": steps, "quant": "nvfp4_paper_config",
+            "remat": True, "seconds": wall,
+            "step_ms": [h["dt"] * 1e3 for h in hist],
+            "step_ms_median": statistics.median(timed),
+            "tokens_per_s": seq / (statistics.median(timed) / 1e3),
+            "loss": [h["loss"] for h in hist], "nll": [h["nll"] for h in hist],
+            "grad_norm": [h["grad_norm"] for h in hist],
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+            "k1_launches_per_step_expected": per_step,
+            "probe_leaves": leaves, "launches_per_step": per}
+    emit(info)
+    for i, (h, n) in enumerate(zip(hist, per)):
+        if n["fused_quant_matmul"] != per_step or \
+                n["block_quantize"] != leaves:
+            raise AssertionError(f"step {i}: launches {n}, expected "
+                                 f"{per_step} K1 and {leaves} K2")
+        if not all(math.isfinite(h[k]) for k in ("loss", "nll",
+                                                 "grad_norm")):
+            raise AssertionError(f"non-finite metrics at step {i}")
+        if not h["loss"] > h["nll"]:
+            raise AssertionError(f"step {i}: loss {h['loss']} <= nll "
+                                 f"{h['nll']}: no aux term")
+    info["card_loss"] = card_loss_check(state.params, cfg, qcfg, seq, dev)
+    emit({"phase": "archs", "run": "e", "card_loss": info["card_loss"]})
+    del state, trainer
+    return info
+
+
+def card_loss_check(params, cfg, qcfg, seq, dev) -> dict:
+    """The card's loss (``refnum.torch_nll``, torch's log_softmax backward)
+    against the reference's order (``refnum.MeanNLL``, held to JAX bit for
+    bit on the CPU) on one batch's logits on the card: the same value, and
+    logit gradients at most one ulp of the logits' dtype (bf16) apart."""
+    import torch
+    from repro_torch.models import refnum, registry
+    toks = torch.randint(0, cfg.vocab_size, (1, seq + 1), device=dev,
+                         generator=gen(dev, SEED))
+    with torch.no_grad():
+        logits, _ = registry.forward(params, cfg, qcfg,
+                                     {"tokens": toks[:, :-1]}, seed=5)
+    out = []
+    for nll in (refnum.MeanNLL.apply, refnum.torch_nll):
+        x = logits.detach().clone().requires_grad_(True)
+        loss = nll(x, toks[:, 1:])
+        loss.backward()
+        out.append((loss.detach(), x.grad))
+    (want, gw), (got, gg) = out
+    itype = {2: torch.int16, 4: torch.int32}[gg.element_size()]
+    bits = [torch.where(g == 0, 0, g.view(itype).long()) for g in (gg, gw)]
+    ulps = (bits[0] - bits[1]).abs()
+    info = {"loss": float(got), "loss_reference_order": float(want),
+            "max_ulps": int(ulps.max()),
+            "differing": int((ulps > 0).sum()), "logits": ulps.numel(),
+            "dtype": str(logits.dtype)}
+    if not torch.equal(got, want) or info["max_ulps"] > 1:
+        raise AssertionError(f"card loss vs reference order: {info}")
+    return info
+
+
+def phase_archs(dev) -> dict:
+    """The dense and moe archs at full width on one card: runs a-e."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    out = {"smoke": archs_smoke(dev), "launches": {}}
+
+    def add(info):
+        for k, v in info["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # a: codeqwen1.5-7b, full depth: lockstep, then run A's traffic
+    cfg = get_config("codeqwen1.5-7b")
+    params, build = packed_init(cfg, dev)
+    out["a"] = {"build": build, "lockstep": archs_lockstep(
+        "a", cfg, params, dev, 4, 64, 32, 256)}
+    out["a"]["continuous"] = archs_continuous(
+        "a continuous", cfg, params, dev, continuous_requests(cfg.vocab_size),
+        prefix_cache=True, prefill_chunk=64)
+    add(out["a"]["lockstep"])
+    add(out["a"]["continuous"])
+    del params
+    free()
+    # b: qwen2.5-32b, full depth (64 layers)
+    cfg = get_config("qwen2.5-32b")
+    params, build = packed_init(cfg, dev)
+    out["b"] = {"build": build, "lockstep": archs_lockstep(
+        "b", cfg, params, dev, 4, 64, 16, 256)}
+    add(out["b"]["lockstep"])
+    del params
+    free()
+    # c: mixtral-8x7b, full depth: batch 4; one request past the window (the
+    # 4096-row buffer rolls in the prefill and every step); 8 requests over
+    # the paged pool (no prefix cache or spec: the window refuses both)
+    cfg = get_config("mixtral-8x7b")
+    params, build = packed_init(cfg, dev)
+    out["c"] = {"build": build, "lockstep": archs_lockstep(
+        "c", cfg, params, dev, 4, 64, 32, 256)}
+    out["c"]["long"] = archs_lockstep("c long", cfg, params, dev, 1, 4160,
+                                      64, 4352)
+    out["c"]["continuous"] = archs_continuous(
+        "c continuous", cfg, params, dev,
+        continuous_requests(cfg.vocab_size, n=8, shared=0))
+    for k in ("lockstep", "long", "continuous"):
+        add(out["c"][k])
+    del params
+    free()
+    # d: qwen3-moe-235b-a22b, depth cut to QWEN3_LAYERS: prefix cache,
+    # 64-token chunks, verify-k 4 with a 2-layer self-draft
+    full = get_config("qwen3-moe-235b-a22b")
+    cfg = dataclasses.replace(full, n_layers=QWEN3_LAYERS)
+    params, build = packed_init(cfg, dev)
+    out["d"] = {"build": build, "cut": {"n_layers": [full.n_layers,
+                                                     QWEN3_LAYERS]},
+                "continuous": archs_continuous(
+                    "d continuous", cfg, params, dev,
+                    continuous_requests(cfg.vocab_size), prefix_cache=True,
+                    prefill_chunk=64, spec_k=4, draft_layers=2)}
+    add(out["d"]["continuous"])
+    del params
+    free()
+    # e: Mixtral training, depth cut to MOE_TRAIN_LAYERS
+    out["e"] = archs_train(dev)
+    for step in out["e"]["launches_per_step"]:
+        add({"launches": step})
+    emit({"phase": "archs", "launches_main_path": out["launches"]})
+    return out
 
 
 def phase_ops(dev) -> dict:
@@ -2372,6 +2824,30 @@ def phase_times(dev) -> dict:
                    lambda: F.scaled_dot_product_attention(qt, kt, vt),
                    nbytes, 4 * B * H * kv_len * D,
                    plan=fa.k6_plan(1, H, KVH, D, Sk))
+        # K6 on run c's rolling caches (Mixtral, GQA): batch 4 over a
+        # 256-row buffer, and the long request's 4096-row buffer mid-decode
+        for B, H, KVH, D, Sk, n in K6_ROLL_TIMES:
+            q, kc, ks, vc, vs, pos = k6_inputs(B, H, KVH, D, Sk, None,
+                                               torch.bfloat16, dev,
+                                               written=n)
+            kv_len = min(n, Sk)
+            kd = kv_dequant(kc[:, :kv_len], ks[:, :kv_len], "nvfp4")
+            vd = kv_dequant(vc[:, :kv_len], vs[:, :kv_len], "nvfp4")
+            G = H // KVH
+            qt = q.transpose(1, 2)
+            kt = kd.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+            vt = vd.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+            nbytes = (2 * B * H * D * 2 + 8
+                      + 2 * B * kv_len * KVH * (D // 2 + D // 16))
+            record(fa.PACKED_NAME, ("rolling", B, H, KVH, D, Sk, n),
+                   lambda: fa.flash_attention_packed(
+                       q, kc, ks, vc, vs, pos, window=Sk, rolling=True),
+                   lambda: fa.flash_attention_packed_plain(
+                       q, kc, ks, vc, vs, pos, window=Sk, rolling=True),
+                   lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                   nbytes, 4 * B * H * kv_len * D,
+                   plan=fa.k6_plan(1, H, KVH, D, Sk))
+            del q, kc, ks, vc, vs, kd, vd, qt, kt, vt
         # K5 at run A's decode shape: 8 slots of 256 cached tokens, nvfp4
         B, H, D, psz, npg, kv_len = 8, 32, 128, 16, 32, 256
         q, kc, ks, vc, vs, pt, kl, qo = k5_inputs(
@@ -2561,6 +3037,7 @@ def main(argv=None) -> int:
                       "serve": phase_serve,
                       "serve_continuous": phase_serve_continuous,
                       "train": phase_train, "pipeline": phase_pipeline,
+                      "archs": phase_archs,
                       "ops": phase_ops,
                       "times": phase_times}[p](dev)
         emit({"phase": p, "done": True,
@@ -2577,6 +3054,9 @@ def main(argv=None) -> int:
         for name in ("fused_quant_matmul", "block_quantize"):
             launches[name] = results["train"]["launches"][name]
         launches["block_matmul"] = results["ops"]["launches"]["block_matmul"]
+        # and each kernel's launches on the archs' paths (runs a-e)
+        for name, n in results["archs"]["launches"].items():
+            launches[name] = launches.get(name, 0) + n
         line = []
         for name, (case, route, src, replaces) in SUMMARY.items():
             row = results["times"][(name, case)]

@@ -21,7 +21,12 @@
 // is (b * Sk + key) * KVH + kvh, one device int32 pair (q_offset, kv_len)
 // serves every slot, and the window runs over linear positions (kpos = the
 // row index, as the TPU kernel's _tile_mask), so a block starts at its
-// window's first key and stops at its causal frontier.
+// window's first key and stops at its causal frontier.  Where the host
+// passes rolling = 1 (the lockstep cache of a sliding-window model, written
+// at row pos % Sk) K6 takes K5's rolling rule instead: every row below
+// kv_len is read, and row j holds the latest position with pos % Sk == j,
+// relative to the last query row -- the reference's _attn_decode_packed
+// over swa_kpos.
 //
 // What bounds them on an H100: bytes, and in practice latency.  At
 // continuous-batching decode (8 slots, one query row, 256 cached tokens of
@@ -102,6 +107,7 @@ struct PagedArgs {
   float* ws_acc;  // (B, Sq, H, n_splits, D)
   void* out;
   int q_bf16, Sq, H, KVH, D, psz, n_pages, fmt, block, causal, window;
+  int rolling;  // the window runs over a rolling buffer (K5: window > 0)
   int cb, sb;  // code and scale bytes of one row of one head (sb 0: bf16)
   int cstride, sstride;  // their row strides in shared memory
   float sm_scale;
@@ -134,24 +140,25 @@ __device__ __forceinline__ float bf16_bits(uint32_t u) {
 // Keys [0, kproc) of slot b that a group of query vectors whose last row is
 // last_row reads.  K5: the reference's pages (ki * psz < kv_len, and ki *
 // psz <= that row's position for a linear cache under the causal mask),
-// whole.  K6: the keys below kv_len and the causal frontier.
+// whole.  K6: the keys below kv_len and, for a linear cache, the causal
+// frontier.
 template <class Rows>
 __device__ __forceinline__ int block_kproc(const PagedArgs& p, int b,
                                            int last_row) {
   const int sl = Rows::kPaged ? b : 0;
   const int buf = p.n_pages * p.psz;
   int kend = min(max(p.lengths[sl], 0), buf);
-  if (p.causal && (!Rows::kPaged || p.window <= 0))
+  if (p.causal && !p.rolling)
     kend = min(kend, max(p.q_offsets[sl] + last_row + 1, 0));
   return Rows::kPaged ? (kend + p.psz - 1) / p.psz * p.psz : kend;
 }
 
 // The first key a group of query vectors whose first row is first_row
-// reads: K6's window over linear positions starts there; K5 starts at 0
-// (a rolling buffer holds any position in any slot).
+// reads: K6's window over linear positions starts there; K5 and a rolling
+// K6 start at 0 (a rolling buffer holds any position in any row).
 template <class Rows>
 __device__ __forceinline__ int block_kbeg(const PagedArgs& p, int first_row) {
-  if (Rows::kPaged || p.window <= 0) return 0;
+  if (Rows::kPaged || p.window <= 0 || p.rolling) return 0;
   return max(0, p.q_offsets[0] + first_row - p.window + 1);
 }
 
@@ -435,9 +442,8 @@ kv_split_kernel(const PagedArgs p) {
     if (proc)
       score_row<QM, D>(p.fmt, p.cb, p.block, kcs + j * p.cstride,
                        kss + j * p.sstride, qs, nq, lut16, lut8, s);
-    const int kpos = (Rows::kPaged && p.window > 0)
-                         ? last - floor_mod(last_mod - key, buf)
-                         : key;
+    const int kpos =
+        p.rolling ? last - floor_mod(last_mod - key, buf) : key;
     const bool key_ok = key < kv_len && kpos >= 0;
     float pr[QM];
 #pragma unroll
@@ -645,6 +651,7 @@ extern "C" int flash_attention_paged_fwd(
   p.block = block;
   p.causal = causal;
   p.window = window;
+  p.rolling = window > 0;
   p.sm_scale = sm_scale;
   p.qv = qv;
   p.keys_per_split = keys_per_split;
@@ -653,17 +660,19 @@ extern "C" int flash_attention_paged_fwd(
 }
 
 // K6 over the contiguous cache (B, Sk, KVH, Dc): pos the int32 pair
-// (q_offset, kv_len) on the device; fmt kNvfp4 or kFp8; qv query vectors
-// per block and keys_per_split (Sk rounded up to whole tiles: one split,
-// written to out directly) from k6_plan.
+// (q_offset, kv_len) on the device; fmt kNvfp4 or kFp8; rolling 1 for a
+// sliding-window buffer written at row pos % Sk (needs window > 0); qv
+// query vectors per block and keys_per_split (Sk rounded up to whole tiles:
+// one split, written to out directly) from k6_plan.
 extern "C" int flash_attention_packed_fwd(
     const void* q, int q_bf16, const uint8_t* k_codes,
     const uint8_t* k_scales, const uint8_t* v_codes, const uint8_t* v_scales,
     const int* pos, void* out, int B, int Sq, int H, int KVH, int D, int Sk,
-    int nb, int fmt, int block, int causal, int window, float sm_scale,
-    int qv, int keys_per_split, cudaStream_t stream) {
+    int nb, int fmt, int block, int causal, int window, int rolling,
+    float sm_scale, int qv, int keys_per_split, cudaStream_t stream) {
   if (B <= 0 || Sq <= 0) return int(cudaSuccess);
-  if (fmt == kBf16 || keys_per_split < Sk) return int(cudaErrorInvalidValue);
+  if (fmt == kBf16 || keys_per_split < Sk || (rolling && window <= 0))
+    return int(cudaErrorInvalidValue);
   PagedArgs p{q, k_codes, k_scales, v_codes, v_scales, nullptr, pos + 1,
               pos, nullptr, nullptr, out};
   p.q_bf16 = q_bf16;
@@ -677,6 +686,7 @@ extern "C" int flash_attention_packed_fwd(
   p.block = block;
   p.causal = causal;
   p.window = window;
+  p.rolling = rolling;
   p.sm_scale = sm_scale;
   p.qv = qv;
   p.keys_per_split = keys_per_split;

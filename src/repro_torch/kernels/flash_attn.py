@@ -79,8 +79,14 @@ def _online_softmax(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
 
 
 def _mask(qpos: torch.Tensor, kpos: torch.Tensor, kv_len, causal: bool,
-          window: Optional[int]) -> torch.Tensor:
-    valid = (kpos < kv_len)[None, :].expand(qpos.shape[0], -1)
+          window: Optional[int], rows: Optional[torch.Tensor] = None
+          ) -> torch.Tensor:
+    """(Sq, Sk) validity: the row below kv_len (``rows``: each key's row in
+    the buffer, default its position) and the causal and window rules on
+    the positions."""
+    rows = kpos if rows is None else rows
+    valid = ((rows < kv_len) & (kpos >= 0))[None, :].expand(
+        qpos.shape[0], -1)
     if causal:
         valid = valid & (kpos[None, :] <= qpos[:, None])
     if window is not None:
@@ -108,16 +114,20 @@ PACKED_FORMATS = PAGED_FORMATS[:2]
 def flash_attention_packed_plain(q, k_codes, k_scales, v_codes, v_scales,
                                  pos, *, fmt: str = "nvfp4", block: int = 16,
                                  causal: bool = True,
-                                 window: Optional[int] = None):
-    """Plain version of K6; ``pos`` is the int32 (q_offset, kv_len) pair."""
+                                 window: Optional[int] = None,
+                                 rolling: bool = False):
+    """Plain version of K6; ``pos`` is the int32 (q_offset, kv_len) pair.
+    ``rolling``: row j holds the latest position with pos % Sk == j,
+    relative to the last query row (``swa_kpos``)."""
     B, Sq, H, D = q.shape
     Sk, KVH = k_codes.shape[1], k_codes.shape[2]
     kf = _dequant_cache(k_codes, k_scales, fmt, block)
     vf = _dequant_cache(v_codes, v_scales, fmt, block)
     pos = pos.to(q.device)
     qpos = pos[0] + torch.arange(Sq, dtype=torch.int32, device=q.device)
-    kpos = torch.arange(Sk, dtype=torch.int32, device=q.device)
-    valid = _mask(qpos, kpos, pos[1], causal, window)
+    rows = torch.arange(Sk, dtype=torch.int32, device=q.device)
+    kpos = swa_kpos((pos[0] + Sq).reshape(1), Sk)[0] if rolling else rows
+    valid = _mask(qpos, kpos, pos[1], causal, window, rows)
     qf = q.to(torch.float32).reshape(B, Sq, KVH, H // KVH, D)
     o = _online_softmax(qf, kf, vf, valid, None)
     return o.reshape(B, Sq, H, D).to(q.dtype)
@@ -159,19 +169,25 @@ def flash_attention_packed(q: torch.Tensor, k_codes: torch.Tensor,
                            v_scales: torch.Tensor, pos: torch.Tensor, *,
                            fmt: str = "nvfp4", block: int = 16,
                            causal: bool = True,
-                           window: Optional[int] = None) -> torch.Tensor:
+                           window: Optional[int] = None,
+                           rolling: bool = False) -> torch.Tensor:
     """Attention of q (B, Sq, H, D) over a block-quantized KV cache.
 
     nvfp4: codes (B, Sk, KVH, D/2) uint8 + scales (B, Sk, KVH, D/block)
     float8_e4m3fn; fp8: codes (B, Sk, KVH, D) float8_e4m3fn + bf16 scales.
     ``pos``: int32 tensor (q_offset, kv_len) on q's device -- a device
-    operand, so a decode loop never syncs on the cache length.
+    operand, so a decode loop never syncs on the cache length.  The window
+    runs over linear positions (row = position), or, with ``rolling``,
+    over a sliding-window buffer written at row pos % Sk (K5's rolling
+    rule; needs a window).
     """
     _check_packed(q, k_codes, k_scales, v_codes, v_scales, pos, fmt, block)
+    if rolling and window is None:
+        raise ValueError("a rolling cache needs a window")
     if q.device.type == "cpu":
         return flash_attention_packed_plain(
             q, k_codes, k_scales, v_codes, v_scales, pos, fmt=fmt,
-            block=block, causal=causal, window=window)
+            block=block, causal=causal, window=window, rolling=rolling)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     dev = q.device
@@ -192,14 +208,14 @@ def flash_attention_packed(q: torch.Tensor, k_codes: torch.Tensor,
     from repro_torch.kernels import _build
     fn = _build.library("flash_attn_paged").flash_attention_packed_fwd
     if fn.argtypes is None:
-        fn.argtypes = [_P, _I] + [_P] * 6 + [_I] * 11 + [ctypes.c_float] \
+        fn.argtypes = [_P, _I] + [_P] * 6 + [_I] * 12 + [ctypes.c_float] \
             + [_I] * 2 + [_P]
         fn.restype = _I
     err = fn(tensors[0].data_ptr(), int(q.dtype == torch.bfloat16),
              *(t.data_ptr() for t in tensors[1:]), out.data_ptr(),
              B, Sq, H, KVH, D, Sk, k_scales.shape[-1],
              PAGED_FORMATS.index(fmt), block, int(causal), int(window or 0),
-             _sm_scale(D), qv, keys,
+             int(rolling), _sm_scale(D), qv, keys,
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{PACKED_NAME} kernel launch failed: "

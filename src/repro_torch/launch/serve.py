@@ -8,9 +8,10 @@
   python -m repro_torch.launch.serve --smoke --queue 8 --prefix-cache \\
       --device cpu
 
-Initializes random parameters from a seeded ``torch.Generator`` (or
-restores a params checkpoint over them with ``--ckpt-dir``), builds the
-engine (weights packed to NVFP4 once) and runs synthetic prompts through
+Initializes random parameters from a seeded ``torch.Generator``, packed to
+NVFP4 layer by layer as they are drawn (``packing.init_packed_params``), or
+restores a params checkpoint over a bf16 init with ``--ckpt-dir``; builds
+the engine (weights packed to NVFP4 once) and runs synthetic prompts through
 prefill + decode, reporting tokens/s.  With ``--queue`` (implied by
 ``--prefix-cache``, ``--prefill-chunk``, ``--spec-decode`` and ``--trace``)
 the ContinuousEngine serves a staggered arrival trace through the
@@ -31,7 +32,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import fqt
 from repro_torch.models import registry
 from repro_torch.serve import ContinuousEngine, Engine, Request, ServeConfig
-from repro_torch.serve.packing import weight_store_bytes
+from repro_torch.serve import packing
 
 
 def main(argv=None):
@@ -102,7 +103,17 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
-    params = registry.init_params(cfg, seed=args.seed, device=dev)
+    qcfg = fqt.bf16_config() if args.bf16 else None
+    if args.ckpt_dir or args.bf16:
+        params = registry.init_params(cfg, seed=args.seed, device=dev)
+    else:
+        # the serving default packs to NVFP4 (qaf_config's fwd_w): pack the
+        # random init layer by layer, so a model whose bf16 tree would not
+        # fit on the card is built all the same
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed)
+        params = packing.init_packed_params(cfg, gen, fqt.qaf_config().fwd_w,
+                                            device=dev)
     if args.ckpt_dir:
         step, restored = ckpt.restore_latest(args.ckpt_dir, params)
         if restored is not None:
@@ -119,7 +130,6 @@ def main(argv=None):
                        spec_k=args.spec_k if args.spec_decode else None,
                        draft_layers=(args.draft_layers
                                      if args.spec_decode else None))
-    qcfg = fqt.bf16_config() if args.bf16 else None
     rng = np.random.default_rng(0)
     if (args.prefix_cache or args.prefill_chunk or args.spec_decode
             or args.trace) and not args.queue:
@@ -138,7 +148,7 @@ def main(argv=None):
     ntok = sum(len(o) for o in out)
     print(f"{ntok} tokens in {dt:.2f}s  ({ntok / dt:.1f} tok/s, incl. "
           f"kernel build on first use); weight store "
-          f"{weight_store_bytes(eng.params)} bytes on {dev}")
+          f"{packing.weight_store_bytes(eng.params)} bytes on {dev}")
     for i, o in enumerate(out[:4]):
         print(f"seq {i}: {o[:16].tolist()} ...")
     return out

@@ -34,14 +34,11 @@ from repro_torch.core.quantize import kv_dequant, kv_quant_rows
 from repro_torch.kernels.flash_attn import (flash_attention,
                                             flash_attention_packed,
                                             flash_attention_paged)
-# the rolling-window position rule lives beside K5, which applies it; it is
-# public here too, where the reference's models/layers.py keeps it
-from repro_torch.kernels.flash_attn import swa_kpos  # noqa: F401
+# the rolling-window position rule lives beside K5 and K6, which apply it;
+# it is public here too, where the reference's models/layers.py keeps it
+from repro_torch.kernels.flash_attn import swa_kpos
 
 NEG_INF = -1e30
-_ROLLING = ("the rolling (sliding-window) write of the lockstep KVCache/"
-            "PackedKVCache is not ported (ROADMAP Queue 1); the paged cache "
-            "of ContinuousEngine rolls")
 
 
 class QCtx:
@@ -63,6 +60,16 @@ class QCtx:
         s = (self.seed + self._n * 40503) & M32
         self._n += 1
         return fqt.dense(x, w, b, cfg=self.qcfg, seed=s)
+
+    def dense_hp(self, x: torch.Tensor, w: torch.Tensor,
+                 b: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """High-precision dense (routers; never quantized): the f32 product
+        of x and w (bf16 products are exact in f32), plus b, rounded to x's
+        dtype.  No call counter: it draws no SR stream."""
+        y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+        if b is not None:
+            y = y + b
+        return y.to(x.dtype)
 
 
 # ---- initializers -------------------------------------------------------------
@@ -331,12 +338,16 @@ def _attn_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _attn_decode_dense(q, k, v, pos, *, causal, window) -> torch.Tensor:
     """Decode read of a bf16 cache: the dense f32 softmax with the kv_len
     and causal masks (the jnp ``_attn_dense`` of the reference, no
-    kernel); rows at or past kv_len get a key position above any query."""
+    kernel); rows at or past kv_len get a key position above any query.
+    Under a window the buffer rolls: row j holds the latest position with
+    pos % buf == j (``swa_kpos`` of the length after the write)."""
     B, Sq, H, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     qpos = pos[0] + torch.arange(Sq, dtype=torch.int32, device=q.device)
-    kpos = torch.arange(Sk, dtype=torch.int32, device=q.device)
-    kpos = torch.where(kpos < pos[1], kpos, torch.full_like(kpos, 2 ** 30))
+    rows = torch.arange(Sk, dtype=torch.int32, device=q.device)
+    kpos = rows if window is None else swa_kpos(
+        (pos[0] + Sq).reshape(1), Sk)[0]
+    kpos = torch.where(rows < pos[1], kpos, torch.full_like(kpos, 2 ** 30))
     o = _attn_dense(q.reshape(B, Sq, KVH, H // KVH, D), k, v, qpos, kpos,
                     causal, window)
     return o.reshape(B, Sq, H, D).to(q.dtype)
@@ -741,14 +752,22 @@ def _attn_decode_paged(q: torch.Tensor, cache: PagedKVCache, *,
         window=window)
 
 
-def _write_cache(cache, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Write S new rows at [length, length + S) IN PLACE; returns the
-    (old) length tensor.  Linear caches only."""
+def _write_cache(cache, k: torch.Tensor, v: torch.Tensor,
+                 rolling: bool = False) -> torch.Tensor:
+    """Write S new rows at positions [length, length + S) IN PLACE and
+    advance the length by S; returns the (old) length tensor.  A linear
+    cache writes row = position; a ``rolling`` (sliding-window) buffer
+    writes position p at row p % buf and, where S > buf, keeps only the
+    last buf rows (the reference's rolling write)."""
     S, buf = k.shape[1], cache.buf
-    if S > buf:
-        raise ValueError(f"{S} new tokens exceed the cache buffer {buf}")
     start = cache.length.clone()
-    idx = (start + torch.arange(S, dtype=torch.int32, device=k.device)) % buf
+    if S > buf:
+        if not rolling:
+            raise ValueError(f"{S} new tokens exceed the cache buffer {buf}")
+        k, v = k[:, S - buf:], v[:, S - buf:]
+    first = start + max(S - buf, 0)
+    idx = (first + torch.arange(k.shape[1], dtype=torch.int32,
+                                device=k.device)) % buf
     idx = idx.to(torch.int64)
     if isinstance(cache, PackedKVCache):
         kcod, ksc = kv_quant_rows(k, cache.fmt, cache.block)
@@ -777,7 +796,9 @@ def attn_apply(p, x: torch.Tensor, ctx: QCtx, *, n_heads: int, n_kv: int,
     at [cache.length, cache.length + S): prefill (S > 1, from an empty
     cache) attends within the fresh sequence through K7; decode (S == 1)
     attends the cache -- K6 for a ``PackedKVCache``, a dense read for the
-    bf16 cache.
+    bf16 cache.  Under a ``window`` the lockstep buffer rolls (position p
+    at row p % buf, the reference's rolling write) and the decode read
+    takes the rolling key positions.
 
     With a ``PagedKVCache`` each batch row is a SLOT with its own length:
       * ``slot`` and ``pfx`` (suffix or chunked prefill, B == 1): write the
@@ -826,21 +847,19 @@ def attn_apply(p, x: torch.Tensor, ctx: QCtx, *, n_heads: int, n_kv: int,
                         window=window, slot=slot, plen=plen, pfx=pfx,
                         write_mask=write_mask)
     elif S > 1:
-        if window is not None:
-            raise NotImplementedError(_ROLLING)
-        _write_cache(cache, k, v)
+        # prefill (from an empty cache): every query's window lies inside
+        # the fresh K/V, also where S > buf and only the last buf rows stay
+        _write_cache(cache, k, v, rolling=window is not None)
         o = _attn_prefill(q, k, v, causal=causal, window=window)
     else:
-        if window is not None:
-            raise NotImplementedError(_ROLLING)
-        start = _write_cache(cache, k, v)
+        start = _write_cache(cache, k, v, rolling=window is not None)
         kv_len = torch.clamp(cache.length, max=cache.buf)
         pos = torch.stack([start, kv_len]).to(torch.int32)
         if isinstance(cache, PackedKVCache):
             o = flash_attention_packed(
                 q, cache.k_codes, cache.k_scales, cache.v_codes,
                 cache.v_scales, pos, fmt=cache.fmt, block=cache.block,
-                causal=causal, window=window)
+                causal=causal, window=window, rolling=window is not None)
         else:
             o = _attn_decode_dense(q, cache.k, cache.v, pos, causal=causal,
                                    window=window)

@@ -1,4 +1,4 @@
-"""Uniform model API (PyTorch), the dense family.
+"""Uniform model API (PyTorch), the dense and moe transformer families.
 
   init_params(cfg, seed=..., device=...)          -> params
   loss_fn(params, cfg, qcfg, batch, seed, remat)  -> (loss, aux)
@@ -11,8 +11,8 @@
   verify_k, draft_view                            -> speculative decoding
 
 Counterpart of ``repro.models.registry``.  Entry points run on ``cuda``
-unless the caller passes ``device="cpu"``.  The moe, hybrid, ssm, encdec
-and vlm families arrive with ROADMAP Queue 1's breadth items.
+unless the caller passes ``device="cpu"``.  The hybrid, ssm, encdec and vlm
+families arrive with ROADMAP Queue 1's breadth items.
 """
 from __future__ import annotations
 
@@ -26,30 +26,24 @@ from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 
 
-def _dense_only(cfg: ModelConfig):
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} arrives with the breadth families "
-            f"(ROADMAP Queue 1); the port runs the dense family")
-
-
 def init_params(cfg: ModelConfig, *, seed: int = 0,
                 generator: Optional[torch.Generator] = None,
-                dtype=torch.bfloat16, device=None):
+                dtype=torch.bfloat16, device=None, finish=None):
     """Random parameters drawn from a seeded ``torch.Generator`` on
-    ``device`` (default cuda)."""
-    _dense_only(cfg)
+    ``device`` (default cuda).  ``finish``: applied to each layer's dict
+    as it is drawn and to the lm_head (``transformer.init``)."""
+    transformer.check_family(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
-    return transformer.init(cfg, generator, dtype, device=dev)
+    return transformer.init(cfg, generator, dtype, device=dev, finish=finish)
 
 
 def loss_fn(params, cfg: ModelConfig, qcfg: QuantConfig, batch, *,
             seed: int = 0, remat: bool = True):
     """Next-token cross-entropy of ``batch["tokens"]``: (loss, aux)."""
-    _dense_only(cfg)
+    transformer.check_family(cfg)
     return transformer.loss_fn(params, cfg, qcfg, batch, seed=seed,
                                remat=remat)
 
@@ -57,7 +51,7 @@ def loss_fn(params, cfg: ModelConfig, qcfg: QuantConfig, batch, *,
 def forward(params, cfg: ModelConfig, qcfg: QuantConfig, batch, *,
             seed: int = 0, remat: bool = False):
     """Full-sequence logits of ``batch["tokens"]``: (logits, aux)."""
-    _dense_only(cfg)
+    transformer.check_family(cfg)
     return transformer.forward(params, cfg, qcfg, batch["tokens"],
                                seed=seed, remat=remat)
 
@@ -70,7 +64,7 @@ def make_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     with ``page_size``, ``PagedKVCache``s over a shared page pool with
     per-slot lengths (continuous batching; ``total_pages`` sizes the pool,
     default one full reservation per slot plus the trash page)."""
-    _dense_only(cfg)
+    transformer.check_family(cfg)
     return transformer.init_cache(cfg, batch, max_len, dtype,
                                   kv_cache_format, page_size, total_pages,
                                   device=resolve_device(device))
@@ -86,7 +80,7 @@ def reset_decode_state(carry) -> None:
 
 def prefill(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, carry):
     """Fill the decode carry from a prompt.  Returns (last_logits, carry)."""
-    _dense_only(cfg)
+    transformer.check_family(cfg)
     logits, carry = transformer.prefill(params, cfg, qcfg, tokens, carry)
     return logits[:, -1], carry
 
@@ -95,7 +89,7 @@ def decode_step(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, carry,
                 *, seed: int = 0, write_mask=None):
     """``write_mask`` ((B,) bool): paged caches only -- slots mid-chunked-
     prefill write to the trash page and keep their length."""
-    _dense_only(cfg)
+    transformer.check_family(cfg)
     return transformer.decode_step(params, cfg, qcfg, tokens, carry,
                                    seed=seed, write_mask=write_mask)
 
@@ -106,7 +100,7 @@ def prefill_slot(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
     prompt.  ``slot``/``plen``: host ints or int32 device scalars, as the
     reference takes ints or traced values.  Returns (logits (1, V),
     carry)."""
-    _dense_only(cfg)
+    transformer.check_family(cfg)
     return transformer.prefill_slot(params, cfg, qcfg, tokens, carry, slot,
                                     plen, seed=seed)
 
@@ -117,7 +111,7 @@ def prefill_suffix(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
     first ``pfx`` tokens are cached in shared prefix pages (``slot``/
     ``plen``/``pfx``: host ints or int32 device scalars).  Returns (logits
     (1, V), carry)."""
-    _dense_only(cfg)
+    transformer.check_family(cfg)
     return transformer.prefill_suffix(params, cfg, qcfg, tokens, carry,
                                       slot, plen, pfx, seed=seed)
 
@@ -127,7 +121,7 @@ def prefill_chunk(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
     """Write one FULL intermediate chunk (1, C) of a prompt into a paged
     slot at [off, off + C) (``slot``/``off``: host ints or int32 device
     scalars).  Returns the carry."""
-    _dense_only(cfg)
+    transformer.check_family(cfg)
     return transformer.prefill_chunk(params, cfg, qcfg, tokens, carry, slot,
                                      off, seed=seed)
 
@@ -136,7 +130,7 @@ def verify_k(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, carry,
              *, seed: int = 0, write_mask=None):
     """Teacher-forced speculative verify of (B, k) tokens over the paged
     carry.  Returns (logits (B, k, V), carry)."""
-    _dense_only(cfg)
+    transformer.check_family(cfg)
     return transformer.verify_k(params, cfg, qcfg, tokens, carry, seed=seed,
                                 write_mask=write_mask)
 

@@ -1,5 +1,5 @@
-"""Decoder-only LM transformer (PyTorch), dense family: training and
-serving entries.
+"""Decoder-only LM transformer (PyTorch), dense and moe families: training
+and serving entries.
 
 Counterpart of ``repro.models.transformer``.  The JAX package stacks the
 layers and runs ``lax.scan``; here ``params["layers"]`` is a list of
@@ -17,6 +17,8 @@ import torch.utils.checkpoint
 
 from repro_torch.core.formats import M32
 from repro_torch.core.fqt import QuantConfig
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import refnum
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (TRASH_PAGE, PagedKVCache, QCtx,
                                        attn_apply, attn_params, dense_init,
@@ -27,30 +29,41 @@ from repro_torch.models.layers import (TRASH_PAGE, PagedKVCache, QCtx,
 _SEED_STRIDE = 0x9E3779B9                   # per-layer SR seed stride
 
 
-def _check_family(cfg: ModelConfig):
-    if cfg.family != "dense" or cfg.n_experts:
+def check_family(cfg: ModelConfig):
+    """The transformer families the port runs: dense and moe."""
+    if cfg.family not in ("dense", "moe") or \
+            bool(cfg.n_experts) != (cfg.family == "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} arrives with the breadth families "
-            f"(ROADMAP Queue 1); the port runs the dense family")
+            f"(ROADMAP Queue 1); the port runs the dense and moe families")
 
 
 def init(cfg: ModelConfig, gen: torch.Generator, dtype=torch.bfloat16,
-         device=None):
+         device=None, finish=None):
     """Parameter layout of ``repro.models.transformer.init`` with per-layer
     dicts.  Values come from ``gen`` (torch's normal stream, not
-    ``jax.random``'s: a declared divergence)."""
-    _check_family(cfg)
+    ``jax.random``'s: a declared divergence), in the order embed, layer by
+    layer (attn, then mlp or moe), lm_head.  ``finish`` (a dict -> dict
+    map, e.g. the serving packer) is applied to each layer as soon as it is
+    drawn, and to the lm_head, so a model whose whole bf16 tree would not
+    fit is built one layer at a time."""
+    check_family(cfg)
+    finish = finish if finish is not None else (lambda tree: tree)
 
     def layer():
-        return {
+        p = {
             "attn": attn_params(gen, cfg.d_model, cfg.n_heads,
                                 cfg.n_kv_heads, cfg.hd, cfg.qkv_bias, dtype,
                                 qk_norm=cfg.use_qk_norm, device=device),
             "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
             "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=device),
-            "mlp": mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype,
-                              device=device),
         }
+        if cfg.n_experts:
+            p["moe"] = moe_mod.moe_params(gen, cfg, dtype, device=device)
+        else:
+            p["mlp"] = mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype,
+                                  device=device)
+        return finish(p)
 
     params = {
         "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype,
@@ -59,14 +72,16 @@ def init(cfg: ModelConfig, gen: torch.Generator, dtype=torch.bfloat16,
         "ln_f": torch.ones((cfg.d_model,), dtype=dtype, device=device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab,
-                                       dtype, device=device)
+        params.update(finish({"lm_head": dense_init(
+            gen, cfg.d_model, cfg.padded_vocab, dtype, device=device)}))
     return params
 
 
 def _layer_apply(cfg: ModelConfig, lp, x, seed: int, *, cache,
                  qcfg: QuantConfig, slot=None, plen=None, pfx=None,
                  write_mask=None):
+    """One layer: (x, cache, aux), aux the moe router's auxiliary loss (a
+    zero f32 scalar for the dense family)."""
     ctx = QCtx(qcfg, seed)
     h, cache = attn_apply(
         lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps), ctx,
@@ -75,33 +90,43 @@ def _layer_apply(cfg: ModelConfig, lp, x, seed: int, *, cache,
         chunk=cfg.attn_chunk, cache=cache, slot=slot, plen=plen, pfx=pfx,
         write_mask=write_mask, norm_eps=cfg.norm_eps)
     x = x + h
-    y = mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps), ctx,
-                  cfg.act)
-    return x + y, cache
+    hin = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    if cfg.n_experts:
+        B, S, d = hin.shape
+        y, aux = moe_mod.moe_apply(lp["moe"], hin.reshape(B * S, d), ctx,
+                                   cfg)
+        y = y.reshape(B, S, d)
+    else:
+        y = mlp_apply(lp["mlp"], hin, ctx, cfg.act)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, cache, aux
 
 
 def apply_layers(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed=0, *,
                  caches=None, remat: bool = False, slot=None, plen=None,
                  pfx=None, write_mask=None):
     """Run the layers in order; caches (one per layer) update in place.
+    Returns (x, caches, the sum of the layers' aux losses).
 
     ``remat``: each layer body runs under ``torch.utils.checkpoint`` and
     is recomputed in the backward; its QCtx is built inside the body, so
     the recompute draws the same SR streams.  ``slot``/``plen``/``pfx``/
     ``write_mask``: the paged-cache operands of ``layers.attn_apply``."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params["layers"]):
         s = (int(seed) + i * _SEED_STRIDE) & M32
         cache = None if caches is None else caches[i]
         if remat and cache is None and torch.is_grad_enabled():
-            x = torch.utils.checkpoint.checkpoint(
-                lambda h, lp=lp, s=s: _layer_apply(cfg, lp, h, s, cache=None,
-                                                   qcfg=qcfg)[0],
+            x, a = torch.utils.checkpoint.checkpoint(
+                lambda h, lp=lp, s=s: _layer_apply(
+                    cfg, lp, h, s, cache=None, qcfg=qcfg)[::2],
                 x, use_reentrant=False)
         else:
-            x, _ = _layer_apply(cfg, lp, x, s, qcfg=qcfg, cache=cache,
-                                slot=slot, plen=plen, pfx=pfx,
-                                write_mask=write_mask)
-    return x, caches
+            x, _, a = _layer_apply(cfg, lp, x, s, qcfg=qcfg, cache=cache,
+                                   slot=slot, plen=plen, pfx=pfx,
+                                   write_mask=write_mask)
+        aux = aux + a
+    return x, caches, aux
 
 
 def _logits(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed=0):
@@ -117,12 +142,11 @@ def _logits(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed=0):
 
 def forward(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, *,
             seed: int = 0, remat: bool = True):
-    """Full-sequence forward (training).  Returns (logits, aux_loss); the
-    dense family has no auxiliary loss."""
+    """Full-sequence forward (training).  Returns (logits, aux_loss): the
+    moe routers' load-balancing loss summed over layers (0 for dense)."""
     x = embed_lookup(params["embed"], tokens)
-    x, _ = apply_layers(params, cfg, qcfg, x, seed, remat=remat)
+    x, _, aux = apply_layers(params, cfg, qcfg, x, seed, remat=remat)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(params, cfg, qcfg, x, seed), aux
 
 
@@ -133,9 +157,10 @@ def loss_fn(params, cfg: ModelConfig, qcfg: QuantConfig, batch, *,
     tokens = batch["tokens"].long()
     logits, aux = forward(params, cfg, qcfg, tokens[:, :-1], seed=seed,
                           remat=remat)
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    nll = -torch.gather(logp, -1, tokens[:, 1:, None])[..., 0]
-    loss = torch.mean(nll)
+    # on the CPU the reference's gradient of the mean nll: one logit
+    # gradient a bf16 ulp off changes the tensor scale the lm_head's SR
+    # update GEMM quantizes with (refnum.mean_nll)
+    loss = refnum.mean_nll(logits, tokens[:, 1:])
     return loss + cfg.router_aux_weight * aux, {"nll": loss, "aux": aux}
 
 
@@ -168,7 +193,7 @@ def prefill(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, caches):
     """Run the prompt through the model, filling the (empty) caches;
     returns (last-token logits (B, 1, V), caches)."""
     x = params["embed"][tokens]
-    x, caches = apply_layers(params, cfg, qcfg, x, caches=caches)
+    x, caches, _ = apply_layers(params, cfg, qcfg, x, caches=caches)
     x = rmsnorm(x[:, -1:], params["ln_f"], cfg.norm_eps)
     return _logits(params, cfg, qcfg, x), caches
 
@@ -185,7 +210,7 @@ def prefill_slot(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
     int32 device scalars (dynamic operands).  Returns (logits at the last
     prompt token (1, V), caches)."""
     x = params["embed"][tokens]
-    x, caches = apply_layers(params, cfg, qcfg, x, seed, caches=caches,
+    x, caches, _ = apply_layers(params, cfg, qcfg, x, seed, caches=caches,
                              slot=slot, plen=plen)
     x = rmsnorm(_token_at(x, plen - 1), params["ln_f"], cfg.norm_eps)
     return _logits(params, cfg, qcfg, x, seed)[:, 0], caches
@@ -200,7 +225,7 @@ def prefill_suffix(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
     ``slot``, ``plen`` and ``pfx``: host ints or int32 device scalars.
     Returns (logits at the last prompt token (1, V), caches)."""
     x = params["embed"][tokens]
-    x, caches = apply_layers(params, cfg, qcfg, x, seed, caches=caches,
+    x, caches, _ = apply_layers(params, cfg, qcfg, x, seed, caches=caches,
                              slot=slot, plen=plen, pfx=pfx)
     x = rmsnorm(_token_at(x, plen - pfx - 1), params["ln_f"], cfg.norm_eps)
     return _logits(params, cfg, qcfg, x, seed)[:, 0], caches
@@ -214,7 +239,7 @@ def prefill_chunk(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
     host ints or int32 device scalars.  No logits.  Returns the caches."""
     x = params["embed"][tokens]
     C = x.shape[1]
-    _, caches = apply_layers(params, cfg, qcfg, x, seed, caches=caches,
+    _, caches, _ = apply_layers(params, cfg, qcfg, x, seed, caches=caches,
                              slot=slot, plen=off + C, pfx=off)
     return caches
 
@@ -225,7 +250,7 @@ def decode_step(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, caches,
     caches).  ``write_mask`` ((B,) bool, paged caches): slots mid-chunked-
     prefill write to the trash page and keep their length."""
     x = params["embed"][tokens]
-    x, caches = apply_layers(params, cfg, qcfg, x, seed, caches=caches,
+    x, caches, _ = apply_layers(params, cfg, qcfg, x, seed, caches=caches,
                              write_mask=write_mask)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     return _logits(params, cfg, qcfg, x, seed), caches

@@ -114,7 +114,9 @@ def _head(lg: torch.Tensor, scfg: ServeConfig):
 
 
 class Engine:
-    """Single-model LOCKSTEP serving engine (dense family).
+    """Single-model LOCKSTEP serving engine (dense and moe families; a
+    sliding-window model's cache is a rolling buffer of min(max_len,
+    window) rows).
 
     ``cuda_graphs`` (default True): on the card each program replays as
     one CUDA graph per signature; False runs them eagerly (the comparison
@@ -252,7 +254,7 @@ def _fetch(*tensors: torch.Tensor) -> List[np.ndarray]:
 
 class ContinuousEngine:
     """Continuous batching over a paged, block-quantized KV cache (dense
-    family).
+    and moe families).
 
     Requests arrive on a (deterministic, tick-indexed) trace, wait in the
     scheduler's FIFO queue, and are admitted whenever a slot AND enough
@@ -266,17 +268,13 @@ class ContinuousEngine:
                  qcfg: Optional[fqt.QuantConfig] = None,
                  pack_weights: bool = True, device=None, tracer=None,
                  cuda_graphs: bool = True):
-        if cfg.family == "moe" or cfg.n_experts:
-            raise NotImplementedError(
-                "continuous batching of the moe family arrives with its "
-                "slice (ROADMAP Queue 1: models/moe.py)")
         if cfg.family == "encdec":
             raise NotImplementedError(
                 "continuous batching of the encdec (whisper) family arrives "
                 "with its slice (ROADMAP Queue 1: models/whisper.py)")
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"continuous batching serves the dense family; "
+                f"continuous batching serves the dense and moe families; "
                 f"{cfg.family!r} stays on the lockstep Engine")
         self.device = resolve_device(device)
         self.tracer = tracer if tracer is not None else NULL_TRACER

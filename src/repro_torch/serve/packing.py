@@ -5,7 +5,12 @@ Counterpart of ``repro.serve.packing``: every GEMM weight becomes a
 tensor scale, ~0.5625 B/param) once, at engine build; the forward consumes
 it through the K4 kernel.  Each per-layer weight gets its own tensor scale,
 which is what the reference's ``batch_dims`` packing of the stacked layer
-axis gives.  Norms, embeddings and smooth factors stay as they are.
+axis gives (a moe layer's stacked (E, d, f) experts get one per expert).
+Norms, embeddings, routers and smooth factors stay as they are.
+
+``init_packed_params`` builds the packed tree of a random init one layer at
+a time: the same tree as packing the whole bf16 init, within the memory of a
+card that could not hold that bf16 tree (qwen2.5-32b, Mixtral-8x7B).
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import torch
 
 from repro_torch.core.quantize import (BlockQuantSpec, PackedQuantizedTensor,
                                        pack_quantize)
+from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
 
 WEIGHT_KEYS = frozenset({
@@ -71,6 +77,18 @@ def pack_model_params(cfg: ModelConfig, params: Any,
         return pack_quantize(leaf, spec, axis=-2, batch_dims=leaf.ndim - 2)
 
     return _map(params, pack)
+
+
+def init_packed_params(cfg: ModelConfig, gen: torch.Generator,
+                       spec: Optional[BlockQuantSpec], device=None) -> Any:
+    """``pack_model_params(cfg, registry.init_params(cfg, generator=gen),
+    spec)``, bit for bit (the same draws from ``gen`` in the same order),
+    with each layer and the lm_head packed as soon as it is drawn, so the
+    bf16 tree never exists whole: peak memory is the packed tree, the bf16
+    embedding and one bf16 layer."""
+    return registry.init_params(
+        cfg, generator=gen, device=device,
+        finish=lambda tree: pack_model_params(cfg, tree, spec))
 
 
 def weight_store_bytes(params: Any) -> int:

@@ -26,7 +26,7 @@ import torch
 from repro_torch.checkpoint.ckpt import reference_leaves
 from repro_torch.core import fqt, threshold
 from repro_torch.core.formats import M32
-from repro_torch.core.quantize import NVFP4, fake_quant
+from repro_torch.core.quantize import NVFP4, block_quantize
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw, schedule
@@ -91,6 +91,20 @@ def probe_seed(step: int, leaf: int) -> int:
     return (step_seed(step) ^ ((leaf + 1) * 0x632BE5AB)) & M32
 
 
+def _residual_sq(g32: torch.Tensor, spec, seed: int) -> torch.Tensor:
+    """sum((fake_quant(g32) - g32)^2), blocks along the last axis, with the
+    dequantization done in the codes' own storage (codes x block scale x
+    tensor scale, the order of ``QuantizedTensor.dequant``): the same bits
+    as the out-of-place expression with two leaf-sized buffers instead of
+    six (a Mixtral expert stack is 3.8 GB in f32)."""
+    qt = block_quantize(g32, spec, axis=-1, seed=seed)
+    q = qt.codes.contiguous()
+    nb = q.shape[-1] // qt.block
+    q.view(-1, nb, qt.block).mul_(
+        qt.scales.reshape(-1, nb, 1)).mul_(qt.tscale)
+    return torch.sum(q.sub_(g32).square_())
+
+
 def _estimate_sigma_q(grads, step: int, spec=None) -> torch.Tensor:
     """sigma_q from the SR residual of quantizing the gradients with the
     paper's NVFP4-SR spec (the noise the update GEMM injects), over the
@@ -103,10 +117,10 @@ def _estimate_sigma_q(grads, step: int, spec=None) -> torch.Tensor:
         if g.ndim < 2 or g.shape[-1] % spec.block:
             continue
         g32 = g.to(torch.float32)
-        q = fake_quant(g32, spec, axis=-1, seed=probe_seed(step, i))
-        sq = torch.sum(torch.square(q - g32))
+        del g
+        sq = _residual_sq(g32, spec, probe_seed(step, i))
         num = sq if num is None else num + sq
-        den += float(g.numel())
+        den += float(g32.numel())
     if num is None:
         return torch.zeros((), dtype=torch.float32)
     return torch.sqrt(num / max(den, 1.0) + 1e-30)

@@ -43,9 +43,11 @@ import torch
 from repro.checkpoint import ckpt as jckpt
 from repro.configs import get_config as jax_get_config
 from repro.core import quantize as jquant
+from repro.models import registry as jreg
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs import get_config
-from repro_torch.convert import train_state_from_jax_numpy
+from repro_torch.convert import (params_from_jax_numpy,
+                                 train_state_from_jax_numpy)
 from repro_torch.core import fqt, qaf
 from repro_torch.core import quantize as tquant
 from repro_torch.data.pipeline import DataConfig
@@ -108,6 +110,32 @@ def _jax_state():
     thr = jthr.ThresholdState(jnp.float32(2.5), jnp.float32(1e-4),
                               jnp.int32(STATE_STEP), jnp.asarray(True))
     return st._replace(step=jnp.int32(STATE_STEP), opt=opt, thr=thr)
+
+
+MOE = "mixtral-8x7b"        # a moe tree: router, stacked experts, one per layer
+
+
+def _jax_moe_params():
+    return jreg.init_params(jax_get_config(MOE).smoke(),
+                            jax.random.PRNGKey(2))
+
+
+def _port_tree(name):
+    """The port's tree behind a cross-package checkpoint ``name``."""
+    if name.startswith("moe"):
+        cfg = get_config(MOE).smoke()
+        tree = params_from_jax_numpy(jax.tree_util.tree_map(
+            np.asarray, _jax_moe_params()), cfg, device="cpu")
+        return (pack_model_params(cfg, tree, tquant.NVFP4)
+                if name == "moe packed" else tree)
+    st = _port_state()
+    return st if name == "state" else pack_model_params(
+        _cfg(), st.params, tquant.NVFP4)
+
+
+# the cross-package checkpoints: a TrainState, its packed params, and a moe
+# model's params, plain and packed
+CROSS = ("state", "packed", "moe", "moe packed")
 
 
 def _jax_tcfg():
@@ -176,8 +204,11 @@ def write_jax_reference(out: Path, port: Path):
     from repro.train import TrainerConfig as JTrainerConfig
     cfg, st = _jcfg(), _jax_state()
     packed = jpack(cfg, st.params, jquant.NVFP4)
+    moe = _jax_moe_params()
     report = {}
-    for name, tree in (("state", st), ("packed", packed)):
+    for name, tree in (("state", st), ("packed", packed), ("moe", moe),
+                       ("moe packed", jpack(jax_get_config(MOE).smoke(),
+                                            moe, jquant.NVFP4))):
         jckpt.save(str(out / name), STATE_STEP, tree)
         report[f"port_{name}_restores"] = _jax_trees_equal(
             jckpt.restore(str(port / name), STATE_STEP, tree), tree)
@@ -218,10 +249,8 @@ def jax_ref(tmp_path_factory):
     reference's and restores the port's."""
     out = tmp_path_factory.mktemp("jax_ckpt_ref")
     port = tmp_path_factory.mktemp("port_ckpt")
-    st = _port_state()
-    ckpt.save(str(port / "state"), STATE_STEP, st)
-    ckpt.save(str(port / "packed"), STATE_STEP,
-              pack_model_params(_cfg(), st.params, tquant.NVFP4))
+    for name in CROSS:
+        ckpt.save(str(port / name), STATE_STEP, _port_tree(name))
     env = dict(os.environ)
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
                         + " --xla_allow_excess_precision=false").strip()
@@ -304,12 +333,13 @@ def test_structure_mismatch_raises(tmp_path):
 # ---- across packages ------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["state", "packed"])
+@pytest.mark.parametrize("name", CROSS)
 def test_jax_checkpoint_restores_in_port(jax_ref, name):
+    """The reference's checkpoints restore in the port bit for bit; a moe
+    tree's router, stacked (E, d, f) experts and their packed form (one
+    tensor scale per expert) take the reference's leaf order and names."""
     out, _ = jax_ref
-    st = _port_state()
-    want = st if name == "state" else pack_model_params(
-        _cfg(), st.params, tquant.NVFP4)
+    want = _port_tree(name)
     with open(out / name / f"step_{STATE_STEP:08d}" / "meta.json") as f:
         n = json.load(f)["n_leaves"]
     assert n == len(ckpt.reference_leaves(want))
@@ -317,7 +347,7 @@ def test_jax_checkpoint_restores_in_port(jax_ref, name):
         ckpt.restore(str(out / name), STATE_STEP, want), want)
 
 
-@pytest.mark.parametrize("name", ["state", "packed"])
+@pytest.mark.parametrize("name", CROSS)
 def test_port_checkpoint_restores_in_jax(jax_ref, name):
     assert jax_ref[1][f"port_{name}_restores"]
 

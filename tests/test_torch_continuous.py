@@ -219,8 +219,8 @@ def test_continuous_config_errors(models):
                                                    temperature=1.0),
                          device="cpu")
     import dataclasses
-    with pytest.raises(NotImplementedError, match="models/moe.py"):
-        ContinuousEngine(dataclasses.replace(cfg, family="moe"), tparams,
+    with pytest.raises(NotImplementedError, match="lockstep Engine"):
+        ContinuousEngine(dataclasses.replace(cfg, family="hybrid"), tparams,
                          ServeConfig(), device="cpu")
     with pytest.raises(NotImplementedError, match="models/whisper.py"):
         ContinuousEngine(dataclasses.replace(cfg, family="encdec"), tparams,

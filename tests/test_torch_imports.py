@@ -57,7 +57,10 @@ def test_scan_sees_the_whole_port():
     assert {"kernels/fp4_matmul.py", "kernels/flash_attn.py",
             "kernels/ref.py", "kernels/nvfp4_quant.py", "kernels/ops.py",
             "serve/engine.py", "launch/serve.py", "convert.py",
-            "checkpoint/ckpt.py", "train/trainer.py"} <= names
+            "checkpoint/ckpt.py", "train/trainer.py", "models/moe.py",
+            "configs/codeqwen1p5_7b.py", "configs/qwen2p5_32b.py",
+            "configs/llama3_405b.py", "configs/mixtral_8x7b.py",
+            "configs/qwen3_moe_235b_a22b.py"} <= names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
     assert _forbidden("ml_dtypes")
     assert not _forbidden("repro_torch.core")
@@ -65,7 +68,10 @@ def test_scan_sees_the_whole_port():
 
 def test_launcher_import_pulls_in_no_jax_or_repro():
     code = ("import sys, repro_torch.launch.serve, "
-            "repro_torch.launch.train, repro_torch.checkpoint\n"
+            "repro_torch.launch.train, repro_torch.checkpoint, "
+            "repro_torch.models.moe\n"
+            "from repro_torch.configs import ARCH_IDS, get_config\n"
+            "[get_config(a) for a in ARCH_IDS]\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
             "assert not bad, bad\n")

@@ -167,8 +167,8 @@ def test_probe_leaves_take_k2(monkeypatch):
         cuda = types.SimpleNamespace(device=torch.device("cuda"),
                                      ndim=x.ndim, dtype=x.dtype)
         calls.append(tq._takes_k2(cuda, spec, axis % x.ndim, u, seed))
-        return tq.fake_quant(x, spec, axis=axis, u=u, seed=seed)
-    monkeypatch.setattr(step_mod, "fake_quant", spy)
+        return tq.block_quantize(x, spec, axis=axis, u=u, seed=seed)
+    monkeypatch.setattr(step_mod, "block_quantize", spy)
     step_mod._estimate_sigma_q(grads, 3)
     n_leaves = sum(
         1 for group, stacked in step_mod._reference_leaves(grads)
