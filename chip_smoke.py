@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU: serve
 (lockstep and continuous batching), train, the pipeline from training
-through checkpoint/restart and the packed export to serving, and the dense
-and moe archs at full width.
+through checkpoint/restart and the packed export to serving, the dense
+and moe archs at full width, and the recurrent families at full width and
+depth.
 
     python3 chip_smoke.py                    # every phase, one CUDA card
     python3 chip_smoke.py --phases env,kernels
@@ -122,11 +123,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
            Each arch's smoke config first runs through the graphed engines
            on the card against the CPU's plain versions (lockstep for
            codeqwen1.5-7b, qwen2.5-32b, Mixtral with a prompt past its
-           window, Qwen3-MoE; continuous for the moe pair), streams equal.
-           Run a: codeqwen1.5-7b at full depth, lockstep batch 4 x prompt
-           64, 32 new, then ContinuousEngine on run A's traffic.  Run b:
-           qwen2.5-32b at full depth (64 layers), batch 4 x 64, 16 new.
-           Run c: Mixtral-8x7B at full depth, batch 4 x 64, 32 new; one
+           window, Qwen3-MoE; continuous for the moe pair; the CPU side in
+           a child process started with phase serve_continuous), streams
+           equal.  Run a: codeqwen1.5-7b at full depth, lockstep batch 4 x
+           prompt 64, 32 new, then ContinuousEngine on run A's traffic.
+           Run b: qwen2.5-32b at full width, depth cut 64 -> 16 layers,
+           batch 4 x 64, 16 new.  Run c: Mixtral-8x7B at full width, depth
+           cut 32 -> 8 layers (both cuts keep the whole script inside its
+           time limit), batch 4 x 64, 32 new; one
            request of 4160 prompt tokens and 64 new over its rolling
            4096-row buffer (K7 with the window, K6 with the rolling rule);
            8 requests through ContinuousEngine.  Run d: Qwen3-MoE at full
@@ -143,6 +147,29 @@ Phases, each printing JSON lines; any failure exits non-zero:
            step as ``k1_step_gemms`` derives them (the experts' GEMMs on
            their capacity rows), K2 once per sigma_q probe leaf, loss and
            nll finite and loss > nll (the router's aux term).
+  recurrent
+           the hybrid (zamba2-1.2b: 38 Mamba2 layers and one shared
+           attention + SwiGLU block after every 6, MHA, D 64) and ssm
+           (xlstm-125m: 12 blocks, every 4th sLSTM) families at full width
+           and depth, weights from the streaming packer, nvfp4 KV, greedy,
+           no EOS.  Their smoke configs first run through a graphed Engine
+           on the card against the CPU's plain versions (two generates),
+           streams equal.  Each family serves batch 4 x prompt 64, 32 new,
+           through a graphed Engine (the main path; the prefill program is
+           one decode step per prompt token, captured as one graph) and an
+           eager one: streams equal, launches as ``recurrent_launches``
+           derives them on both sides (K4 at every weight GEMM and the
+           lm_head, K6 at each application of zamba2's shared block, every
+           step of prefill and decode), prefill and decode-step ms, the
+           prefill's capture seconds, tokens/s and a profiled generate's
+           idle share.  Then each trains through ``Trainer`` at full depth
+           (zamba2 batch 4 x seq 1024, xlstm 4 x 256; nvfp4_paper_config,
+           remat, AdamW, the sigma_q probe; 3 steps): K1 launches per step
+           as ``k1_step_gemms`` derives them (``recurrent_gemms``), K2 once
+           per probe leaf, finite metrics, step ms, tokens/s and peak
+           memory; zamba2's trained params and xlstm's TrainState are saved
+           and restored (``checkpoint/ckpt.py``, under build/) with 0
+           differing leaves.
   ops      the kernel-level public API (``kernels/ops.py``) as a user calls
            it: the unfused FQT GEMM at each forward GEMM shape of the
            train phase's llama2-7b (M = 4096 tokens; (K, N) = (4096, 4096),
@@ -160,7 +187,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
            cold), beside its bound, its plain version and one PyTorch call
            computing the same function (a yardstick the port never calls);
            K1 at every train GEMM with its SR operands in counter mode, as
-           the train step runs it; K4 at every main-path shape with its
+           the train step runs it, and at the recurrent families' new
+           shapes (zamba2's N = 8384 in_proj and its K = 8384 dX, xlstm's
+           N = 50432 lm_head); K4 at every main-path shape with its
            route, and both routes at M 1-64 (the crossover); K5 at run A's
            decode, the verify and the chunk shapes; K6 at every K6_CASES row
            with the split plan it takes and on run c's rolling caches
@@ -192,7 +221,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("env", "kernels", "serve", "serve_continuous", "train",
-          "pipeline", "archs", "ops", "times")
+          "pipeline", "archs", "recurrent", "ops", "times")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core peak
 SEED = 0
@@ -210,9 +239,19 @@ K4_SHAPES = tuple((m, k, n) for m in (4, 256) for k, n, _ in K4_WEIGHTS)
 K4_CONT_SHAPES = ((1, 4096, 32000),) + tuple(
     (m, k, n) for m in (8, 32) for k, n, _ in K4_WEIGHTS) + tuple(
     (m, k, n) for m in (64, 192) for k, n, _ in K4_WEIGHTS[:3])
-K6_CASES = (  # (B, H, KVH, D, Sk, kv_len): llama2-7b, then tinyllama (G = 8)
+# K4 on the recurrent families' decode steps (M = 4): zamba2-1.2b's in_proj
+# (N = 8384, 65.5 x 128), out_proj, the shared block's wq/wk/wv/wo,
+# w_gate/w_up, w_down, lm_head; xlstm-125m's w_up / w_gates, w_q/w_k/w_v,
+# w_down / w_ff_down, w_ff_gate / w_ff_up, and its lm_head (N = 50432)
+K4_RECURRENT = ((4, 2048, 8384), (4, 4096, 2048), (4, 2048, 2048),
+                (4, 2048, 8192), (4, 8192, 2048), (4, 2048, 32000),
+                (4, 768, 3072), (4, 1536, 1536), (4, 1536, 768),
+                (4, 768, 1536), (4, 768, 50432))
+K6_CASES = (  # (B, H, KVH, D, Sk, kv_len): llama2-7b, then tinyllama (G = 8),
+    # then zamba2-1.2b's shared block (MHA, D 64)
     (4, 32, 32, 128, 256, 65), (4, 32, 32, 128, 256, 80),
-    (4, 32, 32, 128, 256, 96), (4, 32, 4, 64, 256, 96))
+    (4, 32, 32, 128, 256, 96), (4, 32, 4, 64, 256, 96),
+    (4, 32, 32, 64, 256, 80))
 # K6 at its edges, decode rows (q_offset = kv_len - 1): (B, H, KVH, D, Sk,
 # kv_len, window) -- one cached token, exactly one 128-key tile, a window,
 # and a 2048-token cache (16 tiles in k6_plan's one split; with a window
@@ -275,6 +314,18 @@ K1_CASES = (
     ("fwd mxfp4", 4096, 4096, 4096, "mxfp4", False, False, 1.0, 0.02),
     ("dW mxfp4", 4096, 4096, 4096, "mxfp4", True, True, 1.0, 1e-4),
     ("ragged smoke", 200, 48, 72, "nvfp4", True, True, 1.0, 0.1),
+    # the recurrent families' training: zamba2-1.2b's in_proj (N = 8384)
+    # and its dX contracting over K = 8384 (batch 4 x 1024 tokens), and
+    # xlstm-125m's lm_head (N = 50432; 4 x 256 tokens)
+    ("fwd zamba2 in_proj", 4096, 2048, 8384, "nvfp4", False, False, 1.0,
+     0.02),
+    ("dX zamba2 in_proj", 4096, 8384, 2048, "nvfp4", True, False, 1e-4,
+     0.02),
+    ("dW zamba2 in_proj", 2048, 4096, 8384, "nvfp4", True, True, 1.0, 1e-4),
+    ("fwd xlstm lm_head", 1024, 768, 50432, "nvfp4", False, False, 1.0,
+     0.02),
+    ("dX xlstm lm_head", 1024, 50432, 768, "nvfp4", True, False, 1e-4,
+     0.02),
 )
 # The unfused GEMM of phase ops at llama2-7b's forward GEMMs, M = 4096
 # tokens: (K, N) of wq/wk/wv/wo, w_gate/w_up, w_down and the lm_head.
@@ -753,7 +804,7 @@ def phase_kernels(dev) -> dict:
 
     # K4 through the route k4_route picks, and both sides of the crossover
     routes = set()
-    for M, K, N in K4_SHAPES + K4_CONT_SHAPES + (
+    for M, K, N in K4_SHAPES + K4_CONT_SHAPES + K4_RECURRENT + (
             (fm.K4_GEMV_MAX_M, 4096, 4096), (fm.K4_GEMV_MAX_M + 1, 4096, 4096)):
         a, w = k4_inputs(M, K, N, dev)
         route = fm.k4_route(M, NVFP4)
@@ -1235,6 +1286,88 @@ def compiles(eng) -> dict:
     return {c: getattr(eng, c) for c in COMPILES}
 
 
+# CPU-only references run in child processes beside the card's work (the
+# smoke checks' plain-version sides and the continuous runs' compile
+# counts): the same code and seeds as in this process, on other cores
+_CPU_CHILDREN = {}
+
+
+class CpuChild:
+    """``chip_smoke.<func>(*args)`` in a fresh process that sees no card,
+    started now; ``result()`` waits for it and returns the JSON it
+    prints."""
+
+    def __init__(self, func: str, *args):
+        import os
+        self.func = func
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import json, chip_smoke; print(json."
+             f"dumps(chip_smoke.{func}(*{args!r})))"], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def result(self):
+        out, err = self.proc.communicate(timeout=900)
+        if self.proc.returncode != 0:
+            raise AssertionError(f"CPU child {self.func} failed:\n"
+                                 f"{err[-3000:]}")
+        return json.loads(out.strip().splitlines()[-1])
+
+
+def cpu_child(func: str, *args) -> CpuChild:
+    """The child computing ``func(*args)``, started on first request."""
+    key = (func,) + args
+    if key not in _CPU_CHILDREN:
+        _CPU_CHILDREN[key] = CpuChild(func, *args)
+    return _CPU_CHILDREN[key]
+
+
+def stop_cpu_children() -> None:
+    for child in _CPU_CHILDREN.values():
+        if child.proc.poll() is None:
+            child.proc.kill()
+        child.proc.wait()
+
+
+def continuous_configs() -> dict:
+    """Runs A and B's ServeConfigs (llama2-7b's continuous engine)."""
+    from repro_torch.serve import ServeConfig
+    base = dict(max_slots=8, max_len=512, page_size=16,
+                kv_cache_format="nvfp4", decode_chunk=8, eos_id=-1)
+    return {"A": ServeConfig(**base, prefix_cache=True, prefill_chunk=64),
+            "B": ServeConfig(**base, spec_k=4)}
+
+
+def continuous_traces(vocab) -> dict:
+    return {"A": continuous_requests(vocab),
+            "B": continuous_requests(vocab, shared=0)}
+
+
+def cpu_compile_counts() -> dict:
+    """(CPU child) Runs A and B's traces through the smoke-size CPU
+    ContinuousEngine (the token ids taken modulo its vocabulary; lengths,
+    arrivals and so every signature are the trace's own): each run's
+    compile counts and seconds."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.serve import ContinuousEngine
+    torch.set_num_threads(2)
+    small = get_config("llama2-7b").smoke()
+    p_cpu = registry.init_params(small, seed=SEED, device="cpu")
+    configs = continuous_configs()
+    out = {}
+    for name, reqs in continuous_traces(
+            get_config("llama2-7b").vocab_size).items():
+        t0 = time.perf_counter()
+        cpu = ContinuousEngine(small, p_cpu, configs[name], device="cpu")
+        cpu.run([dataclasses.replace(r, prompt=r.prompt % small.vocab_size)
+                 for r in reqs])
+        out[name] = {"compiles": compiles(cpu),
+                     "seconds": time.perf_counter() - t0}
+    return out
+
+
 def phase_serve_continuous(dev) -> dict:
     import gc
     import numpy as np
@@ -1244,6 +1377,10 @@ def phase_serve_continuous(dev) -> dict:
     from repro_torch.models import registry
     from repro_torch.serve import ContinuousEngine, ServeConfig
 
+    # the CPU references of this phase's compile counts and of phase
+    # archs' smoke checks, computed beside the card's work
+    cpu_child("cpu_compile_counts")
+    cpu_child("archs_smoke_reference")
     # (a) the same ContinuousEngine at smoke size: card (kernels, CUDA
     # graphs) vs CPU, two runs on each engine (the second on the carry the
     # first left, reset in place, or with its warm prefix cache)
@@ -1284,10 +1421,7 @@ def phase_serve_continuous(dev) -> dict:
     cfg = get_config("llama2-7b")
     t0 = time.perf_counter()
     params = registry.init_params(cfg, seed=SEED, device=dev)
-    base = dict(max_slots=8, max_len=512, page_size=16,
-                kv_cache_format="nvfp4", decode_chunk=8, eos_id=-1)
-    configs = {"A": ServeConfig(**base, prefix_cache=True, prefill_chunk=64),
-               "B": ServeConfig(**base, spec_k=4)}
+    configs = continuous_configs()
     engines = {(name, side): ContinuousEngine(
         cfg, params, sc, device=dev, cuda_graphs=side == "graphs")
         for name, sc in configs.items() for side in ("graphs", "eager")}
@@ -1295,19 +1429,13 @@ def phase_serve_continuous(dev) -> dict:
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
     setup_s = time.perf_counter() - t0
-    runs = {"A": continuous_requests(cfg.vocab_size),
-            "B": continuous_requests(cfg.vocab_size, shared=0)}
+    runs = continuous_traces(cfg.vocab_size)
     out = {"setup_s": setup_s, "launches": {k: 0 for k in counters.COUNTS}}
     for name in ("A", "B"):
         reqs = runs[name]
-        # the compile counts of the CPU engine on the same trace (smoke
-        # size: the token ids taken modulo its vocabulary; lengths,
-        # arrivals and so every signature are the trace's own)
-        t0 = time.perf_counter()
-        cpu = ContinuousEngine(small, p_cpu, configs[name], device="cpu")
-        cpu.run([dataclasses.replace(r, prompt=r.prompt % small.vocab_size)
-                 for r in reqs])
-        cpu_compiles, cpu_s = compiles(cpu), time.perf_counter() - t0
+        # the compile counts of the smoke-size CPU engine on the same trace
+        cpu = cpu_child("cpu_compile_counts").result()[name]
+        cpu_compiles, cpu_s = cpu["compiles"], cpu["seconds"]
         streams = {}
         for side in ("graphs", "eager"):
             eng = engines.pop((name, side))
@@ -1530,6 +1658,12 @@ def k1_step_gemms(cfg, qcfg, tokens, remat=True) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     qd, kv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
     L, fwd = cfg.n_layers, 2 if remat else 1
+    if cfg.family in ("hybrid", "ssm"):
+        for K, N, n, rematted in recurrent_gemms(cfg):
+            gemm(K, N, qcfg, n, n * (fwd if rematted else 1))
+        head = qcfg if cfg.quantize_lm_head else fqt.QuantConfig()
+        gemm(d, cfg.padded_vocab, head, 1, 1)
+        return out
     for K, N in ((d, qd), (d, kv), (d, kv), (qd, d)):
         gemm(K, N, qcfg, L, L * fwd)
     if cfg.n_experts:
@@ -1546,6 +1680,33 @@ def k1_step_gemms(cfg, qcfg, tokens, remat=True) -> dict:
     head = qcfg if cfg.quantize_lm_head else fqt.QuantConfig()
     gemm(d, cfg.padded_vocab, head, 1, 1)
     return out
+
+
+def recurrent_gemms(cfg) -> list:
+    """(K, N, GEMMs a forward pass, rematerialised) of the hybrid and ssm
+    families' weight GEMMs, the lm_head aside.  zamba2: each Mamba layer's
+    in_proj and out_proj (under remat), the shared block's seven at each of
+    its applications (not rematerialised, as in the reference); xLSTM: an
+    mLSTM block's w_up, w_q, w_k, w_v, w_down and an sLSTM block's w_gates,
+    w_ff_gate, w_ff_up, w_ff_down (w_if and r_gates are ``dense_hp``: no
+    GEMM kernel)."""
+    d, L = cfg.d_model, cfg.n_layers
+    if cfg.family == "hybrid":
+        from repro_torch.models import mamba2
+        di, H, P, N = mamba2.mamba_dims(cfg)
+        A, f = mamba2.n_attn(cfg), cfg.d_ff
+        qd, kv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+        return [(d, 2 * di + 2 * N + H, L, True), (di, d, L, True)] + [
+            (K, N, A, False) for K, N in ((d, qd), (d, kv), (d, kv), (qd, d),
+                                          (d, f), (d, f), (f, d))]
+    from repro_torch.models import xlstm
+    di = xlstm._dims(cfg)[0]
+    f = int(cfg.proj_factor * d)
+    Ls = sum(xlstm.is_slstm(cfg, i) for i in range(L))
+    Lm = L - Ls
+    return [(K, N, Lm, True) for K, N in ((d, 2 * di), (di, di), (di, di),
+                                          (di, di), (di, d))] + [
+        (K, N, Ls, True) for K, N in ((d, 4 * d), (d, f), (d, f), (f, d))]
 
 
 def phase_train(dev, batch=4, seq=1024, n_layers=4, steps=3) -> dict:
@@ -1787,6 +1948,22 @@ def lockstep_launches(cfg, steps) -> dict:
             "flash_attention_paged": 0,
             "flash_attention": cfg.n_layers,
             "flash_attention_packed": cfg.n_layers * steps}
+
+
+def recurrent_launches(cfg, prompt_len, steps) -> dict:
+    """Each kernel's launches of one lockstep generate of a recurrent
+    family: its prefill is one decode step per prompt token, so every one
+    of the ``prompt_len + steps`` steps launches K4 for each weight GEMM
+    (``recurrent_gemms``' forward count) and the lm_head, and K6 once for
+    each application of zamba2's shared block; no K7."""
+    from repro_torch.models import mamba2
+    gemms = sum(n for _, _, n, _ in recurrent_gemms(cfg)) + 1
+    n_attn = mamba2.n_attn(cfg) if cfg.family == "hybrid" else 0
+    calls = prompt_len + steps
+    return {"fused_quant_matmul": 0, "block_quantize": 0, "block_matmul": 0,
+            "packed_block_matmul": gemms * calls,
+            "flash_attention_paged": 0, "flash_attention": 0,
+            "flash_attention_packed": n_attn * calls}
 
 
 def dir_bytes(path) -> int:
@@ -2051,9 +2228,15 @@ ARCH_SMOKE = ("codeqwen1.5-7b", "qwen2.5-32b", "mixtral-8x7b",
               "qwen3-moe-235b-a22b")
 QWEN3_LAYERS = 4          # qwen3-moe-235b-a22b: depth cut 94 -> 4 (run d)
 MOE_TRAIN_LAYERS = 2      # Mixtral training: depth cut 32 -> 2 (run e)
+# serving depth cuts that keep the whole script inside its time limit since
+# phase recurrent joined it: qwen2.5-32b 64 -> 16 layers (run b), Mixtral
+# 32 -> 8 (runs c, c long, c continuous); the rest of the archs at full
+# depth
+QWEN25_LAYERS = 16
+MIXTRAL_LAYERS = 8
 
 
-def packed_init(cfg, dev) -> tuple:
+def packed_init(cfg, dev, phase="archs") -> tuple:
     """The serving tree of a random init, built by the streaming packer
     (``packing.init_packed_params``: one layer at a time), with its
     seconds, bytes and the peak device memory of the build."""
@@ -2072,40 +2255,90 @@ def packed_init(cfg, dev) -> tuple:
             "weight_store_bytes": packing.weight_store_bytes(params),
             **start, "init_peak_mem_bytes":
                 torch.cuda.max_memory_allocated(dev)}
-    emit({"phase": "archs", "arch": cfg.name, "n_layers": cfg.n_layers,
+    emit({"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
           "packed_init": info})
     return params, info
 
 
-def archs_smoke(dev) -> list:
-    """Each arch's smoke config through the graphed engines on the card and
-    the same engines on the CPU's plain versions: lockstep (two generates)
-    for every arch, continuous batching for the moe pair (Mixtral's window
-    rolling, Qwen3 with the prefix cache, chunked prefill and verify-k);
-    streams equal (or first apart at a near-tie) and compile counts equal."""
+def archs_smoke_case(arch):
+    """(smoke config, prompts, lockstep ServeConfig, continuous ServeConfig
+    or None, requests, continuous fields) of one arch's smoke check."""
     import numpy as np
     from repro_torch.configs import get_config
+    from repro_torch.serve import ServeConfig
+    small = get_config(arch).smoke()
+    rng = np.random.default_rng(SEED)
+    plen = 80 if small.sliding_window else 16
+    prompts = [rng.integers(0, small.vocab_size, plen) for _ in range(4)]
+    scfg = ServeConfig(batch_size=4, max_len=128, kv_cache_format="nvfp4",
+                       eos_id=-1)
+    if not small.n_experts:
+        return small, prompts, scfg, None, None, None
+    extra = (dict(prefix_cache=True, prefill_chunk=16, spec_k=4,
+                  draft_layers=1) if small.sliding_window is None else {})
+    cs = ServeConfig(max_slots=4, max_len=128, page_size=16, decode_chunk=4,
+                     eos_id=-1, **extra)
+    reqs = continuous_requests(small.vocab_size, n=6,
+                               shared=32 if extra else 0,
+                               lens=(8, 40) if extra else (30, 60),
+                               max_new=12)
+    return small, prompts, scfg, cs, reqs, extra
+
+
+def archs_smoke_reference() -> dict:
+    """(CPU child) The plain versions' side of ``archs_smoke`` for every
+    ARCH_SMOKE arch: the lockstep streams and margins; for the moe pair,
+    each of two continuous runs' streams, margins and compile counts."""
+    import numpy as np
+    import torch
     from repro_torch.models import registry
-    from repro_torch.serve import ContinuousEngine, Engine, ServeConfig
+    from repro_torch.serve import ContinuousEngine, Engine
+    torch.set_num_threads(2)
+    out = {}
+    for arch in ARCH_SMOKE:
+        small, prompts, scfg, cs, reqs, _ = archs_smoke_case(arch)
+        p_cpu = registry.init_params(small, seed=SEED, device="cpu")
+        ref = Engine(small, p_cpu, scfg, device="cpu")
+        r = {"lockstep": [o.tolist() for o in ref.generate(prompts,
+                                                             max_new=16)],
+             "margins": np.asarray(ref.margins).tolist(), "continuous": []}
+        if cs is not None:
+            ref = ContinuousEngine(small, p_cpu, cs, device="cpu")
+            for _ in range(2):
+                want = ref.run(reqs)
+                r["continuous"].append({
+                    "streams": {str(k): v.tolist() for k, v in want.items()},
+                    "margins": {str(k): np.asarray(ref.margins[k]).tolist()
+                                for k in want},
+                    "compiles": compiles(ref)})
+        out[arch] = r
+    return out
+
+
+def archs_smoke(dev) -> list:
+    """Each arch's smoke config through the graphed engines on the card and
+    the same engines on the CPU's plain versions (``archs_smoke_reference``,
+    in a CPU child): lockstep (two generates) for every arch, continuous
+    batching for the moe pair (Mixtral's window rolling, Qwen3 with the
+    prefix cache, chunked prefill and verify-k); streams equal (or first
+    apart at a near-tie) and compile counts equal."""
+    from repro_torch.models import registry
+    from repro_torch.serve import ContinuousEngine, Engine
+    refs = cpu_child("archs_smoke_reference").result()
     rows = []
     for arch in ARCH_SMOKE:
-        small = get_config(arch).smoke()
+        small, prompts, scfg, cs, reqs, extra = archs_smoke_case(arch)
+        want = refs[arch]
         p_cpu = registry.init_params(small, seed=SEED, device="cpu")
-        rng = np.random.default_rng(SEED)
-        plen = 80 if small.sliding_window else 16
-        prompts = [rng.integers(0, small.vocab_size, plen) for _ in range(4)]
-        scfg = ServeConfig(batch_size=4, max_len=128, kv_cache_format="nvfp4",
-                           eos_id=-1)
-        ref = Engine(small, p_cpu, scfg, device="cpu")
-        out_ref = ref.generate(prompts, max_new=16)
         eng = Engine(small, p_cpu, scfg, device=dev)
         for rep in range(2):
             out = eng.generate(prompts, max_new=16)
-            checks = [_first_divergence_ok(a.tolist(), b.tolist(), m)
-                      for a, b, m in zip(out, out_ref, ref.margins)]
+            checks = [_first_divergence_ok(a.tolist(), b, m)
+                      for a, b, m in zip(out, want["lockstep"],
+                                         want["margins"])]
             row = {"phase": "archs", "check": "smoke-size lockstep card "
                    "(graphs) vs CPU plain", "arch": arch, "generate": rep,
-                   "prompt_len": plen,
+                   "prompt_len": len(prompts[0]),
                    "streams_ok": [c[0] for c in checks],
                    "first_divergence": [c[1] for c in checks]}
             emit(row)
@@ -2113,49 +2346,41 @@ def archs_smoke(dev) -> list:
             if not all(c[0] for c in checks):
                 raise AssertionError(f"{arch}: card and CPU streams differ "
                                      f"at a decisive step")
-        if not small.n_experts:
+        if cs is None:
             continue
-        extra = (dict(prefix_cache=True, prefill_chunk=16, spec_k=4,
-                      draft_layers=1) if small.sliding_window is None
-                 else {})
-        cs = ServeConfig(max_slots=4, max_len=128, page_size=16,
-                         decode_chunk=4, eos_id=-1, **extra)
-        reqs = continuous_requests(small.vocab_size, n=6,
-                                   shared=32 if extra else 0,
-                                   lens=(8, 40) if extra else (30, 60),
-                                   max_new=12)
-        ref = ContinuousEngine(small, p_cpu, cs, device="cpu")
         eng = ContinuousEngine(small, p_cpu, cs, device=dev)
-        for rep in range(2):
-            want, card = ref.run(reqs), eng.run(reqs)
+        for rep, ref in enumerate(want["continuous"]):
+            card = {str(k): v for k, v in eng.run(reqs).items()}
             checks = {r: _first_divergence_ok(card[r].tolist(),
-                                              want[r].tolist(),
-                                              ref.margins[r]) for r in want}
+                                              ref["streams"][r],
+                                              ref["margins"][r])
+                      for r in ref["streams"]}
             row = {"phase": "archs", "check": "smoke-size continuous card "
                    "(graphs) vs CPU plain", "arch": arch, "run": rep,
                    "config": extra,
                    "streams_ok": [c[0] for c in checks.values()],
                    "first_divergence": [c[1] for c in checks.values()],
                    "compiles_card": compiles(eng),
-                   "compiles_cpu": compiles(ref)}
+                   "compiles_cpu": ref["compiles"]}
             emit(row)
             rows.append(row)
-            if sorted(card) != sorted(want) or \
+            if sorted(card) != sorted(ref["streams"]) or \
                     not all(c[0] for c in checks.values()):
                 raise AssertionError(f"{arch}: continuous card and CPU "
                                      f"streams differ at a decisive step")
-            if compiles(eng) != compiles(ref):
+            if compiles(eng) != ref["compiles"]:
                 raise AssertionError(f"{arch}: compile counts differ")
     return rows
 
 
 def archs_lockstep(label, cfg, params, dev, batch, prompt_len, max_new,
-                   max_len) -> dict:
+                   max_len, phase="archs") -> dict:
     """One lockstep run through a graphed Engine (the main path) and the
     same prompts through an eager one: streams equal, launches as
-    ``lockstep_launches`` derives them on both sides, tokens in the
-    vocabulary and finite margins; then the graphed engine's prefill and
-    decode-step times and a profiled generate's idle share."""
+    ``lockstep_launches`` (``recurrent_launches`` for the recurrent
+    families) derives them on both sides, tokens in the vocabulary and
+    finite margins; then the graphed engine's prefill and decode-step
+    times and a profiled generate's idle share."""
     import gc
     import numpy as np
     import torch
@@ -2182,15 +2407,20 @@ def archs_lockstep(label, cfg, params, dev, batch, prompt_len, max_new,
         torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0
         launches = counters.snapshot()
-        want = lockstep_launches(cfg, eng.steps)
+        recurrent = cfg.family in ("hybrid", "ssm")
+        want = (recurrent_launches(cfg, prompt_len, eng.steps) if recurrent
+                else lockstep_launches(cfg, eng.steps))
         margins = np.asarray(eng.margins)
         ntok = sum(len(o) for o in out)
-        info = {"phase": "archs", "run": label, "side": side,
+        caches = (eng._carry[1] if cfg.family == "hybrid" else
+                  [] if recurrent else eng._carry)
+        info = {"phase": phase, "run": label, "side": side,
                 "arch": cfg.name, "n_layers": cfg.n_layers, "batch": batch,
                 "prompt_len": prompt_len, "max_new": max_new,
-                "max_len": max_len, "kv_buffer": eng._carry[0].buf,
+                "max_len": max_len,
+                "kv_buffer": caches[0].buf if caches else None,
                 "rolling": cfg.sliding_window is not None
-                and prompt_len + max_new > eng._carry[0].buf,
+                and prompt_len + max_new > caches[0].buf,
                 "decode_steps": eng.steps, "tokens": ntok, "seconds": dt,
                 "tokens_per_s": ntok / dt, **start, **memory_mark(dev),
                 "first_tokens": [o[:8].tolist() for o in out],
@@ -2210,7 +2440,7 @@ def archs_lockstep(label, cfg, params, dev, batch, prompt_len, max_new,
     same = all(np.array_equal(a, b) for a, b in zip(outs["graphs"][0],
                                                     outs["eager"][0]))
     margin_diff = float(np.max(np.abs(outs["graphs"][1] - outs["eager"][1])))
-    emit({"phase": "archs", "run": label, "check": "graphs vs eager",
+    emit({"phase": phase, "run": label, "check": "graphs vs eager",
           "streams_equal": same, "max_abs_margin_diff": margin_diff})
     if not same:
         raise AssertionError(f"{label}: graphed and eager streams differ")
@@ -2221,7 +2451,7 @@ def archs_lockstep(label, cfg, params, dev, batch, prompt_len, max_new,
     info["eager"] = sides["eager"]
     info["streams_equal"], info["max_abs_margin_diff"] = same, margin_diff
     info["graph_breakdown"] = graph_breakdown(engines["graphs"], prompts, dev,
-                                              phase="archs")
+                                              phase=phase)
     return info
 
 
@@ -2340,7 +2570,8 @@ def card_loss_check(params, cfg, qcfg, seq, dev) -> dict:
 
 
 def phase_archs(dev) -> dict:
-    """The dense and moe archs at full width on one card: runs a-e."""
+    """The dense and moe archs at full width on one card: runs a-e (b and
+    c at QWEN25_LAYERS and MIXTRAL_LAYERS)."""
     import gc
     import torch
     from repro_torch.configs import get_config
@@ -2366,21 +2597,28 @@ def phase_archs(dev) -> dict:
     add(out["a"]["continuous"])
     del params
     free()
-    # b: qwen2.5-32b, full depth (64 layers)
-    cfg = get_config("qwen2.5-32b")
+    # b: qwen2.5-32b at full width, depth cut to QWEN25_LAYERS
+    full = get_config("qwen2.5-32b")
+    cfg = dataclasses.replace(full, n_layers=QWEN25_LAYERS)
     params, build = packed_init(cfg, dev)
-    out["b"] = {"build": build, "lockstep": archs_lockstep(
-        "b", cfg, params, dev, 4, 64, 16, 256)}
+    out["b"] = {"build": build, "cut": {"n_layers": [full.n_layers,
+                                                     QWEN25_LAYERS]},
+                "lockstep": archs_lockstep("b", cfg, params, dev, 4, 64, 16,
+                                           256)}
     add(out["b"]["lockstep"])
     del params
     free()
-    # c: mixtral-8x7b, full depth: batch 4; one request past the window (the
-    # 4096-row buffer rolls in the prefill and every step); 8 requests over
-    # the paged pool (no prefix cache or spec: the window refuses both)
-    cfg = get_config("mixtral-8x7b")
+    # c: mixtral-8x7b at full width, depth cut to MIXTRAL_LAYERS: batch 4;
+    # one request past the window (the 4096-row buffer rolls in the prefill
+    # and every step); 8 requests over the paged pool (no prefix cache or
+    # spec: the window refuses both)
+    full = get_config("mixtral-8x7b")
+    cfg = dataclasses.replace(full, n_layers=MIXTRAL_LAYERS)
     params, build = packed_init(cfg, dev)
-    out["c"] = {"build": build, "lockstep": archs_lockstep(
-        "c", cfg, params, dev, 4, 64, 32, 256)}
+    out["c"] = {"build": build, "cut": {"n_layers": [full.n_layers,
+                                                     MIXTRAL_LAYERS]},
+                "lockstep": archs_lockstep("c", cfg, params, dev, 4, 64, 32,
+                                           256)}
     out["c"]["long"] = archs_lockstep("c long", cfg, params, dev, 1, 4160,
                                       64, 4352)
     out["c"]["continuous"] = archs_continuous(
@@ -2409,6 +2647,181 @@ def phase_archs(dev) -> dict:
     for step in out["e"]["launches_per_step"]:
         add({"launches": step})
     emit({"phase": "archs", "launches_main_path": out["launches"]})
+    return out
+
+
+RECURRENT_ARCHS = ("zamba2-1.2b", "xlstm-125m")
+# training at full depth and width: (batch, seq) of each family.  xLSTM's
+# sLSTM blocks run a Python loop over the tokens (forward, remat recompute
+# and backward), so its sequence sets its step time
+RECURRENT_TRAIN = {"zamba2-1.2b": (4, 1024), "xlstm-125m": (4, 256)}
+
+
+def recurrent_smoke(dev) -> list:
+    """Each recurrent arch's smoke config through a graphed Engine on the
+    card (two generates: the second replays both programs) and the same
+    Engine on the CPU's plain versions: streams equal, or first apart at a
+    near-tie."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.serve import Engine, ServeConfig
+    rows = []
+    for arch in RECURRENT_ARCHS:
+        small = get_config(arch).smoke()
+        p_cpu = registry.init_params(small, seed=SEED, device="cpu")
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(0, small.vocab_size, 16) for _ in range(4)]
+        scfg = ServeConfig(batch_size=4, max_len=64, kv_cache_format="nvfp4",
+                           eos_id=-1)
+        ref = Engine(small, p_cpu, scfg, device="cpu")
+        out_ref = ref.generate(prompts, max_new=16)
+        eng = Engine(small, p_cpu, scfg, device=dev)
+        for rep in range(2):
+            out = eng.generate(prompts, max_new=16)
+            checks = [_first_divergence_ok(a.tolist(), b.tolist(), m)
+                      for a, b, m in zip(out, out_ref, ref.margins)]
+            row = {"phase": "recurrent", "check": "smoke-size lockstep card "
+                   "(graphs) vs CPU plain", "arch": arch, "generate": rep,
+                   "streams_ok": [c[0] for c in checks],
+                   "first_divergence": [c[1] for c in checks],
+                   "max_abs_margin_diff": float(np.max(np.abs(
+                       np.asarray(eng.margins) - np.asarray(ref.margins))))}
+            emit(row)
+            rows.append(row)
+            if not all(c[0] for c in checks):
+                raise AssertionError(f"{arch}: card and CPU streams differ "
+                                     f"at a decisive step")
+    return rows
+
+
+def recurrent_train(dev, arch, steps=3) -> dict:
+    """One recurrent arch at full width and depth through ``Trainer``:
+    nvfp4_paper_config, remat, AdamW, the sigma_q probe.  Every step
+    launches K1 as ``k1_step_gemms`` derives it and K2 once per probe leaf;
+    loss, nll and grad norm finite.  Returns the info and the final state."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import fqt, qaf
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import counters
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import TrainConfig, Trainer, TrainerConfig
+    cfg = get_config(arch)
+    batch, seq = RECURRENT_TRAIN[arch]
+    qcfg, tcfg = fqt.nvfp4_paper_config(), TrainConfig(remat=True)
+    per_step = sum(k1_step_gemms(cfg, qcfg, batch * seq).values())
+    trainer = Trainer(cfg, qcfg, tcfg, TrainerConfig(
+        total_steps=steps, log_every=1, qaf=qaf.QAFConfig(enabled=False)),
+        DataConfig(cfg.vocab_size, seq, batch), device=dev)
+    marks = count_steps(trainer)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    counters.reset()
+    t0 = time.perf_counter()
+    state = trainer.run()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    marks.append(counters.snapshot())
+    per = step_launches(marks)
+    leaves = len(probe_leaf_ids(state.params, probe_spec_of(tcfg)))
+    hist = trainer.history
+    timed = [h["dt"] * 1e3 for h in hist[1:]]
+    info = {"phase": "recurrent", "run": "train", "arch": arch,
+            "n_layers": cfg.n_layers, "n_params": sum(
+                p.numel() for p in tree_leaves(state.params)),
+            "batch": batch, "seq": seq, "steps": steps,
+            "quant": "nvfp4_paper_config", "remat": True, "seconds": wall,
+            "step_ms": [h["dt"] * 1e3 for h in hist],
+            "step_ms_median": statistics.median(timed),
+            "tokens_per_s": batch * seq / (statistics.median(timed) / 1e3),
+            "loss": [h["loss"] for h in hist], "nll": [h["nll"] for h in hist],
+            "grad_norm": [h["grad_norm"] for h in hist],
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+            "k1_launches_per_step_expected": per_step,
+            "probe_leaves": leaves, "launches_per_step": per}
+    emit(info)
+    for i, (h, n) in enumerate(zip(hist, per)):
+        if n["fused_quant_matmul"] != per_step or \
+                n["block_quantize"] != leaves:
+            raise AssertionError(f"{arch} step {i}: launches {n}, expected "
+                                 f"{per_step} K1 and {leaves} K2")
+        if not all(math.isfinite(h[k]) for k in ("loss", "nll",
+                                                 "grad_norm")):
+            raise AssertionError(f"{arch}: non-finite metrics at step {i}")
+    return info, state
+
+
+def recurrent_ckpt(dev, label, tree) -> dict:
+    """``checkpoint.ckpt`` save and restore of one tree under build/: seconds,
+    bytes, and the reference leaves whose bits differ (must be none)."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import ckpt
+    (ROOT / "build").mkdir(exist_ok=True)
+    d = tempfile.mkdtemp(prefix="recurrent_ckpt_", dir=ROOT / "build")
+    try:
+        t0 = time.perf_counter()
+        path = ckpt.save(d, 3, tree)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = ckpt.restore(d, 3, tree)
+        restore_s = time.perf_counter() - t0
+        info = {"phase": "recurrent", "check": "checkpoint save/restore",
+                "tree": label, "leaves": len(ckpt.reference_leaves(tree)),
+                "bytes": dir_bytes(path), "save_s": save_s,
+                "restore_s": restore_s,
+                "differing_leaves": differing_leaves(back, tree)}
+        emit(info)
+        del back
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if info["differing_leaves"]:
+        raise AssertionError(f"{label}: restored leaves differ: "
+                             f"{info['differing_leaves']}")
+    return info
+
+
+def phase_recurrent(dev) -> dict:
+    """The hybrid (zamba2-1.2b) and ssm (xlstm-125m) families at full width
+    and depth: smoke configs card vs CPU; each served in lockstep from
+    packed weights (graphed and eager); each trained through ``Trainer``;
+    a checkpoint of each family's tree saved and restored."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    out = {"smoke": recurrent_smoke(dev), "launches": {}}
+
+    def add(launches):
+        for k, v in launches.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for arch in RECURRENT_ARCHS:
+        cfg = get_config(arch)
+        params, build = packed_init(cfg, dev, phase="recurrent")
+        out[arch] = {"build": build, "lockstep": archs_lockstep(
+            arch, cfg, params, dev, 4, 64, 32, 256, phase="recurrent")}
+        add(out[arch]["lockstep"]["launches"])
+        del params
+        free()
+    for arch in RECURRENT_ARCHS:
+        info, state = recurrent_train(dev, arch)
+        for step in info["launches_per_step"]:
+            add(step)
+        # zamba2: its bf16 parameters (the whole TrainState is ~17 GB);
+        # xLSTM: the whole TrainState (params, f32 master, m, v)
+        tree = state.params if arch.startswith("zamba2") else state
+        info["ckpt"] = recurrent_ckpt(dev, f"{arch} "
+                                      + ("params" if tree is state.params
+                                         else "TrainState"), tree)
+        out[arch]["train"] = info
+        del state, tree
+        free()
+    emit({"phase": "recurrent", "launches_main_path": out["launches"]})
     return out
 
 
@@ -2780,7 +3193,7 @@ def phase_times(dev) -> dict:
         return r
 
     with torch.no_grad():
-        for M, K, N in K4_SHAPES + K4_CONT_SHAPES:
+        for M, K, N in K4_SHAPES + K4_CONT_SHAPES + K4_RECURRENT:
             a, w = k4_inputs(M, K, N, dev)
             wd = w.dequant()                        # bf16 (K, N), yardstick
             nbytes = M * K * 2 + K * N // 2 + K // 16 * N + 4 + M * N * 2
@@ -2926,6 +3339,24 @@ def phase_times(dev) -> dict:
             del a, b, ra, rb
         emit({"phase": "times", "kernel": fm.FUSED_NAME,
               "train_step_k1_ms": step_ms})
+        # K1 at the recurrent families' new shapes (K1_CASES): zamba2's
+        # in_proj (N = 8384) and its dX (K = 8384), xlstm's lm_head
+        for label, M, K, N, _, sr_a, sr_b, sc_a, sc_b in K1_CASES:
+            if not ("zamba2" in label or "xlstm" in label):
+                continue
+            a, b, spec_a, spec_b, ra, rb, ca, cb = k1_inputs(
+                M, K, N, "nvfp4", sr_a, sr_b, sc_a, sc_b, dev,
+                a_transposed=label.startswith("dW"))
+            record(fm.FUSED_NAME, (label, M, K, N),
+                   lambda: fm.fused_quant_matmul(
+                       a, b, spec_a, spec_b, a_counter=ca, b_counter=cb,
+                       out_dtype=torch.bfloat16),
+                   lambda: fm.fused_quant_matmul_plain(
+                       a, b, spec_a, spec_b, a_rbits=ra, b_rbits=rb,
+                       out_dtype=torch.bfloat16),
+                   lambda: torch.matmul(a, b), 2 * (M * K + K * N + M * N),
+                   2 * M * N * K, reps=5)
+            del a, b, ra, rb
         # K2 at (4096, 4096) f32, the forward spec (NVFP4 RtN, computed
         # tensor scale): x read once, f32 codes and scales written.  Its
         # f32 operations (~10 a value, 0.0025 ms at 67 TFLOP/s) lie far
@@ -3031,17 +3462,21 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     results = {}
-    for p in phases:
-        t0 = time.perf_counter()
-        results[p] = {"env": phase_env, "kernels": phase_kernels,
-                      "serve": phase_serve,
-                      "serve_continuous": phase_serve_continuous,
-                      "train": phase_train, "pipeline": phase_pipeline,
-                      "archs": phase_archs,
-                      "ops": phase_ops,
-                      "times": phase_times}[p](dev)
-        emit({"phase": p, "done": True,
-              "seconds": round(time.perf_counter() - t0, 3)})
+    try:
+        for p in phases:
+            t0 = time.perf_counter()
+            results[p] = {"env": phase_env, "kernels": phase_kernels,
+                          "serve": phase_serve,
+                          "serve_continuous": phase_serve_continuous,
+                          "train": phase_train, "pipeline": phase_pipeline,
+                          "archs": phase_archs,
+                          "recurrent": phase_recurrent,
+                          "ops": phase_ops,
+                          "times": phase_times}[p](dev)
+            emit({"phase": p, "done": True,
+                  "seconds": round(time.perf_counter() - t0, 3)})
+    finally:
+        stop_cpu_children()
     print(card_line(), flush=True)
     if set(PHASES) - {"env"} <= set(phases):
         # each kernel's launches on the main path that runs it: K4, K6, K7
@@ -3054,9 +3489,11 @@ def main(argv=None) -> int:
         for name in ("fused_quant_matmul", "block_quantize"):
             launches[name] = results["train"]["launches"][name]
         launches["block_matmul"] = results["ops"]["launches"]["block_matmul"]
-        # and each kernel's launches on the archs' paths (runs a-e)
-        for name, n in results["archs"]["launches"].items():
-            launches[name] = launches.get(name, 0) + n
+        # and each kernel's launches on the archs' paths (runs a-e) and
+        # the recurrent families' (serve and train)
+        for ph in ("archs", "recurrent"):
+            for name, n in results[ph]["launches"].items():
+                launches[name] = launches.get(name, 0) + n
         line = []
         for name, (case, route, src, replaces) in SUMMARY.items():
             row = results["times"][(name, case)]

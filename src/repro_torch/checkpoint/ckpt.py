@@ -18,8 +18,11 @@ restores what the other wrote:
   * dicts by sorted key, dataclasses (``TrainState``, ``AdamWState``,
     ``ThresholdState``) in field order, which is the reference's
     NamedTuple order;
-  * a list of per-layer dicts (the port's ``layers``) is one stacked
-    ``(n_layers, ...)`` leaf per name, as the reference holds it;
+  * a list of per-layer dicts of one structure (the transformers'
+    ``layers``, zamba2's ``mamba``) is one stacked ``(n_layers, ...)`` leaf
+    per name, as the reference holds it; a list whose dicts differ
+    (xLSTM's mLSTM and sLSTM blocks, a Python list in the reference too)
+    is numbered per layer, ``['layers'][i]...``;
   * a ``PackedQuantizedTensor`` is three leaves, ``packed``, ``scales``,
     ``tscale`` (the reference's data fields); stacked layers give
     ``tscale`` the shape ``(n_layers,)``;
@@ -73,13 +76,31 @@ def reference_leaves(tree, name: str = "") -> List[Leaf]:
         return [lf for k in sorted(tree)
                 for lf in reference_leaves(tree[k], f"{name}[{k!r}]")]
     if isinstance(tree, (list, tuple)):
-        if tree and all(isinstance(t, dict) for t in tree):
-            per = [reference_leaves(t, name) for t in tree]   # the layers
+        per = _stacked_layers(tree, name)
+        if per is not None:
             return [(per[0][j][0], [p[j][1][0] for p in per], True)
                     for j in range(len(per[0]))]
         return [lf for i, t in enumerate(tree)
                 for lf in reference_leaves(t, f"{name}[{i}]")]
     return [(name, [tree], False)]
+
+
+def _layout(leaves: List[Leaf]) -> list:
+    return [(n, tuple(p[0].shape) if isinstance(p[0], torch.Tensor)
+             else None) for n, p, _ in leaves]
+
+
+def _stacked_layers(tree, name: str = "") -> Optional[List[List[Leaf]]]:
+    """Each layer's leaves where ``tree`` is a list of per-layer dicts of
+    one structure (the same leaf names and shapes): the layers the
+    reference stacks.  None for any other sequence."""
+    if not tree or not all(isinstance(t, dict) for t in tree):
+        return None
+    per = [reference_leaves(t, name) for t in tree]
+    first = _layout(per[0])
+    if any(_layout(p) != first for p in per[1:]):
+        return None
+    return per
 
 
 def _rebuild(like, nxt: Callable[[], Any]):
@@ -97,7 +118,7 @@ def _rebuild(like, nxt: Callable[[], Any]):
         got = {k: _rebuild(like[k], nxt) for k in sorted(like)}
         return {k: got[k] for k in like}
     if isinstance(like, (list, tuple)):
-        if like and all(isinstance(t, dict) for t in like):
+        if _stacked_layers(like) is not None:
             stacked = [nxt() for _ in reference_leaves(like[0])]
             return type(like)(
                 _rebuild(lp, iter([s[i] for s in stacked]).__next__)

@@ -1,10 +1,10 @@
 """Architecture configs the port runs (own copies of ``repro.configs``).
 
 Each module exposes ``CONFIG``; ``get_config(name)`` resolves by arch id.
-The port carries the dense and moe transformer archs of the JAX package:
-the Llama-2 family, TinyLlama, CodeQwen1.5, Qwen2.5, Llama-3, Mixtral and
-Qwen3-MoE.  The hybrid, ssm, encdec and vlm archs arrive with ROADMAP
-Queue 1's breadth items.
+The port carries the dense and moe transformer archs of the JAX package
+(the Llama-2 family, TinyLlama, CodeQwen1.5, Qwen2.5, Llama-3, Mixtral and
+Qwen3-MoE) and its recurrent archs (Zamba2-1.2B, hybrid; xLSTM-125M, ssm).
+The encdec and vlm archs are not ported yet (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -15,10 +15,12 @@ from repro_torch.models.config import ModelConfig  # noqa: F401
 ARCH_IDS = (
     "mixtral_8x7b",
     "qwen3_moe_235b_a22b",
+    "zamba2_1p2b",
     "qwen2p5_32b",
     "codeqwen1p5_7b",
     "tinyllama_1p1b",
     "llama3_405b",
+    "xlstm_125m",
     "llama2_7b",
     "llama2_350m",
     "llama2_60m",
@@ -27,10 +29,12 @@ ARCH_IDS = (
 _ALIASES = {
     "mixtral-8x7b": "mixtral_8x7b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "zamba2-1.2b": "zamba2_1p2b",
     "qwen2.5-32b": "qwen2p5_32b",
     "codeqwen1.5-7b": "codeqwen1p5_7b",
     "tinyllama-1.1b": "tinyllama_1p1b",
     "llama3-405b": "llama3_405b",
+    "xlstm-125m": "xlstm_125m",
     "llama2-7b": "llama2_7b",
     "llama2-350m": "llama2_350m",
     "llama2-60m": "llama2_60m",

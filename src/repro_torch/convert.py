@@ -4,8 +4,10 @@ port.
 ``params_from_jax_numpy(tree, cfg, device)`` takes the JAX parameter pytree
 already converted to numpy (``jax.tree_util.tree_map(np.asarray, params)``
 on the JAX side; bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays) and
-returns the port's parameters on ``device``: the stacked ``layers`` leaves
-become one dict per layer, so both packages compute the same function.
+returns the port's parameters on ``device``: the stacked layers (the
+transformers' ``layers``, zamba2's ``mamba``) become one dict per layer, so
+both packages compute the same function; xLSTM's ``layers``, a list of
+per-layer dicts in the reference too, stays a list.
 ``train_state_from_jax_numpy`` does the same for a whole JAX ``TrainState``
 (step, params, AdamW master/m/v, threshold state).  This module reads numpy
 arrays only and never imports jax.
@@ -30,9 +32,15 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
     return t.to(device)
 
 
+# the key of each family's stacked layers
+_STACKED = {"hybrid": "mamba"}
+
+
 def _convert(tree, device, index=None):
     if isinstance(tree, dict):
         return {k: _convert(v, device, index) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_convert(v, device, index) for v in tree)
     a = np.asarray(tree)
     if index is not None:
         a = a[index]
@@ -42,10 +50,10 @@ def _convert(tree, device, index=None):
 def params_from_jax_numpy(tree, cfg: ModelConfig, device=None):
     """JAX-layout numpy params -> the port's params on ``device``."""
     dev = resolve_device(device)
-    out = {k: _convert(v, dev) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [_convert(tree["layers"], dev, index=i)
-                     for i in range(cfg.n_layers)]
-    return out
+    stacked = _STACKED.get(cfg.family, "layers")
+    return {k: ([_convert(v, dev, index=i) for i in range(cfg.n_layers)]
+                if k == stacked and isinstance(v, dict) else _convert(v, dev))
+            for k, v in tree.items()}
 
 
 def train_state_from_jax_numpy(state, cfg: ModelConfig, device=None):

@@ -3,6 +3,11 @@
   python -m repro_torch.launch.serve --arch llama2-7b --batch 4 \\
       --prompt-len 64 --max-new 32
 
+  # the recurrent families (lockstep only: their prefill is one decode
+  # step per prompt token)
+  python -m repro_torch.launch.serve --arch zamba2-1.2b --batch 4
+  python -m repro_torch.launch.serve --arch xlstm-125m --smoke --device cpu
+
   # continuous batching: 8 queued requests over 4 slots, 16-token pages,
   # the shared-prefix cache (CPU: the kernels' plain versions)
   python -m repro_torch.launch.serve --smoke --queue 8 --prefix-cache \\

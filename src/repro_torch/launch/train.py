@@ -2,6 +2,8 @@
 
   python -m repro_torch.launch.train --arch llama2-60m --smoke --steps 20 \\
       --ckpt-dir runs/r1 --trace runs/r1/trace.json
+  python -m repro_torch.launch.train --arch zamba2-1.2b --batch 4 --seq 1024
+  python -m repro_torch.launch.train --arch xlstm-125m --smoke --device cpu
 
 Trains under the paper's FQT scheme (``--quant nvfp4``: NVFP4 at all six
 GEMM points, SR on the gradients and the update's activations) on the

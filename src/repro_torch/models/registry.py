@@ -1,4 +1,6 @@
-"""Uniform model API (PyTorch), the dense and moe transformer families.
+"""Uniform model API (PyTorch): the dense and moe transformer families and
+the recurrent hybrid (zamba2: Mamba2 + a shared attention block) and ssm
+(xLSTM) families.
 
   init_params(cfg, seed=..., device=...)          -> params
   loss_fn(params, cfg, qcfg, batch, seed, remat)  -> (loss, aux)
@@ -11,8 +13,11 @@
   verify_k, draft_view                            -> speculative decoding
 
 Counterpart of ``repro.models.registry``.  Entry points run on ``cuda``
-unless the caller passes ``device="cpu"``.  The hybrid, ssm, encdec and vlm
-families arrive with ROADMAP Queue 1's breadth items.
+unless the caller passes ``device="cpu"``.  The recurrent families serve in
+lockstep only: they prefill by a loop of decode steps (the reference's
+``lax.scan``), and the continuous-batching entries raise for them, as the
+reference's do.  The encdec and vlm families are not ported yet (ROADMAP
+Queue 1).
 """
 from __future__ import annotations
 
@@ -22,8 +27,24 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.fqt import QuantConfig
-from repro_torch.models import transformer
+from repro_torch.models import mamba2, transformer, xlstm
 from repro_torch.models.config import ModelConfig
+
+_RECURRENT = {"hybrid": mamba2, "ssm": xlstm}
+
+
+def _module(cfg: ModelConfig):
+    """The family's model module (``transformer.check_family`` guards the
+    transformer families)."""
+    if cfg.family in _RECURRENT:
+        return _RECURRENT[cfg.family]
+    transformer.check_family(cfg)
+    return transformer
+
+
+def _lockstep_only(cfg: ModelConfig, what: str, why: str):
+    if cfg.family in _RECURRENT:
+        raise NotImplementedError(f"{what}: family {cfg.family!r} {why}")
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
@@ -31,29 +52,28 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
                 dtype=torch.bfloat16, device=None, finish=None):
     """Random parameters drawn from a seeded ``torch.Generator`` on
     ``device`` (default cuda).  ``finish``: applied to each layer's dict
-    as it is drawn and to the lm_head (``transformer.init``)."""
-    transformer.check_family(cfg)
+    as it is drawn and to the lm_head (``transformer.init``; the recurrent
+    families' also to their shared block)."""
+    mod = _module(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
-    return transformer.init(cfg, generator, dtype, device=dev, finish=finish)
+    return mod.init(cfg, generator, dtype, device=dev, finish=finish)
 
 
 def loss_fn(params, cfg: ModelConfig, qcfg: QuantConfig, batch, *,
             seed: int = 0, remat: bool = True):
     """Next-token cross-entropy of ``batch["tokens"]``: (loss, aux)."""
-    transformer.check_family(cfg)
-    return transformer.loss_fn(params, cfg, qcfg, batch, seed=seed,
-                               remat=remat)
+    return _module(cfg).loss_fn(params, cfg, qcfg, batch, seed=seed,
+                                remat=remat)
 
 
 def forward(params, cfg: ModelConfig, qcfg: QuantConfig, batch, *,
             seed: int = 0, remat: bool = False):
     """Full-sequence logits of ``batch["tokens"]``: (logits, aux)."""
-    transformer.check_family(cfg)
-    return transformer.forward(params, cfg, qcfg, batch["tokens"],
-                               seed=seed, remat=remat)
+    return _module(cfg).forward(params, cfg, qcfg, batch["tokens"],
+                                seed=seed, remat=remat)
 
 
 def make_decode_state(cfg: ModelConfig, batch: int, max_len: int,
@@ -63,23 +83,50 @@ def make_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     """Empty per-layer KV caches: bf16, or block-quantized "nvfp4"/"fp8";
     with ``page_size``, ``PagedKVCache``s over a shared page pool with
     per-slot lengths (continuous batching; ``total_pages`` sizes the pool,
-    default one full reservation per slot plus the trash page)."""
+    default one full reservation per slot plus the trash page).
+
+    hybrid: (the stacked Mamba states, one cache per application of the
+    shared block); ssm: the per-layer recurrent states, which stay f32 (no
+    KV cache)."""
+    dev = resolve_device(device)
+    if cfg.family == "hybrid":
+        return (mamba2.init_state(cfg, batch, dtype, device=dev),
+                mamba2.init_cache(cfg, batch, max_len, dtype,
+                                  kv_cache_format, page_size, total_pages,
+                                  device=dev))
+    if cfg.family == "ssm":
+        return xlstm.init_state(cfg, batch, device=dev)
     transformer.check_family(cfg)
     return transformer.init_cache(cfg, batch, max_len, dtype,
                                   kv_cache_format, page_size, total_pages,
-                                  device=resolve_device(device))
+                                  device=dev)
 
 
 def reset_decode_state(carry) -> None:
     """Empty ``make_decode_state``'s carry IN PLACE (zeroed pools and
-    lengths, page tables on the trash page): the engines keep one carry
-    at fixed addresses, which their recorded programs read and write."""
+    lengths, page tables on the trash page, recurrent states back to their
+    initial values): the engines keep one carry at fixed addresses, which
+    their recorded programs read and write."""
+    if isinstance(carry, tuple):                 # hybrid: (states, caches)
+        states, carry = carry
+        mamba2.reset_state(states)
+    elif carry and isinstance(carry[0], tuple):  # ssm: per-layer states
+        xlstm.reset_state(carry)
+        return
     for cache in carry:
         cache.reset()
 
 
 def prefill(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, carry):
-    """Fill the decode carry from a prompt.  Returns (last_logits, carry)."""
+    """Fill the decode carry from a prompt.  Returns (last_logits, carry).
+    The recurrent families run one decode step per prompt token (the
+    reference's ``lax.scan`` of ``decode_step``; no chunk-parallel
+    prefill), updating the carry in place."""
+    if cfg.family in _RECURRENT:
+        for t in range(tokens.shape[1]):
+            logits, carry = decode_step(params, cfg, qcfg,
+                                        tokens[:, t:t + 1], carry)
+        return logits[:, -1], carry
     transformer.check_family(cfg)
     logits, carry = transformer.prefill(params, cfg, qcfg, tokens, carry)
     return logits[:, -1], carry
@@ -89,6 +136,12 @@ def decode_step(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, carry,
                 *, seed: int = 0, write_mask=None):
     """``write_mask`` ((B,) bool): paged caches only -- slots mid-chunked-
     prefill write to the trash page and keep their length."""
+    if write_mask is not None:
+        _lockstep_only(cfg, "decode_step write_mask", "has no paged cache "
+                       "write to mask (chunked prefill is dense/moe only)")
+    if cfg.family in _RECURRENT:
+        return _RECURRENT[cfg.family].decode_step(params, cfg, qcfg, tokens,
+                                                  carry, seed=seed)
     transformer.check_family(cfg)
     return transformer.decode_step(params, cfg, qcfg, tokens, carry,
                                    seed=seed, write_mask=write_mask)
@@ -99,7 +152,10 @@ def prefill_slot(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
     """Prefill ONE slot of a paged carry from a right-padded (1, Sp)
     prompt.  ``slot``/``plen``: host ints or int32 device scalars, as the
     reference takes ints or traced values.  Returns (logits (1, V),
-    carry)."""
+    carry).  The recurrent families raise: a right-padded static prefill
+    would absorb the pad tokens into their O(1) state."""
+    _lockstep_only(cfg, "prefill_slot", "not supported (recurrent state "
+                   "cannot be prefilled from a right-padded static shape)")
     transformer.check_family(cfg)
     return transformer.prefill_slot(params, cfg, qcfg, tokens, carry, slot,
                                     plen, seed=seed)
@@ -110,7 +166,10 @@ def prefill_suffix(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
     """Prefill ONE slot from a right-padded (1, Sp) prompt SUFFIX whose
     first ``pfx`` tokens are cached in shared prefix pages (``slot``/
     ``plen``/``pfx``: host ints or int32 device scalars).  Returns (logits
-    (1, V), carry)."""
+    (1, V), carry).  Dense and moe only: the recurrent families have no
+    pageable cache to share."""
+    _lockstep_only(cfg, "prefill_suffix", "cannot share prefix pages (K/V "
+                   "are not a pure function of the prompt prefix)")
     transformer.check_family(cfg)
     return transformer.prefill_suffix(params, cfg, qcfg, tokens, carry,
                                       slot, plen, pfx, seed=seed)
@@ -120,7 +179,10 @@ def prefill_chunk(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
                   carry, slot, off, *, seed: int = 0):
     """Write one FULL intermediate chunk (1, C) of a prompt into a paged
     slot at [off, off + C) (``slot``/``off``: host ints or int32 device
-    scalars).  Returns the carry."""
+    scalars).  Returns the carry.  Dense and moe only."""
+    _lockstep_only(cfg, "prefill_chunk", "cannot prefill through the paged "
+                   "cache (K/V are not a pure function of the prompt "
+                   "prefix)")
     transformer.check_family(cfg)
     return transformer.prefill_chunk(params, cfg, qcfg, tokens, carry, slot,
                                      off, seed=seed)
@@ -129,7 +191,10 @@ def prefill_chunk(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
 def verify_k(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, carry,
              *, seed: int = 0, write_mask=None):
     """Teacher-forced speculative verify of (B, k) tokens over the paged
-    carry.  Returns (logits (B, k, V), carry)."""
+    carry.  Returns (logits (B, k, V), carry).  Dense and moe only: a
+    recurrent state absorbs drafted tokens irreversibly."""
+    _lockstep_only(cfg, "verify_k", "cannot roll back rejected drafts (no "
+                   "exactly-truncatable paged cache)")
     transformer.check_family(cfg)
     return transformer.verify_k(params, cfg, qcfg, tokens, carry, seed=seed,
                                 write_mask=write_mask)

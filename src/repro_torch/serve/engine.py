@@ -114,9 +114,11 @@ def _head(lg: torch.Tensor, scfg: ServeConfig):
 
 
 class Engine:
-    """Single-model LOCKSTEP serving engine (dense and moe families; a
-    sliding-window model's cache is a rolling buffer of min(max_len,
-    window) rows).
+    """Single-model LOCKSTEP serving engine (dense and moe families, whose
+    sliding-window models keep a rolling buffer of min(max_len, window)
+    rows; the recurrent hybrid and ssm families, whose prefill program is
+    one decode step per prompt token over a carry of recurrent states
+    updated in place).
 
     ``cuda_graphs`` (default True): on the card each program replays as
     one CUDA graph per signature; False runs them eagerly (the comparison

@@ -6,11 +6,16 @@ tensor scale, ~0.5625 B/param) once, at engine build; the forward consumes
 it through the K4 kernel.  Each per-layer weight gets its own tensor scale,
 which is what the reference's ``batch_dims`` packing of the stacked layer
 axis gives (a moe layer's stacked (E, d, f) experts get one per expert).
-Norms, embeddings, routers and smooth factors stay as they are.
+Norms, embeddings, routers and smooth factors stay as they are, and so do
+the recurrent families' conv weights, SSM parameters (``A_log``, ``D``,
+``dt_bias``), gate biases and high-precision gate projections (``w_if``,
+``r_gates``).
 
 ``init_packed_params`` builds the packed tree of a random init one layer at
 a time: the same tree as packing the whole bf16 init, within the memory of a
-card that could not hold that bf16 tree (qwen2.5-32b, Mixtral-8x7B).
+card that could not hold that bf16 tree (qwen2.5-32b, Mixtral-8x7B); the
+recurrent families' inits pack each layer, the shared block and the lm_head
+as they are drawn in the same way.
 """
 from __future__ import annotations
 

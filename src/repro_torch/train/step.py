@@ -81,7 +81,8 @@ def step_seed(step: int) -> int:
 def _reference_leaves(tree) -> List[Tuple[List[torch.Tensor], bool]]:
     """The leaves in the reference's tree order (dict keys sorted), each as
     (tensors, stacked): the per-layer leaves of one name form one group,
-    which the reference holds as one (n_layers, ...) leaf
+    which the reference holds as one (n_layers, ...) leaf, and a layer list
+    of mixed blocks (xLSTM's) is numbered per layer
     (``checkpoint.ckpt.reference_leaves`` without the names)."""
     return [(parts, stacked) for _, parts, stacked in reference_leaves(tree)]
 

@@ -300,10 +300,13 @@ def _same_tree(a, b, where=""):
                            if b.element_size() == 1 else b), where
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-32b", MIXTRAL])
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", MIXTRAL, "zamba2-1.2b",
+                                  "xlstm-125m"])
 def test_init_packed_params_is_the_packed_init(arch):
     """The streaming packer builds exactly pack_model_params(init_params):
-    the same draws from the generator, leaf for leaf and bit for bit."""
+    the same draws from the generator, leaf for leaf and bit for bit (the
+    recurrent families' inits pack each layer, zamba2's shared block and
+    the lm_head as they are drawn)."""
     cfg = get_config(arch).smoke()
     spec = fqt.qaf_config().fwd_w
     gen = torch.Generator().manual_seed(3)
@@ -312,7 +315,10 @@ def test_init_packed_params_is_the_packed_init(arch):
     gen = torch.Generator().manual_seed(3)
     got = packing.init_packed_params(cfg, gen, spec, device="cpu")
     _same_tree(got, want)
-    assert isinstance(got["layers"][0]["attn"]["wq"], PackedQuantizedTensor)
+    first = {"hybrid": lambda t: t["mamba"][0]["in_proj"],
+             "ssm": lambda t: t["layers"][0]["mlstm"]["w_q"]}.get(
+        cfg.family, lambda t: t["layers"][0]["attn"]["wq"])
+    assert isinstance(first(got), PackedQuantizedTensor)
     assert isinstance(got["lm_head"], PackedQuantizedTensor)
 
 

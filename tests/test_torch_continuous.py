@@ -219,12 +219,84 @@ def test_continuous_config_errors(models):
                                                    temperature=1.0),
                          device="cpu")
     import dataclasses
-    with pytest.raises(NotImplementedError, match="lockstep Engine"):
-        ContinuousEngine(dataclasses.replace(cfg, family="hybrid"), tparams,
-                         ServeConfig(), device="cpu")
     with pytest.raises(NotImplementedError, match="models/whisper.py"):
         ContinuousEngine(dataclasses.replace(cfg, family="encdec"), tparams,
                          ServeConfig(), device="cpu")
+
+
+RECURRENT = ("zamba2-1.2b", "xlstm-125m")
+
+
+@pytest.fixture(scope="module")
+def recurrent():
+    """The recurrent families' smoke configs with the port's own init."""
+    from repro_torch.models import registry
+    return {arch: (get_config(arch).smoke(), registry.init_params(
+        get_config(arch).smoke(), seed=0, device="cpu"))
+        for arch in RECURRENT}
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_families_stay_lockstep(recurrent, arch):
+    """The reference's serving contract for the hybrid and ssm families:
+    ContinuousEngine refuses them ("lockstep"), as do the continuous-
+    batching entries of the registry and a masked decode step; the hybrid
+    family's shared-attention caches still build paged (the reference's
+    tests/test_scheduler.py check)."""
+    from repro_torch.core import fqt
+    from repro_torch.models import registry
+    from repro_torch.models.layers import PagedKVCache
+    cfg, params = recurrent[arch]
+    with pytest.raises(NotImplementedError, match="lockstep"):
+        ContinuousEngine(cfg, params, _scfg({}), device="cpu")
+    carry = registry.make_decode_state(cfg, 2, 64, kv_cache_format="nvfp4",
+                                       page_size=16, device="cpu")
+    if cfg.family == "hybrid":
+        assert len(carry[1]) == 2
+        assert all(isinstance(c, PagedKVCache) for c in carry[1])
+    tok = torch.ones((1, 4), dtype=torch.long)
+    q = fqt.qaf_config()
+    for call in (
+            lambda: registry.prefill_slot(params, cfg, q, tok, carry, 0, 4),
+            lambda: registry.prefill_suffix(params, cfg, q, tok, carry, 0, 4,
+                                            2),
+            lambda: registry.prefill_chunk(params, cfg, q, tok, carry, 0, 0),
+            lambda: registry.verify_k(params, cfg, q, tok, carry),
+            lambda: registry.decode_step(
+                params, cfg, q, tok[:, :1], carry,
+                write_mask=torch.ones((1,), dtype=torch.bool))):
+        with pytest.raises(NotImplementedError, match=cfg.family):
+            call()
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_state_resets_in_place(recurrent, arch):
+    """``reset_decode_state`` puts the recurrent states (and zamba2's KV
+    caches) back to their initial values at the same addresses: a prefill
+    moves every state tensor, the reset restores ``make_decode_state``'s
+    values bit for bit, and no tensor is reallocated."""
+    from repro_torch.core import fqt
+    from repro_torch.models import registry
+    cfg, params = recurrent[arch]
+    carry = registry.make_decode_state(cfg, 2, 16, kv_cache_format="nvfp4",
+                                       device="cpu")
+    fresh = registry.make_decode_state(cfg, 2, 16, kv_cache_format="nvfp4",
+                                       device="cpu")
+    states = carry[0] if cfg.family == "hybrid" else carry
+    tensors = (list(states.values()) if cfg.family == "hybrid"
+               else [t for st in states for t in st])
+    want = (list(fresh[0].values()) if cfg.family == "hybrid"
+            else [t for st in fresh for t in st])
+    ptrs = [t.data_ptr() for t in tensors]
+    with torch.no_grad():
+        registry.prefill(params, cfg, fqt.qaf_config(),
+                         torch.ones((2, 3), dtype=torch.long), carry)
+    assert all(not torch.equal(t, w) for t, w in zip(tensors, want))
+    registry.reset_decode_state(carry)
+    assert [t.data_ptr() for t in tensors] == ptrs
+    assert all(torch.equal(t, w) for t, w in zip(tensors, want))
+    if cfg.family == "hybrid":
+        assert all(int(c.length) == 0 for c in carry[1])
 
 
 def test_temperature_stream_is_per_request(models):
