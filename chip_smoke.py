@@ -2,8 +2,8 @@
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA GPU: serve
 (lockstep and continuous batching), train, the pipeline from training
 through checkpoint/restart and the packed export to serving, the dense
-and moe archs at full width, and the recurrent families at full width and
-depth.
+and moe archs at full width, the recurrent families at full width and
+depth, and the encdec and vlm families at full width.
 
     python3 chip_smoke.py                    # every phase, one CUDA card
     python3 chip_smoke.py --phases env,kernels
@@ -39,7 +39,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
            a long cache of 16 tiles in one split) and K6_ROLL (the rolling
            rule of a sliding-window buffer of 64 and of 4096 rows, below,
            at and past the buffer, GQA); K7 runs K7_CASES and K7_EDGE
-           (window, non-causal, ragged Sq != Sk, head dims 32 and 96); K5
+           (window, non-causal, ragged Sq != Sk, head dims 32 and 96) and
+           K7_ENCDEC (whisper's encoder, Sq = Sk = 1500, and its
+           cross-attention, Sk 1500); K5
            its 30 cases.  K2 runs on the route ``k2_route`` picks ("vec":
            16-byte lanes; "scalar": one thread a block), bit for bit:
            K2_SPECS x K2_SHAPES x f32/bf16 x a given or computed tensor
@@ -170,6 +172,35 @@ Phases, each printing JSON lines; any failure exits non-zero:
            memory; zamba2's trained params and xlstm's TrainState are saved
            and restored (``checkpoint/ckpt.py``, under build/) with 0
            differing leaves.
+  encdec_vlm
+           the encdec (whisper-base: 6 + 6 layers, d 512, 1500 encoder
+           frames, GELU MLPs, cross-attention, the tied head) and vlm
+           (internvl2-26b: 48 layers, d 6144, GQA 48/8, d_ff 16384, vocab
+           92672, a 256-row patch prefix) families at full width, weights
+           from the streaming packer, nvfp4 KV, greedy, no EOS, random
+           seeded frames / prefix.  Run a: whisper at full depth, lockstep
+           batch 4 x prompt 32, 32 new, max_len 128, graphed and eager:
+           streams equal, launches as ``encdec_launches`` derives them (K4
+           at every GEMM, K7 for the encoder and every cross-attention, K6
+           for the decoder's reads, K1 for the tied head), prefill and
+           decode-step ms, tokens/s, idle share, peak memory.  Run b:
+           whisper through ContinuousEngine (4 slots, 16-token pages, nvfp4
+           pool; 8 requests two a tick, prompts 16-48, 32 new, each with its
+           own frames), graphed and eager: ``continuous_run``'s checks (K5
+           for the decoder's reads), each request's stream equal to its
+           solo graphed lockstep run or first apart at a near-tie, compile
+           counts equal to the smoke-size CPU engine's on the same trace.
+           Run c: internvl2-26b at full depth, lockstep batch 4 x (256
+           prefix + 64 prompt tokens), 32 new, max_len 384, as run a.  Run
+           d: whisper through ``Trainer`` at full depth (batch 4 x 256,
+           nvfp4_paper_config, remat, 3 steps; K1 from ``k1_step_gemms``
+           with the encoder's 4 x 1500 rows, K2 per probe leaf), its
+           TrainState saved and restored bit for bit; internvl2-26b at
+           full width, depth cut to 2 layers, a cold and a measured train
+           step on 1 x 512 tokens after a 256-row prefix.  Run e: both smoke configs on the
+           card against the CPU's plain versions (a CPU child): logits, the
+           lockstep streams with extras, whisper's continuous streams and
+           compile counts.
   ops      the kernel-level public API (``kernels/ops.py``) as a user calls
            it: the unfused FQT GEMM at each forward GEMM shape of the
            train phase's llama2-7b (M = 4096 tokens; (K, N) = (4096, 4096),
@@ -189,12 +220,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
            K1 at every train GEMM with its SR operands in counter mode, as
            the train step runs it, and at the recurrent families' new
            shapes (zamba2's N = 8384 in_proj and its K = 8384 dX, xlstm's
-           N = 50432 lm_head); K4 at every main-path shape with its
+           N = 50432 lm_head, whisper's tied head and encoder w_in,
+           internvl2's head); K4 at every main-path shape with its
            route, and both routes at M 1-64 (the crossover); K5 at run A's
            decode, the verify and the chunk shapes; K6 at every K6_CASES row
            with the split plan it takes and on run c's rolling caches
-           (K6_ROLL_TIMES); K7 at every K7_CASES and K7_MAIN
-           row; K2 at 4096^2 f32 (computed and given tensor scale), bf16,
+           (K6_ROLL_TIMES); K7 at every K7_CASES, K7_MAIN and K7_ENCDEC
+           row; GELU (whisper's MLP) in the reference's order and as
+           torch's tanh GELU; K2 at 4096^2 f32 (computed and given tensor scale), bf16,
            and at the sigma_q probe's largest leaf in counter mode; and the
            device time of each launch inside one call of K1, K2 (its absmax
            pre-pass and quantizer), K3, K4 (each route), K5, K6 and K7, each
@@ -221,7 +254,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("env", "kernels", "serve", "serve_continuous", "train",
-          "pipeline", "archs", "recurrent", "ops", "times")
+          "pipeline", "archs", "recurrent", "encdec_vlm", "ops", "times")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core peak
 SEED = 0
@@ -247,11 +280,25 @@ K4_RECURRENT = ((4, 2048, 8384), (4, 4096, 2048), (4, 2048, 2048),
                 (4, 2048, 8192), (4, 8192, 2048), (4, 2048, 32000),
                 (4, 768, 3072), (4, 1536, 1536), (4, 1536, 768),
                 (4, 768, 1536), (4, 768, 50432))
+# K4 on the encdec and vlm paths: whisper-base's decode GEMV (M 4: 512^2,
+# 512 -> 2048, 2048 -> 512) and its encoder and per-step cross-attention
+# K/V on the core (M = 4 x 1500 frames), internvl2-26b's decode GEMV (wq/wo,
+# wk/wv, w_gate/w_up, w_down, lm_head) and its prefill on the core (M = 4 x
+# (256 vision tokens + 64 prompt tokens))
+K4_ENCDEC = ((4, 512, 512), (4, 512, 2048), (4, 2048, 512),
+             (6000, 512, 512), (6000, 512, 2048), (6000, 2048, 512),
+             (4, 6144, 6144), (4, 6144, 1024), (4, 6144, 16384),
+             (4, 16384, 6144), (4, 6144, 92672),
+             (1280, 6144, 6144), (1280, 6144, 1024), (1280, 6144, 16384),
+             (1280, 16384, 6144))
 K6_CASES = (  # (B, H, KVH, D, Sk, kv_len): llama2-7b, then tinyllama (G = 8),
-    # then zamba2-1.2b's shared block (MHA, D 64)
+    # then zamba2-1.2b's shared block (MHA, D 64), whisper-base's decoder
+    # (MHA 8 heads, D 64, 128 rows) and internvl2-26b's (GQA 48/8, D 128, 384
+    # rows, mid-decode after its 320-row prefill)
     (4, 32, 32, 128, 256, 65), (4, 32, 32, 128, 256, 80),
     (4, 32, 32, 128, 256, 96), (4, 32, 4, 64, 256, 96),
-    (4, 32, 32, 64, 256, 80))
+    (4, 32, 32, 64, 256, 80), (4, 8, 8, 64, 128, 48),
+    (4, 48, 8, 128, 384, 336))
 # K6 at its edges, decode rows (q_offset = kv_len - 1): (B, H, KVH, D, Sk,
 # kv_len, window) -- one cached token, exactly one 128-key tile, a window,
 # and a 2048-token cache (16 tiles in k6_plan's one split; with a window
@@ -283,6 +330,7 @@ K5_CASES = (
     ("decode GQA", 8, 1, 32, 4, 64, 16, 32, K5_LENS, "last", None),
     ("window", 8, 1, 32, 32, 128, 16, 8, (0, 5, 100, 128, 129, 200, 255,
                                           300), "last", 100),
+    ("decode whisper", 4, 1, 8, 8, 64, 16, 8, (0, 17, 48, 80), "last", None),
 )
 K7_CASES = (  # (B, S, H, KVH, D, dtype name)
     (4, 64, 32, 32, 128, "float32"), (4, 64, 32, 32, 128, "bfloat16"),
@@ -290,10 +338,14 @@ K7_CASES = (  # (B, S, H, KVH, D, dtype name)
     (1, 192, 32, 32, 128, "float32"))      # run B's cold prefill-into-slot
 # K7 on the main path's operands: f32 tensors holding bf16 values, as
 # layers._attn_prefill passes them (K7's TF32-exact route): the lockstep
-# prefill and run B's cold prefill-into-slot
+# prefill, run B's cold prefill-into-slot, internvl2-26b's prefill (256
+# vision + 64 prompt rows, GQA 48/8: a head group of 6) and whisper-base's
+# decoder self-attention prefill (MHA 8, D 64)
 BF16_VALUED = "float32 bf16-valued"
-K7_MAIN = ((4, 64, 32, 32, 128, BF16_VALUED), (1, 192, 32, 32, 128,
-                                               BF16_VALUED))
+K7_MAIN = ((4, 64, 32, 32, 128, BF16_VALUED),
+           (1, 192, 32, 32, 128, BF16_VALUED),
+           (4, 320, 48, 8, 128, BF16_VALUED),
+           (4, 32, 8, 8, 64, BF16_VALUED))
 # K7 at its edges: (B, Sq, Sk, H, KVH, D, dtype name, causal, window)
 K7_EDGE = tuple(
     (4, 64, 64, 32, 32, 128, dt, causal, window) for dt in ("float32",
@@ -302,6 +354,11 @@ K7_EDGE = tuple(
     (2, 50, 77, 8, 2, 32, "float32", True, None),
     (2, 77, 50, 8, 2, 96, "bfloat16", True, 30),   # every row sees a key
     (1, 100, 100, 4, 4, 96, "float32", False, 30))
+# K7 on whisper-base's serving paths, f32 holding bf16 values, non-causal
+# (B, Sq, Sk, H, KVH, D): the encoder (1500 frames), cross-attention of a
+# decode step and of a 32-token prefill
+K7_ENCDEC = ((4, 1500, 1500, 8, 8, 64), (4, 1, 1500, 8, 8, 64),
+             (4, 32, 1500, 8, 8, 64))
 # K1 on llama2-7b's training GEMMs at M = 4096 tokens (batch 4 x seq 1024):
 # (label, M, K, N, spec, SR on A, SR on B, input scale of A, of B) -- the
 # forward z = x @ W (RtN both), the backward dX = g @ W^T (SR on g) and the
@@ -325,6 +382,22 @@ K1_CASES = (
     ("fwd xlstm lm_head", 1024, 768, 50432, "nvfp4", False, False, 1.0,
      0.02),
     ("dX xlstm lm_head", 1024, 50432, 768, "nvfp4", True, False, 1e-4,
+     0.02),
+    # whisper-base's tied head on a decode step: embed.T (512, 51968), both
+    # operands RtN (the serving qaf_config)
+    ("fwd whisper head", 4, 512, 51968, "nvfp4", False, False, 1.0, 0.02),
+    # whisper-base's training: the encoder's w_in over 4 x 1500 frames
+    # (forward, dX, and dW contracting over K = 6000 rows), and
+    # internvl2-26b's head (N = 92672) on 512 tokens and its dX
+    ("fwd whisper enc w_in", 6000, 512, 2048, "nvfp4", False, False, 1.0,
+     0.02),
+    ("dX whisper enc w_in", 6000, 2048, 512, "nvfp4", True, False, 1e-4,
+     0.02),
+    ("dW whisper enc w_in", 512, 6000, 2048, "nvfp4", True, True, 1.0,
+     1e-4),
+    ("fwd internvl2 head", 512, 6144, 92672, "nvfp4", False, False, 1.0,
+     0.02),
+    ("dX internvl2 head", 512, 92672, 6144, "nvfp4", True, False, 1e-4,
      0.02),
 )
 # The unfused GEMM of phase ops at llama2-7b's forward GEMMs, M = 4096
@@ -804,7 +877,7 @@ def phase_kernels(dev) -> dict:
 
     # K4 through the route k4_route picks, and both sides of the crossover
     routes = set()
-    for M, K, N in K4_SHAPES + K4_CONT_SHAPES + K4_RECURRENT + (
+    for M, K, N in K4_SHAPES + K4_CONT_SHAPES + K4_RECURRENT + K4_ENCDEC + (
             (fm.K4_GEMV_MAX_M, 4096, 4096), (fm.K4_GEMV_MAX_M + 1, 4096, 4096)):
         a, w = k4_inputs(M, K, N, dev)
         route = fm.k4_route(M, NVFP4)
@@ -889,7 +962,9 @@ def phase_kernels(dev) -> dict:
                 del args, got, want
     for B, Sq, Sk, H, KVH, D, dt, causal, window in tuple(
             (B, S, S, H, KVH, D, dt, True, None)
-            for B, S, H, KVH, D, dt in K7_CASES + K7_MAIN) + K7_EDGE:
+            for B, S, H, KVH, D, dt in K7_CASES + K7_MAIN) + K7_EDGE + tuple(
+            (B, Sq, Sk, H, KVH, D, BF16_VALUED, False, None)
+            for B, Sq, Sk, H, KVH, D in K7_ENCDEC):
         q, k, v = k7_inputs(B, Sq, H, KVH, D, dt, dev, Sk=Sk)
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
         want = fa.flash_attention_plain(q, k, v, causal=causal,
@@ -1049,20 +1124,25 @@ def phase_serve(dev, batch=4, prompt_len=64, max_new=32, max_len=256):
     return info
 
 
-def graph_breakdown(eng, prompts, dev, steps=8, phase="serve") -> dict:
+def graph_breakdown(eng, prompts, dev, steps=8, phase="serve",
+                    extras=None) -> dict:
     """The graphed engine's programs replayed on their own: prefill and
     decode-step times (CUDA events around each replay), and one profiled
-    generate's device time by kernel and idle share."""
+    generate's device time by kernel and idle share.  ``extras``: the
+    generate's (frames, prefix_embeds), the prefill's operands."""
     import numpy as np
     import torch
     from repro_torch.models import registry
+    extras = extras or {}
     toks = torch.from_numpy(np.stack(prompts).astype(np.int64)).to(dev)
+    ops = [None if extras.get(k) is None else extras[k].to(dev)
+           for k in ("frames", "prefix_embeds")]
     registry.reset_decode_state(eng._carry)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 + steps)]
     prefill, decode = eng.programs["prefill"], eng.programs["decode"]
     captures = (prefill.captures, decode.captures)
     ev[0].record()
-    logits = prefill(toks)
+    logits = prefill(toks, *ops)
     ev[1].record()
     nxt = torch.argmax(logits, dim=-1).to(torch.int32)
     done = torch.zeros((toks.shape[0],), dtype=torch.bool, device=dev)
@@ -1080,7 +1160,7 @@ def graph_breakdown(eng, prompts, dev, steps=8, phase="serve") -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.generate(prompts, max_new=steps)
+        eng.generate(prompts, max_new=steps, extras=extras)
         torch.cuda.synchronize(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
     out.update({"profiled_generate_new_tokens": steps,
@@ -1247,7 +1327,11 @@ def expected_launches(cfg, calls, draft_layers=0, spec_k=0) -> dict:
     program samples);
     K5 reads the paged cache in decode, verify (and the draft's k - 1
     decode steps), suffix and chunk prefill; K7 is cold prefill-into-slot
-    attention."""
+    attention.  encdec (whisper): ``encdec_launches`` of each prefill-into-
+    slot and decode step."""
+    if cfg.family == "encdec":
+        return encdec_launches(cfg, calls["_prefill"], calls["_decode"],
+                               "flash_attention_paged")
     L, g = cfg.n_layers, layer_gemms(cfg)
     head = calls["_prefill"] + calls["_prefill_suffix"] + calls["_decode"] \
         + calls["_verify"]
@@ -1474,9 +1558,11 @@ def phase_serve_continuous(dev) -> dict:
 
 
 def continuous_run(eng, name, side, reqs, cfg, dev,
-                   phase="serve_continuous"):
+                   phase="serve_continuous", extras=None, profile_reqs=None):
     """One timed run of a trace with its checks, then a shorter profiled
-    run for the idle share.  Returns (the run's record, its streams, its
+    run for the idle share (``profile_reqs``, default 8 requests of
+    ``continuous_requests``).  ``extras``: per-rid extras of both runs
+    (whisper's frames).  Returns (the run's record, its streams, its
     greedy margins)."""
     import numpy as np
     import torch
@@ -1485,7 +1571,7 @@ def continuous_run(eng, name, side, reqs, cfg, dev,
     start = start_mark(dev)
     counters.reset()
     t0 = time.perf_counter()
-    res = eng.run(reqs)
+    res = eng.run(reqs, extras=extras)
     torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     launches = counters.snapshot()
@@ -1532,7 +1618,7 @@ def continuous_run(eng, name, side, reqs, cfg, dev,
             "spec_accepted_per_tick_slot":
                 summary.get("spec_accepted_per_tick_slot"),
             **start, **mem,
-            "kv_pool_bytes": sum(c.nbytes() for c in eng._carry),
+            "kv_pool_bytes": sum(c.nbytes() for c in eng._caches()),
             "compiles": compiles(eng), "programs": program_captures(eng),
             "launches": launches, "expected_launches": want,
             "scheduler_calls": sched_calls,
@@ -1545,9 +1631,9 @@ def continuous_run(eng, name, side, reqs, cfg, dev,
     prog, first, n = ("_verify", 4, 1) if eng.spec else ("_decode", 8, 8)
     log.profile = ((prog, calls[prog] + first, n),) + (
         () if warm else (("_prefill", calls["_prefill"] + 2, 1),))
-    eng.run(continuous_requests(cfg.vocab_size, n=8,
-                                shared=128 if scfg.prefix_cache else 0,
-                                max_new=16, seed=SEED + 1))
+    eng.run(profile_reqs or continuous_requests(
+        cfg.vocab_size, n=8, shared=128 if scfg.prefix_cache else 0,
+        max_new=16, seed=SEED + 1), extras=extras)
     missing = [p[0] for p in log.profile if p[0] not in log.breakdown]
     if missing:
         raise AssertionError(f"run {name} {side}: the profiled run made too "
@@ -1624,11 +1710,15 @@ def rel_l2(got, want) -> float:
                  / torch.clamp(torch.linalg.vector_norm(w), min=1e-30))
 
 
-def k1_step_gemms(cfg, qcfg, tokens, remat=True) -> dict:
+def k1_step_gemms(cfg, qcfg, tokens, remat=True, head_tokens=None,
+                  enc_tokens=None) -> dict:
     """{(role, M, K, N, SR on A, SR on B): K1 launches} of one train step,
     from the FQT dispatch rules: for each weight GEMM (K, N) with M tokens
     the forward (again in the remat recompute of a layer), dX = g @ W^T and
-    dW = x^T @ g each run K1 when fqt._use_k1 says so."""
+    dW = x^T @ g each run K1 when fqt._use_k1 says so.  ``head_tokens``:
+    the head's rows where they differ (vlm: the prefix rows are dropped
+    before it); ``enc_tokens``: whisper's encoder rows (batch x enc_seq),
+    which its cross-attention's wk and wv also take."""
     from repro_torch.core import fqt
     from repro_torch.core.fqt import _if_divisible as div
     from repro_torch.core.fqt import _use_k1
@@ -1658,10 +1748,21 @@ def k1_step_gemms(cfg, qcfg, tokens, remat=True) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     qd, kv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
     L, fwd = cfg.n_layers, 2 if remat else 1
+    head = qcfg if cfg.quantize_lm_head else fqt.QuantConfig()
+    if cfg.family == "encdec":
+        E, Me = cfg.enc_layers, enc_tokens
+        for K, N in ((d, qd), (d, kv), (d, kv), (qd, d), (d, f), (f, d)):
+            gemm(K, N, qcfg, E, E * fwd, Me)
+        for K, N, M in ((d, qd, tokens), (d, kv, tokens), (d, kv, tokens),
+                        (qd, d, tokens), (d, qd, tokens), (d, kv, Me),
+                        (d, kv, Me), (qd, d, tokens), (d, f, tokens),
+                        (f, d, tokens)):
+            gemm(K, N, qcfg, L, L * fwd, M)
+        gemm(d, cfg.padded_vocab, head, 1, 1)
+        return out
     if cfg.family in ("hybrid", "ssm"):
         for K, N, n, rematted in recurrent_gemms(cfg):
             gemm(K, N, qcfg, n, n * (fwd if rematted else 1))
-        head = qcfg if cfg.quantize_lm_head else fqt.QuantConfig()
         gemm(d, cfg.padded_vocab, head, 1, 1)
         return out
     for K, N in ((d, qd), (d, kv), (d, kv), (qd, d)):
@@ -1677,8 +1778,7 @@ def k1_step_gemms(cfg, qcfg, tokens, remat=True) -> dict:
     else:
         for K, N in ((d, f), (d, f), (f, d)):
             gemm(K, N, qcfg, L, L * fwd)
-    head = qcfg if cfg.quantize_lm_head else fqt.QuantConfig()
-    gemm(d, cfg.padded_vocab, head, 1, 1)
+    gemm(d, cfg.padded_vocab, head, 1, 1, head_tokens or tokens)
     return out
 
 
@@ -1964,6 +2064,27 @@ def recurrent_launches(cfg, prompt_len, steps) -> dict:
             "packed_block_matmul": gemms * calls,
             "flash_attention_paged": 0, "flash_attention": 0,
             "flash_attention_packed": n_attn * calls}
+
+
+def encdec_launches(cfg, prefills, steps,
+                    decode_attn="flash_attention_packed") -> dict:
+    """Each kernel's launches of whisper's serving programs: a prefill
+    (lockstep, or one slot's) runs the encoder (K4 at wq, wk, wv, wo,
+    w_in, w_out and K7 a layer) and the decoder (K4 at its ten GEMMs --
+    self-attention, cross-attention, MLP -- and K7 for the self- and the
+    cross-attention a layer); a decode step the decoder's ten K4, its
+    self-attention read (K6 in lockstep, ``decode_attn``: K5 over the paged
+    pool) and K7 for the cross-attention a layer.  Each program's tied head
+    is K1 (``embed`` is no packed leaf)."""
+    E, L = cfg.enc_layers, cfg.n_layers
+    out = {"fused_quant_matmul": prefills + steps, "block_quantize": 0,
+           "block_matmul": 0,
+           "packed_block_matmul": (6 * E + 10 * L) * prefills
+           + 10 * L * steps,
+           "flash_attention_paged": 0, "flash_attention_packed": 0,
+           "flash_attention": (E + 2 * L) * prefills + L * steps}
+    out[decode_attn] = L * steps
+    return out
 
 
 def dir_bytes(path) -> int:
@@ -2374,13 +2495,14 @@ def archs_smoke(dev) -> list:
 
 
 def archs_lockstep(label, cfg, params, dev, batch, prompt_len, max_new,
-                   max_len, phase="archs") -> dict:
+                   max_len, phase="archs", extras=None) -> dict:
     """One lockstep run through a graphed Engine (the main path) and the
     same prompts through an eager one: streams equal, launches as
     ``lockstep_launches`` (``recurrent_launches`` for the recurrent
-    families) derives them on both sides, tokens in the vocabulary and
-    finite margins; then the graphed engine's prefill and decode-step
-    times and a profiled generate's idle share."""
+    families, ``encdec_launches`` for whisper) derives them on both sides,
+    tokens in the vocabulary and finite margins; then the graphed engine's
+    prefill and decode-step times and a profiled generate's idle share.
+    ``extras``: the generate's (whisper's frames, InternVL2's prefix)."""
     import gc
     import numpy as np
     import torch
@@ -2396,23 +2518,25 @@ def archs_lockstep(label, cfg, params, dev, batch, prompt_len, max_new,
                for _ in range(batch)]
     for side, eng in engines.items():       # warm-up: run, capture, replay
         for _ in range(2 if side == "graphs" else 1):
-            eng.generate(prompts, max_new=2)
+            eng.generate(prompts, max_new=2, extras=extras)
     torch.cuda.synchronize(dev)
     sides, outs = {}, {}
     for side, eng in engines.items():
         start = start_mark(dev)
         counters.reset()
         t0 = time.perf_counter()
-        out = eng.generate(prompts, max_new=max_new)
+        out = eng.generate(prompts, max_new=max_new, extras=extras)
         torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0
         launches = counters.snapshot()
         recurrent = cfg.family in ("hybrid", "ssm")
         want = (recurrent_launches(cfg, prompt_len, eng.steps) if recurrent
+                else encdec_launches(cfg, 1, eng.steps)
+                if cfg.family == "encdec"
                 else lockstep_launches(cfg, eng.steps))
         margins = np.asarray(eng.margins)
         ntok = sum(len(o) for o in out)
-        caches = (eng._carry[1] if cfg.family == "hybrid" else
+        caches = (eng._carry[1] if isinstance(eng._carry, tuple) else
                   [] if recurrent else eng._carry)
         info = {"phase": phase, "run": label, "side": side,
                 "arch": cfg.name, "n_layers": cfg.n_layers, "batch": batch,
@@ -2451,7 +2575,7 @@ def archs_lockstep(label, cfg, params, dev, batch, prompt_len, max_new,
     info["eager"] = sides["eager"]
     info["streams_equal"], info["max_abs_margin_diff"] = same, margin_diff
     info["graph_breakdown"] = graph_breakdown(engines["graphs"], prompts, dev,
-                                              phase=phase)
+                                              phase=phase, extras=extras)
     return info
 
 
@@ -2695,11 +2819,13 @@ def recurrent_smoke(dev) -> list:
     return rows
 
 
-def recurrent_train(dev, arch, steps=3) -> dict:
-    """One recurrent arch at full width and depth through ``Trainer``:
-    nvfp4_paper_config, remat, AdamW, the sigma_q probe.  Every step
-    launches K1 as ``k1_step_gemms`` derives it and K2 once per probe leaf;
-    loss, nll and grad norm finite.  Returns the info and the final state."""
+def trainer_run(dev, arch, steps=3, phase="recurrent",
+                    shape=None) -> dict:
+    """One arch at full width and depth through ``Trainer``:
+    nvfp4_paper_config, remat, AdamW, the sigma_q probe; (batch, seq) from
+    ``shape`` or RECURRENT_TRAIN.  Every step launches K1 as
+    ``k1_step_gemms`` derives it and K2 once per probe leaf; loss, nll and
+    grad norm finite.  Returns the info and the final state."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import fqt, qaf
@@ -2708,9 +2834,10 @@ def recurrent_train(dev, arch, steps=3) -> dict:
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.train import TrainConfig, Trainer, TrainerConfig
     cfg = get_config(arch)
-    batch, seq = RECURRENT_TRAIN[arch]
+    batch, seq = shape or RECURRENT_TRAIN[arch]
     qcfg, tcfg = fqt.nvfp4_paper_config(), TrainConfig(remat=True)
-    per_step = sum(k1_step_gemms(cfg, qcfg, batch * seq).values())
+    per_step = sum(k1_step_gemms(cfg, qcfg, batch * seq,
+                                 enc_tokens=batch * cfg.enc_seq).values())
     trainer = Trainer(cfg, qcfg, tcfg, TrainerConfig(
         total_steps=steps, log_every=1, qaf=qaf.QAFConfig(enabled=False)),
         DataConfig(cfg.vocab_size, seq, batch), device=dev)
@@ -2727,7 +2854,7 @@ def recurrent_train(dev, arch, steps=3) -> dict:
     leaves = len(probe_leaf_ids(state.params, probe_spec_of(tcfg)))
     hist = trainer.history
     timed = [h["dt"] * 1e3 for h in hist[1:]]
-    info = {"phase": "recurrent", "run": "train", "arch": arch,
+    info = {"phase": phase, "run": "train", "arch": arch,
             "n_layers": cfg.n_layers, "n_params": sum(
                 p.numel() for p in tree_leaves(state.params)),
             "batch": batch, "seq": seq, "steps": steps,
@@ -2752,14 +2879,14 @@ def recurrent_train(dev, arch, steps=3) -> dict:
     return info, state
 
 
-def recurrent_ckpt(dev, label, tree) -> dict:
+def ckpt_roundtrip(dev, label, tree, phase="recurrent") -> dict:
     """``checkpoint.ckpt`` save and restore of one tree under build/: seconds,
     bytes, and the reference leaves whose bits differ (must be none)."""
     import shutil
     import tempfile
     from repro_torch.checkpoint import ckpt
     (ROOT / "build").mkdir(exist_ok=True)
-    d = tempfile.mkdtemp(prefix="recurrent_ckpt_", dir=ROOT / "build")
+    d = tempfile.mkdtemp(prefix=f"{phase}_ckpt_", dir=ROOT / "build")
     try:
         t0 = time.perf_counter()
         path = ckpt.save(d, 3, tree)
@@ -2767,7 +2894,7 @@ def recurrent_ckpt(dev, label, tree) -> dict:
         t0 = time.perf_counter()
         back = ckpt.restore(d, 3, tree)
         restore_s = time.perf_counter() - t0
-        info = {"phase": "recurrent", "check": "checkpoint save/restore",
+        info = {"phase": phase, "check": "checkpoint save/restore",
                 "tree": label, "leaves": len(ckpt.reference_leaves(tree)),
                 "bytes": dir_bytes(path), "save_s": save_s,
                 "restore_s": restore_s,
@@ -2809,19 +2936,394 @@ def phase_recurrent(dev) -> dict:
         del params
         free()
     for arch in RECURRENT_ARCHS:
-        info, state = recurrent_train(dev, arch)
+        info, state = trainer_run(dev, arch)
         for step in info["launches_per_step"]:
             add(step)
         # zamba2: its bf16 parameters (the whole TrainState is ~17 GB);
         # xLSTM: the whole TrainState (params, f32 master, m, v)
         tree = state.params if arch.startswith("zamba2") else state
-        info["ckpt"] = recurrent_ckpt(dev, f"{arch} "
+        info["ckpt"] = ckpt_roundtrip(dev, f"{arch} "
                                       + ("params" if tree is state.params
                                          else "TrainState"), tree)
         out[arch]["train"] = info
         del state, tree
         free()
     emit({"phase": "recurrent", "launches_main_path": out["launches"]})
+    return out
+
+
+ENCDEC_ARCHS = ("whisper-base", "internvl2-26b")
+# whisper's continuous engine (run b): 4 slots over a 128-token slot buffer
+ENCDEC_CONT = dict(max_slots=4, max_len=128, page_size=16,
+                   kv_cache_format="nvfp4", decode_chunk=8, eos_id=-1)
+VLM_TRAIN_LAYERS = 2      # internvl2-26b training: depth cut 48 -> 2 (run d)
+ENCDEC_REQUESTS = 8       # run b's trace
+
+
+def encdec_extras(cfg, batch, dev, seed=SEED) -> dict:
+    """The stub frontends' random inputs, bf16 from a seeded generator on
+    ``dev``: whisper's frames (batch, enc_seq, d), InternVL2's prefix
+    (batch, vision_tokens, d)."""
+    import torch
+    if cfg.family == "encdec":
+        key, rows = "frames", cfg.enc_seq
+    else:
+        key, rows = "prefix_embeds", cfg.vision_tokens
+    return {key: torch.randn((batch, rows, cfg.d_model), generator=gen(
+        dev, seed), device=dev).to(torch.bfloat16)}
+
+
+def encdec_smoke_case(arch) -> tuple:
+    """(smoke config, prompts, extras on the CPU, lockstep ServeConfig) of
+    one arch's smoke check; whisper's continuous check adds (requests,
+    per-rid frames)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.serve import ServeConfig
+    small = get_config(arch).smoke()
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, small.vocab_size, 16) for _ in range(4)]
+    scfg = ServeConfig(batch_size=4, max_len=128, kv_cache_format="nvfp4",
+                       eos_id=-1)
+    reqs = continuous_requests(small.vocab_size, n=6, shared=0, lens=(8, 40),
+                               max_new=12)
+    frames = {r.rid: encdec_extras(small, 1, "cpu", SEED + 1 + r.rid)[
+        "frames"] for r in reqs} if small.family == "encdec" else None
+    return (small, prompts, encdec_extras(small, 4, "cpu"), scfg, reqs,
+            frames)
+
+
+def encdec_smoke_reference() -> dict:
+    """(CPU child) The plain versions' side of ``encdec_smoke``: each
+    arch's forward logits (qaf_config, with its extras), lockstep streams
+    and margins; whisper's continuous streams, margins and compile counts
+    over two runs on one engine."""
+    import numpy as np
+    import torch
+    from repro_torch.core import fqt
+    from repro_torch.models import registry
+    from repro_torch.serve import ContinuousEngine, Engine
+    torch.set_num_threads(2)
+    out = {}
+    for arch in ENCDEC_ARCHS:
+        small, prompts, extras, scfg, reqs, frames = encdec_smoke_case(arch)
+        p_cpu = registry.init_params(small, seed=SEED, device="cpu")
+        toks = torch.from_numpy(np.stack(prompts)).long()
+        with torch.no_grad():
+            logits, _ = registry.forward(p_cpu, small, fqt.qaf_config(),
+                                         dict(extras, tokens=toks))
+        ref = Engine(small, p_cpu, scfg, device="cpu")
+        r = {"logits": logits.float().numpy().tolist(),
+             "lockstep": [o.tolist() for o in ref.generate(
+                 prompts, max_new=16, extras=extras)],
+             "margins": np.asarray(ref.margins).tolist(), "continuous": []}
+        if frames is not None:
+            eng = ContinuousEngine(small, p_cpu, encdec_cont_scfg(), device="cpu")
+            for _ in range(2):
+                got = eng.run(reqs, extras={k: {"frames": v}
+                                            for k, v in frames.items()})
+                r["continuous"].append({
+                    "streams": {str(k): v.tolist() for k, v in got.items()},
+                    "margins": {str(k): np.asarray(eng.margins[k]).tolist()
+                                for k in got},
+                    "compiles": compiles(eng)})
+        out[arch] = r
+    return out
+
+
+def encdec_cont_scfg():
+    """Whisper's continuous ServeConfig (``ENCDEC_CONT``)."""
+    from repro_torch.serve import ServeConfig
+    return ServeConfig(**ENCDEC_CONT)
+
+
+def encdec_cpu_compiles(n_req) -> dict:
+    """(CPU child) Run b's trace (token ids modulo the smoke vocabulary,
+    the same lengths and arrivals, smoke-size frames for every request)
+    through the smoke-size whisper ContinuousEngine: its compile counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.serve import ContinuousEngine
+    torch.set_num_threads(2)
+    small = get_config("whisper-base").smoke()
+    reqs = encdec_run_b_requests(get_config("whisper-base").vocab_size,
+                                 n_req)
+    eng = ContinuousEngine(small, registry.init_params(
+        small, seed=SEED, device="cpu"), encdec_cont_scfg(), device="cpu")
+    frames = encdec_extras(small, 1, "cpu")["frames"]
+    eng.run([dataclasses.replace(r, prompt=r.prompt % small.vocab_size)
+             for r in reqs], extras={r.rid: {"frames": frames}
+                                     for r in reqs})
+    return compiles(eng)
+
+
+def encdec_run_b_requests(vocab, n):
+    """Run b's trace: n requests, two a tick, 16-48 prompt tokens, 32 new."""
+    return continuous_requests(vocab, n=n, shared=0, lens=(16, 48),
+                               max_new=32, seed=SEED + 2)
+
+
+def encdec_smoke(dev) -> list:
+    """Both families' smoke configs on the card against the CPU's plain
+    versions (``encdec_smoke_reference`` in a CPU child): forward logits
+    within ``TRAIN_REL_L2`` (relative L2), graphed lockstep streams over
+    two generates with their extras, and whisper's graphed ContinuousEngine
+    over two runs (per-request frames), streams equal or first apart at a
+    near-tie and compile counts equal."""
+    import numpy as np
+    import torch
+    from repro_torch.core import fqt
+    from repro_torch.models import registry
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.serve import ContinuousEngine, Engine
+    refs = cpu_child("encdec_smoke_reference").result()
+    rows = []
+    for arch in ENCDEC_ARCHS:
+        small, prompts, extras, scfg, reqs, frames = encdec_smoke_case(arch)
+        want = refs[arch]
+        p_cpu = registry.init_params(small, seed=SEED, device="cpu")
+        ex_dev = {k: v.to(dev) for k, v in extras.items()}
+        toks = torch.from_numpy(np.stack(prompts)).long().to(dev)
+        with torch.no_grad():
+            logits, _ = registry.forward(tree_map(lambda t: t.to(dev), p_cpu),
+                                         small, fqt.qaf_config(),
+                                         dict(ex_dev, tokens=toks))
+        rel = rel_l2(logits, torch.tensor(want["logits"]))
+        row = {"phase": "encdec_vlm", "check": "smoke-size logits card vs "
+               "CPU plain", "arch": arch, "rel_l2": rel}
+        emit(row)
+        rows.append(row)
+        if not rel <= TRAIN_REL_L2:
+            raise AssertionError(f"{arch}: smoke logits card vs CPU {rel}")
+        eng = Engine(small, p_cpu, scfg, device=dev)
+        for rep in range(2):
+            out = eng.generate(prompts, max_new=16, extras=ex_dev)
+            checks = [_first_divergence_ok(a.tolist(), b, m)
+                      for a, b, m in zip(out, want["lockstep"],
+                                         want["margins"])]
+            row = {"phase": "encdec_vlm", "check": "smoke-size lockstep card "
+                   "(graphs) vs CPU plain", "arch": arch, "generate": rep,
+                   "streams_ok": [c[0] for c in checks],
+                   "first_divergence": [c[1] for c in checks],
+                   "programs": program_captures(eng)}
+            emit(row)
+            rows.append(row)
+            if not all(c[0] for c in checks):
+                raise AssertionError(f"{arch}: card and CPU streams differ "
+                                     f"at a decisive step")
+        if frames is None:
+            continue
+        eng = ContinuousEngine(small, p_cpu, encdec_cont_scfg(), device=dev)
+        for rep, ref in enumerate(want["continuous"]):
+            card = {str(k): v for k, v in eng.run(reqs, extras={
+                k: {"frames": v.to(dev)} for k, v in frames.items()}).items()}
+            checks = {r: _first_divergence_ok(card[r].tolist(),
+                                              ref["streams"][r],
+                                              ref["margins"][r])
+                      for r in ref["streams"]}
+            row = {"phase": "encdec_vlm", "check": "smoke-size continuous "
+                   "card (graphs) vs CPU plain", "arch": arch, "run": rep,
+                   "streams_ok": [c[0] for c in checks.values()],
+                   "first_divergence": [c[1] for c in checks.values()],
+                   "compiles_card": compiles(eng),
+                   "compiles_cpu": ref["compiles"]}
+            emit(row)
+            rows.append(row)
+            if sorted(card) != sorted(ref["streams"]) or \
+                    not all(c[0] for c in checks.values()):
+                raise AssertionError(f"{arch}: continuous card and CPU "
+                                     f"streams differ at a decisive step")
+            if compiles(eng) != ref["compiles"]:
+                raise AssertionError(f"{arch}: compile counts differ")
+    return rows
+
+
+def encdec_continuous(cfg, params, dev, n_req) -> dict:
+    """Run b: whisper's ContinuousEngine (4 slots, 16-token pages, nvfp4
+    pool), ``n_req`` requests two a tick, each with its own frames,
+    through a graphed engine (the main path) and an eager one:
+    ``continuous_run``'s checks (launches from the program calls, calls
+    from the scheduler), graphed = eager, each request's stream equal to
+    its solo graphed lockstep run (or first apart at a near-tie), and the
+    compile counts equal to the smoke-size CPU engine's on the same
+    trace."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.serve import ContinuousEngine, Engine, ServeConfig
+    cpu = cpu_child("encdec_cpu_compiles", n_req)
+    reqs = encdec_run_b_requests(cfg.vocab_size, n_req)
+    frames = {r.rid: encdec_extras(cfg, 1, dev, SEED + 10 + r.rid)["frames"]
+              for r in reqs}
+    extras = {k: {"frames": v} for k, v in frames.items()}
+    sides, streams = {}, {}
+    for side in ("graphs", "eager"):
+        eng = ContinuousEngine(cfg, params, encdec_cont_scfg(), device=dev,
+                               cuda_graphs=side == "graphs")
+        info, res, margins = continuous_run(
+            eng, "b", side, reqs, cfg, dev, phase="encdec_vlm",
+            extras=extras, profile_reqs=continuous_requests(
+                cfg.vocab_size, n=8, shared=0, lens=(16, 48), max_new=16,
+                seed=SEED + 3))
+        emit(info)
+        sides[side], streams[side] = info, (res, margins)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = all(np.array_equal(streams["graphs"][0][r],
+                              streams["eager"][0][r])
+               for r in streams["graphs"][0])
+    solo = Engine(cfg, params, ServeConfig(batch_size=1, max_len=128,
+                                           kv_cache_format="nvfp4",
+                                           eos_id=-1), device=dev)
+    res, margins = streams["graphs"]
+    checks = {}
+    for r in reqs:
+        want = solo.generate([r.prompt], max_new=r.max_new,
+                             extras={"frames": frames[r.rid]})[0]
+        checks[r.rid] = _first_divergence_ok(res[r.rid].tolist(),
+                                             want.tolist(), margins[r.rid])
+    want_compiles = cpu.result()
+    info = dict(sides["graphs"])
+    info.update(eager=sides["eager"], streams_equal=same,
+                solo_streams_ok=[c[0] for c in checks.values()],
+                solo_first_divergence=[c[1] for c in checks.values()],
+                compiles_cpu=want_compiles)
+    emit({"phase": "encdec_vlm", "run": "b", "check": "graphs vs eager, "
+          "solo lockstep, compile counts", "streams_equal": same,
+          "solo_streams_ok": info["solo_streams_ok"],
+          "solo_first_divergence": info["solo_first_divergence"],
+          "compiles_card": sides["graphs"]["compiles"],
+          "compiles_cpu": want_compiles})
+    if not same:
+        raise AssertionError("run b: graphed and eager streams differ")
+    if not all(c[0] for c in checks.values()):
+        raise AssertionError("run b: continuous and solo lockstep streams "
+                             "differ at a decisive step")
+    for side in sides.values():
+        if side["compiles"] != want_compiles:
+            raise AssertionError(f"run b: compile counts {side['compiles']} "
+                                 f"!= the CPU engine's {want_compiles}")
+    return info
+
+
+def vlm_train(dev, seq=512) -> dict:
+    """Run d (internvl2-26b): two ``train_step``s at full width, depth cut
+    to VLM_TRAIN_LAYERS, batch 1 x seq (+1) after a random 256-row
+    ``prefix_embeds`` (nvfp4_paper_config, remat, the sigma_q probe); the
+    first (cold) is timed apart, the second is the step measured: K1 as
+    ``k1_step_gemms`` derives it (the layers on prefix + seq rows, the head
+    on seq), K2 once per probe leaf, finite metrics."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import fqt
+    from repro_torch.kernels import counters
+    from repro_torch.train import step as step_mod
+    full = get_config("internvl2-26b")
+    cfg = dataclasses.replace(full, n_layers=VLM_TRAIN_LAYERS)
+    qcfg, tcfg = fqt.nvfp4_paper_config(), step_mod.TrainConfig(remat=True)
+    P = cfg.vision_tokens
+    per_step = sum(k1_step_gemms(cfg, qcfg, P + seq,
+                                 head_tokens=seq).values())
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = step_mod.init_state(cfg, tcfg, seed=SEED, device=dev)
+    train_step = step_mod.make_train_step(cfg, qcfg, tcfg)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, seq + 1),
+                                     generator=gen(dev, SEED), device=dev),
+             **encdec_extras(cfg, 1, dev)}
+    t0 = time.perf_counter()
+    state, _ = train_step(state, batch)     # cold: first calls, allocator
+    torch.cuda.synchronize(dev)
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    counters.reset()
+    t0 = time.perf_counter()
+    state, metrics = train_step(state, batch)
+    m = {k: float(v) for k, v in metrics.items() if k in (
+        "loss", "nll", "grad_norm", "sigma_q")}
+    torch.cuda.synchronize(dev)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = counters.snapshot()
+    leaves = len(probe_leaf_ids(state.params, probe_spec_of(tcfg)))
+    info = {"phase": "encdec_vlm", "run": "d vlm train", "arch": full.name,
+            "cut": {"n_layers": [full.n_layers, VLM_TRAIN_LAYERS]},
+            "batch": 1, "seq": seq, "prefix_rows": P,
+            "quant": "nvfp4_paper_config", "remat": True,
+            "step_ms": step_ms, "first_step_ms": cold_ms, **m,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+            "k1_launches_expected": per_step, "probe_leaves": leaves,
+            "launches": launches}
+    emit(info)
+    del state
+    if launches["fused_quant_matmul"] != per_step or \
+            launches["block_quantize"] != leaves:
+        raise AssertionError(f"vlm train step: launches {launches}, "
+                             f"expected {per_step} K1 and {leaves} K2")
+    if not all(math.isfinite(v) for v in m.values()):
+        raise AssertionError(f"vlm train step: non-finite metrics {m}")
+    return info
+
+
+def phase_encdec_vlm(dev) -> dict:
+    """The encdec (whisper-base) and vlm (internvl2-26b) families at full
+    width: smoke configs card vs CPU (run e); whisper lockstep at full
+    depth (run a) and through ContinuousEngine (run b); internvl2 lockstep
+    at full depth (run c); whisper trained through ``Trainer`` with a
+    checkpoint of its TrainState, and internvl2 two train steps (the
+    second measured) at VLM_TRAIN_LAYERS (run d)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    # the CPU sides (run e's plain versions, run b's compile counts) run in
+    # child processes beside the card's work
+    cpu_child("encdec_smoke_reference")
+    cpu_child("encdec_cpu_compiles", ENCDEC_REQUESTS)
+    out = {"launches": {}}
+
+    def add(launches):
+        for k, v in launches.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # a, b: whisper-base, full width and depth
+    cfg = get_config("whisper-base")
+    params, build = packed_init(cfg, dev, phase="encdec_vlm")
+    out["a"] = {"build": build, "lockstep": archs_lockstep(
+        "a", cfg, params, dev, 4, 32, 32, 128, phase="encdec_vlm",
+        extras=encdec_extras(cfg, 4, dev))}
+    add(out["a"]["lockstep"]["launches"])
+    out["b"] = encdec_continuous(cfg, params, dev, ENCDEC_REQUESTS)
+    add(out["b"]["launches"])
+    del params
+    free()
+    # c: internvl2-26b, full width and depth: 256 vision tokens + 64
+    cfg = get_config("internvl2-26b")
+    params, build = packed_init(cfg, dev, phase="encdec_vlm")
+    out["c"] = {"build": build, "lockstep": archs_lockstep(
+        "c", cfg, params, dev, 4, 64, 32, 384, phase="encdec_vlm",
+        extras=encdec_extras(cfg, 4, dev))}
+    add(out["c"]["lockstep"]["launches"])
+    del params
+    free()
+    # d: training
+    info, state = trainer_run(dev, "whisper-base", phase="encdec_vlm",
+                                  shape=(4, 256))
+    for step in info["launches_per_step"]:
+        add(step)
+    info["ckpt"] = ckpt_roundtrip(dev, "whisper-base TrainState", state,
+                                  phase="encdec_vlm")
+    out["d"] = {"whisper": info}
+    del state
+    free()
+    out["d"]["internvl2"] = vlm_train(dev)
+    add(out["d"]["internvl2"]["launches"])
+    free()
+    out["e"] = encdec_smoke(dev)
+    emit({"phase": "encdec_vlm", "launches_main_path": out["launches"]})
     return out
 
 
@@ -3193,7 +3695,7 @@ def phase_times(dev) -> dict:
         return r
 
     with torch.no_grad():
-        for M, K, N in K4_SHAPES + K4_CONT_SHAPES + K4_RECURRENT:
+        for M, K, N in K4_SHAPES + K4_CONT_SHAPES + K4_RECURRENT + K4_ENCDEC:
             a, w = k4_inputs(M, K, N, dev)
             wd = w.dequant()                        # bf16 (K, N), yardstick
             nbytes = M * K * 2 + K * N // 2 + K // 16 * N + 4 + M * N * 2
@@ -3313,6 +3815,41 @@ def phase_times(dev) -> dict:
                    lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                           is_causal=True),
                    nbytes, 4 * B * H * D * S * (S + 1) // 2)
+        # K7 non-causal on whisper's encoder and cross-attention shapes
+        for B, Sq, Sk, H, KVH, D in K7_ENCDEC:
+            q, k, v = k7_inputs(B, Sq, H, KVH, D, BF16_VALUED, dev, Sk=Sk)
+            qt = q.transpose(1, 2)
+            kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+            nbytes = 4 * (2 * B * Sq * H + 2 * B * Sk * KVH) * D
+            record(fa.DENSE_NAME, (B, Sq, Sk, H, KVH, D, BF16_VALUED,
+                                   "non-causal"),
+                   lambda: fa.flash_attention(q, k, v, causal=False),
+                   lambda: fa.flash_attention_plain(q, k, v, causal=False),
+                   lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                   nbytes, 4 * B * H * D * Sq * Sk)
+            del q, k, v, qt, kt, vt
+        # whisper's MLP GELU, f32 at d_ff 2048 (not a kernel): the
+        # reference's order (refnum.Gelu, elementwise ops through f64) that
+        # every device runs, against torch's tanh GELU, forward on a decode
+        # step's 4 rows and the encoder's 4 x 1500, and forward + backward
+        # on the encoder's rows (training)
+        from repro_torch.models import refnum
+        gelus = {"reference order": refnum.Gelu.apply,
+                 "torch tanh": lambda t: F.gelu(t, approximate="tanh")}
+        gelu_ms = {}
+        for n in (4, 6000):
+            x = torch.randn((n, 2048), generator=gen(dev, SEED), device=dev)
+            gelu_ms[f"fwd {n}x2048"] = {
+                name: time_ms(lambda: fn(x), flush)
+                for name, fn in gelus.items()}
+        with torch.enable_grad():
+            xg = x.clone().requires_grad_()
+            gelu_ms["fwd+bwd 6000x2048"] = {
+                name: time_ms(lambda: torch.autograd.grad(
+                    fn(xg), xg, torch.ones_like(xg)), flush)
+                for name, fn in gelus.items()}
+        emit({"phase": "times", "op": "gelu", "ms": gelu_ms})
+        del x, xg
         # K1 at every GEMM of the llama2-7b train step (M = 4096 tokens)
         from repro_torch.configs import get_config
         from repro_torch.core import fqt
@@ -3339,14 +3876,24 @@ def phase_times(dev) -> dict:
             del a, b, ra, rb
         emit({"phase": "times", "kernel": fm.FUSED_NAME,
               "train_step_k1_ms": step_ms})
-        # K1 at the recurrent families' new shapes (K1_CASES): zamba2's
-        # in_proj (N = 8384) and its dX (K = 8384), xlstm's lm_head
+        # K1 at the later slices' shapes (K1_CASES): zamba2's in_proj (N =
+        # 8384) and its dX (K = 8384), xlstm's lm_head, whisper's tied head
+        # at a decode step and its encoder's w_in in training, and
+        # internvl2's head in training
         for label, M, K, N, _, sr_a, sr_b, sc_a, sc_b in K1_CASES:
-            if not ("zamba2" in label or "xlstm" in label):
+            if not any(arch in label for arch in ("zamba2", "xlstm",
+                                                  "whisper", "internvl2")):
                 continue
             a, b, spec_a, spec_b, ra, rb, ca, cb = k1_inputs(
                 M, K, N, "nvfp4", sr_a, sr_b, sc_a, sc_b, dev,
                 a_transposed=label.startswith("dW"))
+            extra = {}
+            if label.endswith("whisper head"):
+                # the tied head's operand is embed.T, which _k1_gemm
+                # copies contiguous at every call: that copy's time
+                table = b.T.contiguous()
+                extra["b_copy_ms"] = time_ms(lambda: table.T.contiguous(),
+                                             flush)
             record(fm.FUSED_NAME, (label, M, K, N),
                    lambda: fm.fused_quant_matmul(
                        a, b, spec_a, spec_b, a_counter=ca, b_counter=cb,
@@ -3355,7 +3902,7 @@ def phase_times(dev) -> dict:
                        a, b, spec_a, spec_b, a_rbits=ra, b_rbits=rb,
                        out_dtype=torch.bfloat16),
                    lambda: torch.matmul(a, b), 2 * (M * K + K * N + M * N),
-                   2 * M * N * K, reps=5)
+                   2 * M * N * K, reps=5, **extra)
             del a, b, ra, rb
         # K2 at (4096, 4096) f32, the forward spec (NVFP4 RtN, computed
         # tensor scale): x read once, f32 codes and scales written.  Its
@@ -3471,6 +4018,7 @@ def main(argv=None) -> int:
                           "train": phase_train, "pipeline": phase_pipeline,
                           "archs": phase_archs,
                           "recurrent": phase_recurrent,
+                          "encdec_vlm": phase_encdec_vlm,
                           "ops": phase_ops,
                           "times": phase_times}[p](dev)
             emit({"phase": p, "done": True,
@@ -3489,9 +4037,10 @@ def main(argv=None) -> int:
         for name in ("fused_quant_matmul", "block_quantize"):
             launches[name] = results["train"]["launches"][name]
         launches["block_matmul"] = results["ops"]["launches"]["block_matmul"]
-        # and each kernel's launches on the archs' paths (runs a-e) and
-        # the recurrent families' (serve and train)
-        for ph in ("archs", "recurrent"):
+        # and each kernel's launches on the archs' paths (runs a-e), the
+        # recurrent families' (serve and train) and the encdec and vlm
+        # families' (runs a-d)
+        for ph in ("archs", "recurrent", "encdec_vlm"):
             for name, n in results[ph]["launches"].items():
                 launches[name] = launches.get(name, 0) + n
         line = []

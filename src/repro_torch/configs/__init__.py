@@ -1,10 +1,10 @@
 """Architecture configs the port runs (own copies of ``repro.configs``).
 
 Each module exposes ``CONFIG``; ``get_config(name)`` resolves by arch id.
-The port carries the dense and moe transformer archs of the JAX package
-(the Llama-2 family, TinyLlama, CodeQwen1.5, Qwen2.5, Llama-3, Mixtral and
-Qwen3-MoE) and its recurrent archs (Zamba2-1.2B, hybrid; xLSTM-125M, ssm).
-The encdec and vlm archs are not ported yet (ROADMAP Queue 1).
+The port carries every arch of the JAX package: the dense and moe
+transformers (the Llama-2 family, TinyLlama, CodeQwen1.5, Qwen2.5, Llama-3,
+Mixtral and Qwen3-MoE), the recurrent archs (Zamba2-1.2B, hybrid; xLSTM-125M,
+ssm), Whisper-base (encdec) and InternVL2-26B (vlm).
 """
 from __future__ import annotations
 
@@ -15,6 +15,8 @@ from repro_torch.models.config import ModelConfig  # noqa: F401
 ARCH_IDS = (
     "mixtral_8x7b",
     "qwen3_moe_235b_a22b",
+    "whisper_base",
+    "internvl2_26b",
     "zamba2_1p2b",
     "qwen2p5_32b",
     "codeqwen1p5_7b",
@@ -29,6 +31,8 @@ ARCH_IDS = (
 _ALIASES = {
     "mixtral-8x7b": "mixtral_8x7b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "whisper-base": "whisper_base",
+    "internvl2-26b": "internvl2_26b",
     "zamba2-1.2b": "zamba2_1p2b",
     "qwen2.5-32b": "qwen2p5_32b",
     "codeqwen1.5-7b": "codeqwen1p5_7b",

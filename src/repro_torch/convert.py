@@ -5,9 +5,10 @@ port.
 already converted to numpy (``jax.tree_util.tree_map(np.asarray, params)``
 on the JAX side; bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays) and
 returns the port's parameters on ``device``: the stacked layers (the
-transformers' ``layers``, zamba2's ``mamba``) become one dict per layer, so
-both packages compute the same function; xLSTM's ``layers``, a list of
-per-layer dicts in the reference too, stays a list.
+transformers' ``layers``, zamba2's ``mamba``, whisper's ``enc`` and ``dec``)
+become one dict per layer, so both packages compute the same function;
+xLSTM's ``layers``, a list of per-layer dicts in the reference too, stays a
+list.
 ``train_state_from_jax_numpy`` does the same for a whole JAX ``TrainState``
 (step, params, AdamW master/m/v, threshold state).  This module reads numpy
 arrays only and never imports jax.
@@ -32,8 +33,9 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
     return t.to(device)
 
 
-# the key of each family's stacked layers
-_STACKED = {"hybrid": "mamba"}
+# each family's stacked layer trees: key -> the config field with their count
+_STACKED = {"hybrid": {"mamba": "n_layers"},
+            "encdec": {"enc": "enc_layers", "dec": "n_layers"}}
 
 
 def _convert(tree, device, index=None):
@@ -50,9 +52,10 @@ def _convert(tree, device, index=None):
 def params_from_jax_numpy(tree, cfg: ModelConfig, device=None):
     """JAX-layout numpy params -> the port's params on ``device``."""
     dev = resolve_device(device)
-    stacked = _STACKED.get(cfg.family, "layers")
-    return {k: ([_convert(v, dev, index=i) for i in range(cfg.n_layers)]
-                if k == stacked and isinstance(v, dict) else _convert(v, dev))
+    stacked = _STACKED.get(cfg.family, {"layers": "n_layers"})
+    return {k: ([_convert(v, dev, index=i)
+                 for i in range(getattr(cfg, stacked[k]))]
+                if k in stacked and isinstance(v, dict) else _convert(v, dev))
             for k, v in tree.items()}
 
 

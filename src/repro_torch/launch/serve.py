@@ -8,6 +8,12 @@
   python -m repro_torch.launch.serve --arch zamba2-1.2b --batch 4
   python -m repro_torch.launch.serve --arch xlstm-125m --smoke --device cpu
 
+  # the stub frontends: random frames for whisper's encoder, random patch
+  # embeddings before InternVL2's prompt (with --queue, whisper runs the
+  # ContinuousEngine without frames, as the reference's launcher does)
+  python -m repro_torch.launch.serve --arch whisper-base --batch 4
+  python -m repro_torch.launch.serve --arch internvl2-26b --batch 4
+
   # continuous batching: 8 queued requests over 4 slots, 16-token pages,
   # the shared-prefix cache (CPU: the kernels' plain versions)
   python -m repro_torch.launch.serve --smoke --queue 8 --prefix-cache \\
@@ -145,8 +151,15 @@ def main(argv=None):
     del params
     prompts = [rng.integers(0, cfg.vocab_size, args.prompt_len)
                for _ in range(args.batch)]
+    extras = {}
+    if cfg.family == "encdec":
+        extras["frames"] = torch.from_numpy(rng.standard_normal(
+            (args.batch, cfg.enc_seq, cfg.d_model))).to(torch.bfloat16)
+    if cfg.family == "vlm":
+        extras["prefix_embeds"] = torch.from_numpy(rng.standard_normal(
+            (args.batch, cfg.vision_tokens, cfg.d_model))).to(torch.bfloat16)
     t0 = time.perf_counter()
-    out = eng.generate(prompts, max_new=args.max_new)
+    out = eng.generate(prompts, max_new=args.max_new, extras=extras)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0

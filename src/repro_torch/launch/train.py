@@ -4,11 +4,13 @@
       --ckpt-dir runs/r1 --trace runs/r1/trace.json
   python -m repro_torch.launch.train --arch zamba2-1.2b --batch 4 --seq 1024
   python -m repro_torch.launch.train --arch xlstm-125m --smoke --device cpu
+  python -m repro_torch.launch.train --arch whisper-base --smoke --device cpu
 
 Trains under the paper's FQT scheme (``--quant nvfp4``: NVFP4 at all six
 GEMM points, SR on the gradients and the update's activations) on the
 step-indexed synthetic token stream, with the sqrt(3) monitor and the QAF
-switch.  Parameters come from a seeded ``torch.Generator``.  With
+switch.  The batch holds tokens only, as the reference's: whisper's encoder
+sees zero frames and InternVL2 trains without a patch prefix.  Parameters come from a seeded ``torch.Generator``.  With
 ``--ckpt-dir`` it checkpoints every ``--ckpt-every`` steps and at the end,
 exports the packed NVFP4 serving artifact (``<ckpt-dir>/serve_packed``), and
 resumes from the latest checkpoint: run the same command again after a kill

@@ -6,7 +6,9 @@ for packed serving weights.  Serving prefill attention is the K7 kernel,
 decode attention over a ``PackedKVCache`` the K6 kernel.  Training
 attention (no cache) is ``attention_core``: dense f32 softmax for short
 sequences, else the chunked flash attention with its own backward, both in
-plain PyTorch as the reference has no Pallas kernel there.  KV-cache writes
+plain PyTorch as the reference has no Pallas kernel there; a serving caller
+of the cacheless paths (whisper's encoder and cross-attention) asks for K7
+instead.  The MLPs are SwiGLU or the reference's tanh GELU (``refnum``).  KV-cache writes
 quantize rows with ``kv_quant_rows`` in plain PyTorch, as the reference does
 in jnp, and write them into the preallocated cache IN PLACE
 (``index_copy_``/``index_put_``) where JAX returns a new array.  The cache
@@ -34,6 +36,7 @@ from repro_torch.core.quantize import kv_dequant, kv_quant_rows
 from repro_torch.kernels.flash_attn import (flash_attention,
                                             flash_attention_packed,
                                             flash_attention_paged)
+from repro_torch.models import refnum
 # the rolling-window position rule lives beside K5 and K6, which apply it;
 # it is public here too, where the reference's models/layers.py keeps it
 from repro_torch.kernels.flash_attn import swa_kpos
@@ -788,17 +791,20 @@ def attn_apply(p, x: torch.Tensor, ctx: QCtx, *, n_heads: int, n_kv: int,
                slot: Optional[int] = None, plen=None,
                pfx: Optional[int] = None,
                write_mask: Optional[torch.Tensor] = None,
-               norm_eps: float = 1e-5):
-    """Self-attention with an optional KV cache update (updated in place).
+               norm_eps: float = 1e-5, xkv: Optional[torch.Tensor] = None,
+               use_rope: bool = True, serving: bool = False):
+    """Self-attention with an optional KV cache update (updated in place),
+    or cross-attention to ``xkv``.
 
-    Without a cache (training) the sequence attends itself through
-    ``attention_core``.  With a lockstep cache, x is the NEW tokens written
-    at [cache.length, cache.length + S): prefill (S > 1, from an empty
-    cache) attends within the fresh sequence through K7; decode (S == 1)
-    attends the cache -- K6 for a ``PackedKVCache``, a dense read for the
-    bf16 cache.  Under a ``window`` the lockstep buffer rolls (position p
-    at row p % buf, the reference's rolling write) and the decode read
-    takes the rolling key positions.
+    Without a cache the sequence attends itself through ``attention_core``
+    (training), or through K7 where a ``serving`` caller asks for it
+    (whisper's encoder under the serving entries).  With a lockstep cache,
+    x is the NEW tokens written at [cache.length, cache.length + S):
+    prefill (S > 1, from an empty cache) attends within the fresh sequence
+    through K7; decode (S == 1) attends the cache -- K6 for a
+    ``PackedKVCache``, a dense read for the bf16 cache.  Under a ``window``
+    the lockstep buffer rolls (position p at row p % buf, the reference's
+    rolling write) and the decode read takes the rolling key positions.
 
     With a ``PagedKVCache`` each batch row is a SLOT with its own length:
       * ``slot`` and ``pfx`` (suffix or chunked prefill, B == 1): write the
@@ -812,13 +818,29 @@ def attn_apply(p, x: torch.Tensor, ctx: QCtx, *, n_heads: int, n_kv: int,
       * S > 1 (batched verify): S teacher-forced rows per slot, K5.
     ``slot``, ``plen`` and ``pfx`` are host ints or int32 device scalars
     (dynamic operands: the serving programs pass device scalars, so one
-    recorded CUDA graph serves every slot and length).  Returns (out,
-    cache)."""
+    recorded CUDA graph serves every slot and length).
+
+    ``xkv`` (B, Sk, d): cross-attention (whisper's decoder), K and V
+    projected from ``xkv``, no rope, key positions 0..Sk-1, non-causal, no
+    cache written; ``attention_core``, or K7 for a ``serving`` caller.
+    ``use_rope=False``: no rotary embedding (whisper's learned positions).
+    Returns (out, cache)."""
     B, S, _ = x.shape
     dev = x.device
+    src = x if xkv is None else xkv
+    Sk = src.shape[1]
     q = ctx.dense(x, p["wq"], p.get("bq")).reshape(B, S, n_heads, hd)
-    k = ctx.dense(x, p["wk"], p.get("bk")).reshape(B, S, n_kv, hd)
-    v = ctx.dense(x, p["wv"], p.get("bv")).reshape(B, S, n_kv, hd)
+    k = ctx.dense(src, p["wk"], p.get("bk")).reshape(B, Sk, n_kv, hd)
+    v = ctx.dense(src, p["wv"], p.get("bv")).reshape(B, Sk, n_kv, hd)
+    if "q_norm" in p:
+        q = rmsnorm(q, p["q_norm"], norm_eps)
+        k = rmsnorm(k, p["k_norm"], norm_eps)
+    if xkv is not None:
+        if cache is not None:
+            raise ValueError("cross-attention writes no KV cache")
+        o = _attn_fresh(q, k, v, causal=False, window=window, chunk=chunk,
+                        serving=serving)
+        return ctx.dense(o.reshape(B, S, n_heads * hd), p["wo"]), None
     paged = isinstance(cache, PagedKVCache)
     if paged and slot is not None:
         positions = dyn_rows(0 if pfx is None else pfx, S, dev).to(
@@ -830,18 +852,16 @@ def attn_apply(p, x: torch.Tensor, ctx: QCtx, *, n_heads: int, n_kv: int,
         base = cache.length if cache is not None else torch.zeros(
             (), dtype=torch.int32, device=dev)
         positions = base + torch.arange(S, dtype=torch.int32, device=dev)
-    if "q_norm" in p:
-        q = rmsnorm(q, p["q_norm"], norm_eps)
-        k = rmsnorm(k, p["k_norm"], norm_eps)
-    cos, sin = rope_tables(positions, hd, rope_theta)
-    if positions.ndim == 1:
-        cos, sin = cos[None], sin[None]
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if use_rope:
+        cos, sin = rope_tables(positions, hd, rope_theta)
+        if positions.ndim == 1:
+            cos, sin = cos[None], sin[None]
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
 
     if cache is None:
-        o = attention_core(q, k, v, qpos=positions, kpos=positions,
-                           causal=causal, window=window, chunk=chunk)
+        o = _attn_fresh(q, k, v, causal=causal, window=window, chunk=chunk,
+                        serving=serving)
     elif paged:
         o = _attn_paged(q, k, v, cache, positions, causal=causal,
                         window=window, slot=slot, plen=plen, pfx=pfx,
@@ -865,6 +885,18 @@ def attn_apply(p, x: torch.Tensor, ctx: QCtx, *, n_heads: int, n_kv: int,
                                    window=window)
     out = ctx.dense(o.reshape(B, S, n_heads * hd), p["wo"])
     return out, cache
+
+
+def _attn_fresh(q, k, v, *, causal, window, chunk, serving) -> torch.Tensor:
+    """Attention with no cache, both sides at positions 0, 1, ...: K7 for a
+    serving caller (f32 operands, ``_attn_prefill``), else the training
+    ``attention_core``."""
+    if serving:
+        return _attn_prefill(q, k, v, causal=causal, window=window)
+    pos_q = torch.arange(q.shape[1], dtype=torch.int32, device=q.device)
+    pos_k = torch.arange(k.shape[1], dtype=torch.int32, device=q.device)
+    return attention_core(q, k, v, qpos=pos_q, kpos=pos_k, causal=causal,
+                          window=window, chunk=chunk)
 
 
 def _attn_paged(q, k, v, cache: PagedKVCache, positions, *, causal, window,
@@ -920,10 +952,18 @@ def _attn_paged(q, k, v, cache: PagedKVCache, positions, *, causal, window,
 
 def mlp_params(gen, d_model: int, d_ff: int, act: str, dtype=torch.bfloat16,
                device=None):
+    """SwiGLU (``w_gate``, ``w_up``, ``w_down``; the smooth variant adds its
+    per-channel factor) or, for ``act="gelu"``, ``w_in``/``b_in``,
+    ``w_out``/``b_out`` with zero biases."""
+    if act == "gelu":
+        return {
+            "w_in": dense_init(gen, d_model, d_ff, dtype, device=device),
+            "b_in": torch.zeros((d_ff,), dtype=dtype, device=device),
+            "w_out": dense_init(gen, d_ff, d_model, dtype, device=device),
+            "b_out": torch.zeros((d_model,), dtype=dtype, device=device),
+        }
     if act not in ("swiglu", "smooth_swiglu"):
-        raise NotImplementedError(
-            f"activation {act!r} arrives with the breadth families (ROADMAP "
-            f"Queue 1)")
+        raise ValueError(f"unknown activation {act!r}")
     p = {
         "w_gate": dense_init(gen, d_model, d_ff, dtype, device=device),
         "w_up": dense_init(gen, d_model, d_ff, dtype, device=device),
@@ -935,12 +975,17 @@ def mlp_params(gen, d_model: int, d_ff: int, act: str, dtype=torch.bfloat16,
 
 
 def mlp_apply(p, x: torch.Tensor, ctx: QCtx, act: str) -> torch.Tensor:
+    """The GELU MLP is the reference's: the biased ``w_in`` GEMM, the tanh
+    GELU in f32 as XLA computes it (``refnum.Gelu``), cast to x's dtype,
+    then the biased ``w_out`` GEMM."""
+    if act == "gelu":
+        h = refnum.Gelu.apply(ctx.dense(x, p["w_in"], p["b_in"]).to(
+            torch.float32))
+        return ctx.dense(h.to(x.dtype), p["w_out"], p["b_out"])
     g = ctx.dense(x, p["w_gate"])
     u = ctx.dense(x, p["w_up"])
     if act == "smooth_swiglu":
         return ctx.dense(smooth_swiglu(g, u, p["smooth"]), p["w_down"])
     if act == "swiglu":
         return ctx.dense(swiglu(g, u), p["w_down"])
-    raise NotImplementedError(
-        f"activation {act!r} arrives with the breadth families (ROADMAP "
-        f"Queue 1)")
+    raise ValueError(f"unknown activation {act!r}")

@@ -7,11 +7,14 @@ differs from XLA's in the last bit for ~10% of f32 arguments, and its sums
 run in other orders.  Where such a last bit reaches a bf16 rounding or an
 FP4 re-quantization -- the moe router's gates, and the gradients of the
 router and of the loss, whose stochastic re-quantization turns one moved
-value into flipped codes -- the port computes as the reference does, with
+value into flipped codes, and whisper's tanh-GELU, whose bf16 output is
+the next GEMM's FP4 input -- the port computes as the reference does, with
 these helpers: on every device, but for the loss's gradient, which takes
 the reference's order on the CPU only (``mean_nll``).
 """
 from __future__ import annotations
+
+import struct
 
 import numpy as np
 import torch
@@ -59,6 +62,73 @@ def exp(x: torch.Tensor) -> torch.Tensor:
     y = fma(y, r * r, r) + 1.0
     y = torch.ldexp(y, n.to(torch.int32))
     return torch.where(y < _F32_MIN_NORMAL, torch.zeros_like(y), y)
+
+
+def _hex(bits: str) -> float:
+    """An f32 constant of XLA's LLVM IR, written there as a hex double."""
+    return struct.unpack(">d", bytes.fromhex(bits))[0]
+
+
+# XLA's f32 tanh (``EmitFastTanh`` with fused multiply-adds): x where |x| <
+# 0.0004, else a 13/6-degree rational of x clamped to +-7.9988, whose
+# polynomials in x^2 run in fused multiply-adds; +-1 from |x| >= 20
+_TANH_CLAMP = _hex("401FFEC880000000")
+_TANH_SMALL = _hex("3F3A36E2E0000000")
+_TANH_NUM = tuple(_hex(b) for b in (
+    "BCB3E4B800000000", "3D4C266FC0000000", "BDD7A6FFE0000000",
+    "3E6B800820000000", "3EEF286940000000", "3F44E1BDA0000000",
+    "3F740B3B80000000"))
+_TANH_DEN = tuple(_hex(b) for b in (
+    "3EB41A7B00000000", "3F1F12BAC0000000", "3F629540A0000000",
+    "3F740B3BA0000000"))
+# jax.nn.gelu(approximate=True)'s f32 constants: 0.044715, sqrt(2 / pi)
+# and their product (its derivative's 3 * 0.044715 x^2 term)
+_GELU_C = _hex("3FA6E4E260000000")
+_GELU_S = _hex("3FE9884540000000")
+_GELU_CS = _hex("3FA2444F20000000")
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    """f32 tanh, bit for bit the reference's (but where an ``fma`` rounds
+    twice)."""
+    ax = torch.abs(x)
+    xc = torch.clamp(x, -_TANH_CLAMP, _TANH_CLAMP)
+    x2 = xc * xc
+    p = torch.full_like(x2, _TANH_NUM[0])
+    for c in _TANH_NUM[1:]:
+        p = fma(x2, p, c)
+    q = torch.full_like(x2, _TANH_DEN[0])
+    for c in _TANH_DEN[1:]:
+        q = fma(x2, q, c)
+    y = torch.where(ax < _TANH_SMALL, x, (xc * p) / q)
+    return torch.where(ax >= 20.0, torch.copysign(torch.ones_like(x), x), y)
+
+
+class Gelu(torch.autograd.Function):
+    """``jax.nn.gelu`` (the tanh approximation) of f32 x as XLA's CPU code
+    computes it, forward and backward: x (x^3 * 0.044715 + x) sqrt(2 / pi)
+    inside the reference's ``tanh``, each product feeding a sum fused into
+    it.  torch's ``gelu(approximate="tanh")`` differs in the last f32 bit
+    for ~23% of unit-scale bf16-valued arguments and in the bf16 rounding
+    of 0.003% of them and of ~1.1% of N(0, 2) ones; the checks are in
+    tests/test_torch_whisper.py.  Every device runs this order, the card
+    too, so that whisper's card logits equal the CPU's."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        t = tanh(fma(x * x * x, _GELU_C, x) * _GELU_S)
+        return x * ((t + 1.0) * 0.5)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        x2 = x * x
+        t = tanh(fma(x2 * x, _GELU_C, x) * _GELU_S)
+        a = (1.0 - t) * ((x * g) * 0.5)
+        b = fma(t, a, a)
+        e = fma((t + 1.0) * 0.5, g, b * _GELU_S)
+        return fma(x2 * 3.0, b * _GELU_CS, e)
 
 
 def row_sum(v: torch.Tensor) -> torch.Tensor:

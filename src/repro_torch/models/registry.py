@@ -1,11 +1,11 @@
-"""Uniform model API (PyTorch): the dense and moe transformer families and
-the recurrent hybrid (zamba2: Mamba2 + a shared attention block) and ssm
-(xLSTM) families.
+"""Uniform model API (PyTorch) over every family: the dense, moe and vlm
+transformers, the recurrent hybrid (zamba2: Mamba2 + a shared attention
+block) and ssm (xLSTM), and the encdec (whisper) encoder-decoder.
 
   init_params(cfg, seed=..., device=...)          -> params
   loss_fn(params, cfg, qcfg, batch, seed, remat)  -> (loss, aux)
   forward(params, cfg, qcfg, batch, seed, remat)  -> (logits, aux)
-  make_decode_state(cfg, batch, max_len, ...)     -> per-layer caches
+  make_decode_state(cfg, batch, max_len, ...)     -> the decode carry
   reset_decode_state(carry)                       -> the same, emptied in place
   prefill(params, cfg, qcfg, tokens, carry)       -> (last logits, carry)
   decode_step(params, cfg, qcfg, tokens, carry)   -> (logits, carry)
@@ -13,11 +13,13 @@ the recurrent hybrid (zamba2: Mamba2 + a shared attention block) and ssm
   verify_k, draft_view                            -> speculative decoding
 
 Counterpart of ``repro.models.registry``.  Entry points run on ``cuda``
-unless the caller passes ``device="cpu"``.  The recurrent families serve in
-lockstep only: they prefill by a loop of decode steps (the reference's
-``lax.scan``), and the continuous-batching entries raise for them, as the
-reference's do.  The encdec and vlm families are not ported yet (ROADMAP
-Queue 1).
+unless the caller passes ``device="cpu"``.  The batch and the ``extras`` of
+the serving entries carry the stub frontends' inputs: ``frames`` (B, T, d)
+for encdec, ``prefix_embeds`` (B, P, d) for vlm.  The recurrent families
+serve in lockstep only: they prefill by a loop of decode steps (the
+reference's ``lax.scan``).  The continuous-batching entries serve dense and
+moe, and ``prefill_slot`` the whisper decoder too; every other family
+raises, with the reference's reasons.
 """
 from __future__ import annotations
 
@@ -27,10 +29,14 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.fqt import QuantConfig
-from repro_torch.models import mamba2, transformer, xlstm
+from repro_torch.models import mamba2, transformer, whisper, xlstm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dyn_rows
 
 _RECURRENT = {"hybrid": mamba2, "ssm": xlstm}
+# the families whose paged K/V are a pure function of the prompt: the ones
+# a prefix cache, chunked prefill and speculative decoding can serve
+PROMPT_PURE = ("dense", "moe")
 
 
 def _module(cfg: ModelConfig):
@@ -38,13 +44,26 @@ def _module(cfg: ModelConfig):
     transformer families)."""
     if cfg.family in _RECURRENT:
         return _RECURRENT[cfg.family]
+    if cfg.family == "encdec":
+        return whisper
     transformer.check_family(cfg)
     return transformer
 
 
-def _lockstep_only(cfg: ModelConfig, what: str, why: str):
-    if cfg.family in _RECURRENT:
+def _paged_only(cfg: ModelConfig, what: str, why: str):
+    """The prompt-pure continuous-batching entries: dense and moe."""
+    _module(cfg)
+    if cfg.family not in PROMPT_PURE:
         raise NotImplementedError(f"{what}: family {cfg.family!r} {why}")
+
+
+def _frames(cfg: ModelConfig, extras, batch: int, device):
+    """``extras["frames"]``, or the reference's zero frames."""
+    frames = (extras or {}).get("frames")
+    if frames is None:
+        frames = torch.zeros((batch, cfg.enc_seq, cfg.d_model),
+                             dtype=torch.bfloat16, device=device)
+    return frames
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
@@ -71,9 +90,16 @@ def loss_fn(params, cfg: ModelConfig, qcfg: QuantConfig, batch, *,
 
 def forward(params, cfg: ModelConfig, qcfg: QuantConfig, batch, *,
             seed: int = 0, remat: bool = False):
-    """Full-sequence logits of ``batch["tokens"]``: (logits, aux)."""
-    return _module(cfg).forward(params, cfg, qcfg, batch["tokens"],
-                                seed=seed, remat=remat)
+    """Full-sequence logits of ``batch["tokens"]``: (logits, aux); the
+    batch's ``frames`` (encdec) or ``prefix_embeds`` (vlm) go with them."""
+    mod = _module(cfg)
+    kw = {}
+    if cfg.family == "encdec":
+        kw["frames"] = batch.get("frames")
+    elif mod is transformer:
+        kw["prefix_embeds"] = batch.get("prefix_embeds")
+    return mod.forward(params, cfg, qcfg, batch["tokens"], seed=seed,
+                       remat=remat, **kw)
 
 
 def make_decode_state(cfg: ModelConfig, batch: int, max_len: int,
@@ -87,8 +113,15 @@ def make_decode_state(cfg: ModelConfig, batch: int, max_len: int,
 
     hybrid: (the stacked Mamba states, one cache per application of the
     shared block); ssm: the per-layer recurrent states, which stay f32 (no
-    KV cache)."""
+    KV cache); encdec: (the encoder output (B, enc_seq, d), the decoder's
+    caches), allocated once and written in place by the prefills."""
     dev = resolve_device(device)
+    if cfg.family == "encdec":
+        return (torch.zeros((batch, cfg.enc_seq, cfg.d_model), dtype=dtype,
+                            device=dev),
+                whisper.init_cache(cfg, batch, max_len, dtype,
+                                   kv_cache_format, page_size, total_pages,
+                                   device=dev))
     if cfg.family == "hybrid":
         return (mamba2.init_state(cfg, batch, dtype, device=dev),
                 mamba2.init_cache(cfg, batch, max_len, dtype,
@@ -105,30 +138,50 @@ def make_decode_state(cfg: ModelConfig, batch: int, max_len: int,
 def reset_decode_state(carry) -> None:
     """Empty ``make_decode_state``'s carry IN PLACE (zeroed pools and
     lengths, page tables on the trash page, recurrent states back to their
-    initial values): the engines keep one carry at fixed addresses, which
-    their recorded programs read and write."""
-    if isinstance(carry, tuple):                 # hybrid: (states, caches)
-        states, carry = carry
-        mamba2.reset_state(states)
+    initial values, the encoder output zeroed): the engines keep one carry
+    at fixed addresses, which their recorded programs read and write.  The
+    carry's kind is read off what it holds."""
+    caches = carry
+    if isinstance(carry, tuple):
+        head, caches = carry
+        if isinstance(head, torch.Tensor):       # encdec: (enc_out, caches)
+            head.zero_()
+        else:                                    # hybrid: (states, caches)
+            mamba2.reset_state(head)
     elif carry and isinstance(carry[0], tuple):  # ssm: per-layer states
         xlstm.reset_state(carry)
         return
-    for cache in carry:
+    for cache in caches:
         cache.reset()
 
 
-def prefill(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, carry):
+def prefill(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, carry, *,
+            extras=None):
     """Fill the decode carry from a prompt.  Returns (last_logits, carry).
     The recurrent families run one decode step per prompt token (the
     reference's ``lax.scan`` of ``decode_step``; no chunk-parallel
-    prefill), updating the carry in place."""
+    prefill), updating the carry in place.  encdec encodes
+    ``extras["frames"]`` (zeros where none are given) into the carry's
+    encoder output, in place; vlm prefills ``extras["prefix_embeds"]``
+    before the prompt."""
+    extras = extras or {}
     if cfg.family in _RECURRENT:
         for t in range(tokens.shape[1]):
             logits, carry = decode_step(params, cfg, qcfg,
                                         tokens[:, t:t + 1], carry)
         return logits[:, -1], carry
+    if cfg.family == "encdec":
+        enc_out, caches = carry
+        enc_out.copy_(whisper.encode(
+            params, cfg, qcfg, _frames(cfg, extras, tokens.shape[0],
+                                       tokens.device), serving=True))
+        logits, _ = whisper.prefill(params, cfg, qcfg, tokens, enc_out,
+                                    caches)
+        return logits[:, -1], carry
     transformer.check_family(cfg)
-    logits, carry = transformer.prefill(params, cfg, qcfg, tokens, carry)
+    logits, carry = transformer.prefill(
+        params, cfg, qcfg, tokens, carry,
+        prefix_embeds=extras.get("prefix_embeds"))
     return logits[:, -1], carry
 
 
@@ -136,27 +189,38 @@ def decode_step(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, carry,
                 *, seed: int = 0, write_mask=None):
     """``write_mask`` ((B,) bool): paged caches only -- slots mid-chunked-
     prefill write to the trash page and keep their length."""
-    if write_mask is not None:
-        _lockstep_only(cfg, "decode_step write_mask", "has no paged cache "
-                       "write to mask (chunked prefill is dense/moe only)")
-    if cfg.family in _RECURRENT:
-        return _RECURRENT[cfg.family].decode_step(params, cfg, qcfg, tokens,
-                                                  carry, seed=seed)
-    transformer.check_family(cfg)
+    mod = _module(cfg)
+    if write_mask is not None and mod is not transformer:
+        raise NotImplementedError(
+            f"decode_step write_mask: family {cfg.family!r} has no paged "
+            f"cache write to mask (chunked prefill is dense/moe only)")
+    if mod is not transformer:
+        return mod.decode_step(params, cfg, qcfg, tokens, carry, seed=seed)
     return transformer.decode_step(params, cfg, qcfg, tokens, carry,
                                    seed=seed, write_mask=write_mask)
 
 
 def prefill_slot(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
-                 carry, slot, plen, *, seed: int = 0):
+                 carry, slot, plen, *, seed: int = 0, extras=None):
     """Prefill ONE slot of a paged carry from a right-padded (1, Sp)
     prompt.  ``slot``/``plen``: host ints or int32 device scalars, as the
     reference takes ints or traced values.  Returns (logits (1, V),
-    carry).  The recurrent families raise: a right-padded static prefill
-    would absorb the pad tokens into their O(1) state."""
-    _lockstep_only(cfg, "prefill_slot", "not supported (recurrent state "
-                   "cannot be prefilled from a right-padded static shape)")
-    transformer.check_family(cfg)
+    carry).  encdec encodes ``extras["frames"]`` (1, T, d) (zeros where
+    none are given) and writes it to ``enc_out[slot]`` in place.  The
+    other families raise with the reference's reason: a right-padded
+    static prefill would absorb the pad tokens into a recurrent state."""
+    if cfg.family == "encdec":
+        enc_out, caches = carry
+        enc_slot = whisper.encode(params, cfg, qcfg, _frames(
+            cfg, extras, 1, tokens.device), seed=seed, serving=True)
+        enc_out.index_copy_(0, dyn_rows(slot, 1, enc_out.device),
+                            enc_slot.to(enc_out.dtype))
+        logits, _ = whisper.prefill_slot(params, cfg, qcfg, tokens,
+                                         enc_slot, caches, slot, plen,
+                                         seed=seed)
+        return logits, carry
+    _paged_only(cfg, "prefill_slot", "not supported (recurrent state "
+                "cannot be prefilled from a right-padded static shape)")
     return transformer.prefill_slot(params, cfg, qcfg, tokens, carry, slot,
                                     plen, seed=seed)
 
@@ -166,11 +230,11 @@ def prefill_suffix(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
     """Prefill ONE slot from a right-padded (1, Sp) prompt SUFFIX whose
     first ``pfx`` tokens are cached in shared prefix pages (``slot``/
     ``plen``/``pfx``: host ints or int32 device scalars).  Returns (logits
-    (1, V), carry).  Dense and moe only: the recurrent families have no
-    pageable cache to share."""
-    _lockstep_only(cfg, "prefill_suffix", "cannot share prefix pages (K/V "
-                   "are not a pure function of the prompt prefix)")
-    transformer.check_family(cfg)
+    (1, V), carry).  Dense and moe only: the whisper decoder's K/V mix in
+    per-request frames, vlm's a per-request prefix, and the recurrent
+    families have no pageable cache to share."""
+    _paged_only(cfg, "prefill_suffix", "cannot share prefix pages (K/V "
+                "are not a pure function of the prompt prefix)")
     return transformer.prefill_suffix(params, cfg, qcfg, tokens, carry,
                                       slot, plen, pfx, seed=seed)
 
@@ -180,10 +244,8 @@ def prefill_chunk(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
     """Write one FULL intermediate chunk (1, C) of a prompt into a paged
     slot at [off, off + C) (``slot``/``off``: host ints or int32 device
     scalars).  Returns the carry.  Dense and moe only."""
-    _lockstep_only(cfg, "prefill_chunk", "cannot prefill through the paged "
-                   "cache (K/V are not a pure function of the prompt "
-                   "prefix)")
-    transformer.check_family(cfg)
+    _paged_only(cfg, "prefill_chunk", "cannot prefill through the paged "
+                "cache (K/V are not a pure function of the prompt prefix)")
     return transformer.prefill_chunk(params, cfg, qcfg, tokens, carry, slot,
                                      off, seed=seed)
 
@@ -192,10 +254,10 @@ def verify_k(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, carry,
              *, seed: int = 0, write_mask=None):
     """Teacher-forced speculative verify of (B, k) tokens over the paged
     carry.  Returns (logits (B, k, V), carry).  Dense and moe only: a
-    recurrent state absorbs drafted tokens irreversibly."""
-    _lockstep_only(cfg, "verify_k", "cannot roll back rejected drafts (no "
-                   "exactly-truncatable paged cache)")
-    transformer.check_family(cfg)
+    recurrent state absorbs drafted tokens irreversibly, and the other
+    families have no exactly truncatable paged carry."""
+    _paged_only(cfg, "verify_k", "cannot roll back rejected drafts (no "
+                "exactly-truncatable paged cache)")
     return transformer.verify_k(params, cfg, qcfg, tokens, carry, seed=seed,
                                 write_mask=write_mask)
 

@@ -1,5 +1,8 @@
-"""Decoder-only LM transformer (PyTorch), dense and moe families: training
-and serving entries.
+"""Decoder-only LM transformer (PyTorch), the dense, moe and vlm families:
+training and serving entries.  The vlm family (InternVL2) is the dense LM
+with a prefix of precomputed patch embeddings (the InternViT frontend is a
+stub, as in the reference): ``prefix_embeds`` (B, P, d) go before the token
+embeddings in ``forward``, ``loss_fn`` and ``prefill``.
 
 Counterpart of ``repro.models.transformer``.  The JAX package stacks the
 layers and runs ``lax.scan``; here ``params["layers"]`` is a list of
@@ -30,12 +33,13 @@ _SEED_STRIDE = 0x9E3779B9                   # per-layer SR seed stride
 
 
 def check_family(cfg: ModelConfig):
-    """The transformer families the port runs: dense and moe."""
-    if cfg.family not in ("dense", "moe") or \
+    """The transformer families: dense, moe (with experts) and vlm (the
+    dense LM behind a patch-embedding prefix, no experts)."""
+    if cfg.family not in ("dense", "moe", "vlm") or \
             bool(cfg.n_experts) != (cfg.family == "moe"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} arrives with the breadth families "
-            f"(ROADMAP Queue 1); the port runs the dense and moe families")
+        raise ValueError(
+            f"family {cfg.family!r} with {cfg.n_experts} experts is no "
+            f"transformer family (dense, moe with experts, vlm)")
 
 
 def init(cfg: ModelConfig, gen: torch.Generator, dtype=torch.bfloat16,
@@ -130,8 +134,15 @@ def apply_layers(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed=0, *,
 
 
 def _logits(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed=0):
-    head_cfg = qcfg if cfg.quantize_lm_head else QuantConfig()
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return head(cfg, qcfg, x, w, seed)
+
+
+def head(cfg: ModelConfig, qcfg: QuantConfig, x, w, seed=0):
+    """x @ w, the LM head, under ``qcfg`` where ``cfg.quantize_lm_head``
+    (else bf16) with the head's SR seed; the padded vocabulary ids get
+    -1e30."""
+    head_cfg = qcfg if cfg.quantize_lm_head else QuantConfig()
     logits = QCtx(head_cfg, (int(seed) + 0xABCDEF) & M32).dense(x, w)
     if cfg.padded_vocab != cfg.vocab_size:        # mask padded ids
         pad = torch.arange(cfg.padded_vocab, device=logits.device) \
@@ -140,22 +151,34 @@ def _logits(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed=0):
     return logits
 
 
+def _with_prefix(x, prefix_embeds):
+    """``prefix_embeds`` (B, P, d), cast to x's dtype, before x."""
+    if prefix_embeds is None:
+        return x
+    return torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+
+
 def forward(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, *,
-            seed: int = 0, remat: bool = True):
+            seed: int = 0, prefix_embeds=None, remat: bool = True):
     """Full-sequence forward (training).  Returns (logits, aux_loss): the
-    moe routers' load-balancing loss summed over layers (0 for dense)."""
-    x = embed_lookup(params["embed"], tokens)
+    moe routers' load-balancing loss summed over layers (0 for dense).
+    ``prefix_embeds`` (B, P, d): the vlm prefix, attended at positions
+    0..P-1; the logits are the S token rows'."""
+    x = _with_prefix(embed_lookup(params["embed"], tokens), prefix_embeds)
     x, _, aux = apply_layers(params, cfg, qcfg, x, seed, remat=remat)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    if prefix_embeds is not None:
+        x = x[:, prefix_embeds.shape[1]:]
     return _logits(params, cfg, qcfg, x, seed), aux
 
 
 def loss_fn(params, cfg: ModelConfig, qcfg: QuantConfig, batch, *,
             seed: int = 0, remat: bool = True):
-    """Next-token cross-entropy.  batch: {"tokens": (B, S + 1) ints}.
-    Returns (loss, {"nll", "aux"})."""
+    """Next-token cross-entropy.  batch: {"tokens": (B, S + 1) ints,
+    optional "prefix_embeds" (B, P, d)}.  Returns (loss, {"nll", "aux"})."""
     tokens = batch["tokens"].long()
     logits, aux = forward(params, cfg, qcfg, tokens[:, :-1], seed=seed,
+                          prefix_embeds=batch.get("prefix_embeds"),
                           remat=remat)
     # on the CPU the reference's gradient of the mean nll: one logit
     # gradient a bf16 ulp off changes the tensor scale the lm_head's SR
@@ -189,10 +212,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             for sh in shared]
 
 
-def prefill(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, caches):
-    """Run the prompt through the model, filling the (empty) caches;
-    returns (last-token logits (B, 1, V), caches)."""
-    x = params["embed"][tokens]
+def prefill(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, caches,
+            *, prefix_embeds=None):
+    """Run the prompt (after ``prefix_embeds`` (B, P, d), if given) through
+    the model, filling the (empty) caches; returns (last-token logits
+    (B, 1, V), caches)."""
+    x = _with_prefix(params["embed"][tokens], prefix_embeds)
     x, caches, _ = apply_layers(params, cfg, qcfg, x, caches=caches)
     x = rmsnorm(x[:, -1:], params["ln_f"], cfg.norm_eps)
     return _logits(params, cfg, qcfg, x), caches

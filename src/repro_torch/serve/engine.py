@@ -6,12 +6,15 @@ once at engine build (the K4 kernel).
 
   * ``Engine`` -- LOCKSTEP batches: prompts are left-padded with token 0
     (the pads attended unmasked, as in the reference), prefill attention
-    is K7 and decode attention over the nvfp4/fp8 cache K6.  Two programs,
+    is K7 and decode attention over the nvfp4/fp8 cache K6; the stub
+    frontends' inputs (whisper's ``frames``, InternVL2's
+    ``prefix_embeds``) come as ``extras`` of the prefill.  Two programs,
     ``_prefill`` and ``_decode`` (the reference's ``_decode_impl``: done/
     EOS bookkeeping, the decode step and the greedy pick on the device);
     the host syncs once per ``decode_chunk`` steps.
   * ``ContinuousEngine`` -- continuous batching over a PAGED block-
-    quantized KV cache.  The request lifecycle (queue, slots, demand
+    quantized KV cache (dense, moe and whisper, whose per-request frames
+    are encoded at admission).  The request lifecycle (queue, slots, demand
     paging, preemption, the shared-prefix cache, abort/timeout) is the
     host-side ``serve/scheduler.py``; the device runs five programs:
     prefill-into-slot (attention K7), suffix prefill and chunked prefill
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.convert import tensor_from_numpy
 from repro_torch.core import fqt
 from repro_torch.core.quantize import PackedQuantizedTensor
 from repro_torch.models import registry
@@ -118,7 +122,8 @@ class Engine:
     sliding-window models keep a rolling buffer of min(max_len, window)
     rows; the recurrent hybrid and ssm families, whose prefill program is
     one decode step per prompt token over a carry of recurrent states
-    updated in place).
+    updated in place; the encdec and vlm families, whose prefill program
+    takes their ``extras``).
 
     ``cuda_graphs`` (default True): on the card each program replays as
     one CUDA graph per signature; False runs them eagerly (the comparison
@@ -143,11 +148,16 @@ class Engine:
 
     # ---- the two programs ----------------------------------------------------
 
-    def _prefill_impl(self, tokens):
-        """Fill the (empty) carry from the left-padded prompts: last-token
-        logits (B, V)."""
+    def _prefill_impl(self, tokens, frames, prefix_embeds):
+        """Fill the (empty) carry from the left-padded prompts and the
+        extras given (None where absent: a run without them is its own
+        signature, as in the reference's ``jit``): last-token logits
+        (B, V)."""
+        extras = {k: v for k, v in (("frames", frames),
+                                    ("prefix_embeds", prefix_embeds))
+                  if v is not None}
         logits, _ = registry.prefill(self.params, self.cfg, self.qcfg,
-                                     tokens, self._carry)
+                                     tokens, self._carry, extras=extras)
         return logits
 
     def _decode_impl(self, tokens, done):
@@ -164,9 +174,11 @@ class Engine:
         return (emit, done) + _head(logits[:, -1], self.scfg)
 
     @torch.no_grad()
-    def generate(self, prompts: List[np.ndarray],
-                 max_new: int = 32) -> List[np.ndarray]:
-        """Greedy/temperature generation for a batch of token prompts."""
+    def generate(self, prompts: List[np.ndarray], max_new: int = 32,
+                 extras: Optional[dict] = None) -> List[np.ndarray]:
+        """Greedy/temperature generation for a batch of token prompts.
+        ``extras``: ``frames`` (encdec) or ``prefix_embeds`` (vlm), numpy
+        arrays or tensors, one row per batch row."""
         scfg, cfg, dev = self.scfg, self.cfg, self.device
         B = len(prompts)
         if B > scfg.batch_size:
@@ -183,7 +195,10 @@ class Engine:
                 kv_cache_format=scfg.kv_cache_format, device=dev)
         else:
             registry.reset_decode_state(self._carry)
-        last_logits = self.programs["prefill"](toks)
+        extras = extras or {}
+        last_logits = self.programs["prefill"](toks, *(
+            None if extras.get(k) is None else _as_tensor(extras[k]).to(dev)
+            for k in ("frames", "prefix_embeds")))
         gen = None
         if scfg.temperature > 0:
             gen = torch.Generator(device=dev)
@@ -216,6 +231,11 @@ class Engine:
         if alldone.any():
             out = out[:, : int(np.argmax(alldone)) + 1]
         return [out[i] for i in range(B)]
+
+
+def _as_tensor(a) -> torch.Tensor:
+    """A tensor, or a numpy array (bf16 ones included) as one."""
+    return a if isinstance(a, torch.Tensor) else tensor_from_numpy(a, "cpu")
 
 
 def _stream_seed(seed: int, rid: int, step: int) -> int:
@@ -255,8 +275,10 @@ def _fetch(*tensors: torch.Tensor) -> List[np.ndarray]:
 
 
 class ContinuousEngine:
-    """Continuous batching over a paged, block-quantized KV cache (dense
-    and moe families).
+    """Continuous batching over a paged, block-quantized KV cache (dense,
+    moe and encdec families; encdec encodes each request's ``frames`` at
+    admission into its slot's row of the encoder output, again after a
+    preemption, and every decode step cross-attends each slot's row).
 
     Requests arrive on a (deterministic, tick-indexed) trace, wait in the
     scheduler's FIFO queue, and are admitted whenever a slot AND enough
@@ -270,14 +292,11 @@ class ContinuousEngine:
                  qcfg: Optional[fqt.QuantConfig] = None,
                  pack_weights: bool = True, device=None, tracer=None,
                  cuda_graphs: bool = True):
-        if cfg.family == "encdec":
+        if cfg.family not in ("dense", "moe", "encdec"):
             raise NotImplementedError(
-                "continuous batching of the encdec (whisper) family arrives "
-                "with its slice (ROADMAP Queue 1: models/whisper.py)")
-        if cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"continuous batching serves the dense and moe families; "
+                f"continuous batching serves dense/moe/encdec families; "
                 f"{cfg.family!r} stays on the lockstep Engine")
+        pure = cfg.family in registry.PROMPT_PURE
         self.device = resolve_device(device)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.cfg, self.scfg = cfg, scfg
@@ -290,11 +309,17 @@ class ContinuousEngine:
                else min(scfg.max_len, cfg.sliding_window))
         self.slot_buf = -(-buf // psz) * psz   # logical tokens per slot
         self.n_pages_slot = self.slot_buf // psz
-        if scfg.prefix_cache and cfg.sliding_window is not None:
+        if scfg.prefix_cache and (not pure
+                                  or cfg.sliding_window is not None):
             raise NotImplementedError(
                 "prefix_cache needs prompt-pure K/V and a linear cache: "
-                "dense families without a sliding window")
+                "dense/moe families without a sliding window")
         if scfg.prefill_chunk is not None:
+            if not pure:
+                raise NotImplementedError(
+                    "prefill_chunk needs prompt-pure K/V and a linear "
+                    "cache: dense/moe families without a sliding window "
+                    "(chunks attend THROUGH the quantized paged cache)")
             if cfg.sliding_window is not None:
                 raise NotImplementedError(
                     "prefill_chunk needs a linear cache (no sliding "
@@ -310,6 +335,10 @@ class ContinuousEngine:
             raise ValueError("draft_layers requires spec_k (speculative "
                              "decoding off)")
         if self.spec:
+            if not pure:
+                raise NotImplementedError(
+                    "speculative decoding needs an exactly rewindable "
+                    "paged cache: dense/moe families only")
             if cfg.sliding_window is not None:
                 raise NotImplementedError(
                     "speculative decoding needs a linear cache; SWA "
@@ -385,15 +414,17 @@ class ContinuousEngine:
             picks.append(_sample(out[i:i + 1], self.scfg, self._gen))
         return torch.cat(picks)
 
-    def _prefill_impl(self, tokens, plen, slot):
-        logits, _ = registry.prefill_slot(self.params, self.cfg, self.qcfg,
-                                          tokens, self._carry, slot, plen)
+    def _prefill_impl(self, tokens, plen, slot, frames):
+        logits, _ = registry.prefill_slot(
+            self.params, self.cfg, self.qcfg, tokens, self._carry, slot,
+            plen, extras=None if frames is None else {"frames": frames})
         return _head(logits, self.scfg)
 
-    def _prefill(self, tokens, plen, slot, rid: int):
-        """Prefill one slot from a right-padded (1, prefill_len) prompt and
-        pick that request's first token (device scalars)."""
-        pick, margin = self.programs["prefill"](tokens, plen, slot)
+    def _prefill(self, tokens, plen, slot, rid: int, frames=None):
+        """Prefill one slot from a right-padded (1, prefill_len) prompt (and,
+        encdec, the request's (1, T, d) ``frames`` or None) and pick that
+        request's first token (device scalars)."""
+        pick, margin = self.programs["prefill"](tokens, plen, slot, frames)
         return self._draw(pick, [rid], [0])[0], margin[0].clone()
 
     def _prefill_suffix_impl(self, tokens, plen, pfx, slot):
@@ -468,7 +499,7 @@ class ContinuousEngine:
                  else mask.to(torch.int32))
         n_emit = n_emit * wrote               # masked slots emit nothing
         delta = n_emit - k * wrote
-        for c in self._carry:
+        for c in self._caches():
             c.truncate_to(None, c.lengths + delta)
         nxt = torch.gather(g, 1, torch.clamp(n_emit - 1, min=0)[:, None]
                            .to(torch.int64))[:, 0]
@@ -482,10 +513,15 @@ class ContinuousEngine:
         self._pt_host[slot] = row
         self._pt_dirty = True
 
+    def _caches(self) -> list:
+        """The carry's paged caches (encdec: beside the encoder output)."""
+        return self._carry[1] if isinstance(self._carry, tuple) \
+            else self._carry
+
     def _flush_pages(self) -> None:
         """Upload the host page-table mirror in ONE copy, if it changed."""
         if self._pt_dirty:
-            table = self._carry[0].page_table       # shared by every layer
+            table = self._caches()[0].page_table    # shared by every layer
             table.copy_(_h2d(self._pt_host, self.device))
             self._pt_dirty = False
 
@@ -512,11 +548,15 @@ class ContinuousEngine:
 
     @torch.no_grad()
     def run(self, requests: List[Request],
+            extras: Optional[Dict[int, dict]] = None,
             forced: Optional[Dict[int, np.ndarray]] = None
             ) -> Dict[int, np.ndarray]:
         """Serve a request trace to completion; returns {rid: tokens}.
 
-        ``forced``: per-rid teacher-forcing streams -- the engine FEEDS the
+        ``extras``: per-rid extras, {rid: {"frames": (1, T, d)}} (encdec;
+        numpy or tensors): each admission of the request, a re-admission
+        after preemption too, encodes them.  ``forced``: per-rid
+        teacher-forcing streams -- the engine FEEDS the
         forced tokens but records its own picks (and greedy margins,
         ``self.margins``).  Aborted/timed-out requests never appear in the
         result; their partial streams live in ``self.scheduler.cancelled``.
@@ -525,6 +565,7 @@ class ContinuousEngine:
         cache) AND the device caches persist across run() calls."""
         scfg, dev = self.scfg, self.device
         forced = forced or {}
+        extras = extras or {}
         chunked = scfg.prefill_chunk is not None
         if self.spec and forced:
             raise NotImplementedError(
@@ -636,8 +677,11 @@ class ContinuousEngine:
                     tok, margin = self._prefill_suffix(
                         sfx, plen_d, pfx_d, slot_d, req.rid)
                 else:
-                    tok, margin = self._prefill(sfx, plen_d, slot_d,
-                                                req.rid)
+                    frames = extras.get(req.rid, {}).get("frames")
+                    tok, margin = self._prefill(
+                        sfx, plen_d, slot_d, req.rid,
+                        None if frames is None
+                        else _as_tensor(frames).to(dev))
                 pending[slot] = (tok, margin)
                 first_token(slot, req, tok)
 

@@ -85,12 +85,15 @@ def padded(prompts) -> np.ndarray:
     return toks
 
 
-def jax_engine_stream(cfg, params, fmt, weights, prompts, max_new, max_len):
+def jax_engine_stream(cfg, params, fmt, weights, prompts, max_new, max_len,
+                      extras=None):
     """A JAX ``Engine`` stream (packed NVFP4 weights under ``qaf_config``,
     or bf16 weights under ``bf16_config``) and the greedy margins behind
     it: its logits teacher-forced through the Engine's compiled prefill and
     the registry's decode step, as tests/test_torch_serve.py takes them.
+    ``extras``: the prefill's (encdec ``frames``, vlm ``prefix_embeds``).
     Runs in the reference subprocess."""
+    extras = extras or {}
     import jax
     import jax.numpy as jnp
     from repro import serve as jserve
@@ -106,12 +109,12 @@ def jax_engine_stream(cfg, params, fmt, weights, prompts, max_new, max_len):
     eng = jserve.Engine(cfg, w, jserve.ServeConfig(
         batch_size=len(prompts), max_len=max_len, kv_cache_format=fmt,
         decode_chunk=4), qcfg=qcfg, pack_weights=False)
-    stream = np.stack(eng.generate(prompts, max_new=max_new))
+    stream = np.stack(eng.generate(prompts, max_new=max_new, extras=extras))
     decode = jax.jit(jreg.decode_step, static_argnums=(1, 2))
     carry = shd.place_serve_cache(jreg.make_decode_state(
         cfg, len(prompts), max_len, kv_cache_format=fmt), eng.mesh)
     logits, carry = eng._prefill(eng._replicate(jnp.asarray(padded(prompts))),
-                                 carry, {})
+                                 carry, extras)
     steps = [np.asarray(logits, np.float32)]
     for t in range(stream.shape[1] - 1):
         lg, carry = decode(eng.params, cfg, qcfg,

@@ -219,8 +219,9 @@ def test_continuous_config_errors(models):
                                                    temperature=1.0),
                          device="cpu")
     import dataclasses
-    with pytest.raises(NotImplementedError, match="models/whisper.py"):
-        ContinuousEngine(dataclasses.replace(cfg, family="encdec"), tparams,
+    with pytest.raises(NotImplementedError, match="'vlm' stays on the "
+                       "lockstep Engine"):
+        ContinuousEngine(dataclasses.replace(cfg, family="vlm"), tparams,
                          ServeConfig(), device="cpu")
 
 
