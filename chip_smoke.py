@@ -201,6 +201,30 @@ Phases, each printing JSON lines; any failure exits non-zero:
            card against the CPU's plain versions (a CPU child): logits, the
            lockstep streams with extras, whisper's continuous streams and
            compile counts.
+  mesh     the serving mesh (``distributed/``, ``tp_fp4_matmul``): the
+           launcher ``python -m repro_torch.launch.serve --mesh SPEC
+           --dist-backend gloo --report DIR`` as child processes, whose
+           ranks (one process each) share the one card through gloo, its
+           collectives staged through the host (NCCL refuses two ranks on
+           one device), their programs eager.  Run b: ContinuousEngine at
+           tp=2 on run A's traffic cut to 4 requests (128-token shared
+           prefix + 64, prefix cache, 64-token chunks, 32 new); run c: the
+           lockstep Engine at tp=2, batch 4 x 64, 32 new; both llama2-7b at
+           full width and depth, weights packed layer by layer into each
+           rank's shards.  Run d: dp=2,tp=2 (4 ranks), depth cut 32 -> 4,
+           lockstep, 16 new, every weight gathered over "data" in its
+           packed wire format before its GEMMs.  Each run is served again
+           by one process (no mesh, graphed).  Checks: every rank's streams
+           equal; each rank's K4/K5/K6/K7 launches as its program calls
+           derive them (``mesh_expected``); the streams against the
+           one-process run (common prefix; a first parting only at a
+           one-process greedy margin below MESH_MARGIN); the prompts'
+           prefill logits within MESH_LOGITS_RTOL (relative L2).  Reports
+           tokens/s, ms a decode call, each rank's collectives (calls,
+           bytes, host ms) and peak memory, and run d's wire bytes a GEMM
+           parameter -- gloo ranks sharing one card: not a TP speed.  Phase
+           kernels holds K4's ``a_amax`` and ``plan_n`` at the tp=2 shard
+           shapes (``k4_tp_checks``).
   ops      the kernel-level public API (``kernels/ops.py``) as a user calls
            it: the unfused FQT GEMM at each forward GEMM shape of the
            train phase's llama2-7b (M = 4096 tokens; (K, N) = (4096, 4096),
@@ -254,7 +278,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("env", "kernels", "serve", "serve_continuous", "train",
-          "pipeline", "archs", "recurrent", "encdec_vlm", "ops", "times")
+          "pipeline", "archs", "recurrent", "encdec_vlm", "mesh", "ops",
+          "times")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core peak
 SEED = 0
@@ -291,6 +316,14 @@ K4_ENCDEC = ((4, 512, 512), (4, 512, 2048), (4, 2048, 512),
              (4, 16384, 6144), (4, 6144, 92672),
              (1280, 6144, 6144), (1280, 6144, 1024), (1280, 6144, 16384),
              (1280, 16384, 6144))
+# K4's tensor-parallel forms at llama2-7b's tp=2 shard shapes (phase
+# kernels): column shards (K, N / 2) of wq/wk/wv, w_gate/w_up and the lm_head
+# with the full N's GEMV plan (plan_n), row shards (K / 2, N) of wo and
+# w_down with the global |A| max (a_amax); at M 4 (GEMV), 256 (core) and,
+# E3M4 A, 64 (the f32 route)
+K4_TP_COL = ((4096, 2048), (4096, 5504), (4096, 16000))
+K4_TP_ROW = ((2048, 4096), (5504, 4096))
+K4_TP_M = (4, 256)
 K6_CASES = (  # (B, H, KVH, D, Sk, kv_len): llama2-7b, then tinyllama (G = 8),
     # then zamba2-1.2b's shared block (MHA, D 64), whisper-base's decoder
     # (MHA 8 heads, D 64, 128 rows) and internvl2-26b's (GQA 48/8, D 128, 384
@@ -530,13 +563,15 @@ def k3_operands(ac, asc, bc, bsc, ts, block=16):
     return ad, bd, ts
 
 
-def k4_operands(a, w, spec_a):
+def k4_operands(a, w, spec_a, amax=None):
     """K4's dequantized operands Q(A) (M, K) and B' (K, N) in f32, and tsA *
-    tsB, as its plain version computes them."""
+    tsB, as its plain version computes them (A's tensor scale from
+    ``amax`` where given)."""
     import torch
     from repro_torch.kernels import common as kc
     from repro_torch.kernels import fp4_matmul as fm
-    ad, tsa = fm._quantized_operand(a, spec_a, None, along_rows=False)
+    ad, tsa = fm._quantized_operand(a, spec_a, None, along_rows=False,
+                                    amax=amax)
     K, N = a.shape[1], 2 * w.packed.shape[1]
     bsc = kc.decode_e4m3_byte_k(w.scales.view(torch.uint8))
     bd = (kc.unpack_e2m1_k(w.packed).reshape(K // w.block, w.block, N)
@@ -913,6 +948,7 @@ def phase_kernels(dev) -> dict:
     del a, w, got, want, operands
     if routes != set(fm.K4_ROUTES):
         failures.append((fm.NAME, f"routes met {sorted(routes)}"))
+    worst["k4_tp"] = k4_tp_checks(dev, check, e3m4_a)
     for B, H, KVH, D, Sk, kv_len, window in tuple(
             c + (None,) for c in K6_CASES) + K6_EDGE:
         plan = fa.k6_plan(1, H, KVH, D, Sk)
@@ -976,6 +1012,97 @@ def phase_kernels(dev) -> dict:
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{failures}")
     return worst
+
+
+def k4_tp_checks(dev, check, e3m4_a) -> dict:
+    """K4's tensor-parallel forms (``fp4_matmul.tp_fp4_matmul``) at the
+    tp=2 shard shapes of llama2-7b, the shards cut by
+    ``sharding.place_serve_params`` for each of the 2 ranks, in every
+    route: a column shard with ``plan_n`` (the full N's GEMV plan) against
+    its plain version under the tensor-core rule AND bit for bit against
+    the 1-device K4's columns; a row shard with the global |A| max
+    (``a_amax``) against its plain version given the same max, and the
+    pair's f32 partials summed against the 1-device K4 under the same
+    forward-error rule (over the full K).  Returns the cases' count and
+    worst errors for the kernels line."""
+    import torch
+    from repro_torch.core.quantize import NVFP4
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.kernels import fp4_matmul as fm
+    out = {"cases": 0, "column_bitwise": 0, "routes": set(),
+           "a_amax_max_abs_err": 0.0, "row_pair_max_abs_err": 0.0}
+    ranks = [Mesh((2,), ("model",), device=dev, rank=r) for r in range(2)]
+
+    def shard(name, w, r):
+        return sharding.place_serve_params({name: w}, ranks[r])[name]
+
+    for spec_a, Ms in ((NVFP4, K4_TP_M), (e3m4_a, (64,))):
+        for M in Ms:
+            route = fm.k4_route(M, spec_a)
+            out["routes"].add(route)
+            for K, Nl in K4_TP_COL:
+                a, w = k4_inputs(M, K, 2 * Nl, dev)
+                for out_dtype in (torch.float32, torch.bfloat16):
+                    one = fm.packed_matmul(a, w, spec_a, out_dtype=out_dtype)
+                    for r in range(2):
+                        wr = shard("w_up", w, r)
+                        got = fm.packed_matmul(a, wr, spec_a,
+                                               out_dtype=out_dtype,
+                                               plan_n=2 * Nl)
+                        want = fm.packed_block_matmul_plain(
+                            a, wr.packed, wr.scales, wr.tscale, spec_a,
+                            out_dtype=out_dtype)
+                        torch.cuda.synchronize(dev)
+                        case = (f"tp=2 column rank {r} M={M} K={K} N={Nl} "
+                                f"of {2 * Nl} plan_n {str(out_dtype)[6:]} "
+                                f"route {route}")
+                        ops = k4_operands(a, wr, spec_a)
+                        check(fm.NAME, case, got, want,
+                              lambda g, w_, o=ops: compare_tc(g, w_, *o))
+                        check(fm.NAME, case + " vs 1-device columns", got,
+                              one[:, r * Nl:(r + 1) * Nl].contiguous(),
+                              compare_bits)
+                        out["cases"] += 2
+                        out["column_bitwise"] += 1
+                del a, w, one, got, want
+            for Kl, N in K4_TP_ROW:
+                a, w = k4_inputs(M, 2 * Kl, N, dev)
+                amax = torch.amax(torch.abs(a.float())).reshape(1)
+                one = fm.packed_matmul(a, w, spec_a, out_dtype=torch.float32)
+                parts = []
+                for r in range(2):
+                    ar = a[:, r * Kl:(r + 1) * Kl].contiguous()
+                    wr = shard("w_down", w, r)
+                    got = fm.packed_matmul(ar, wr, spec_a,
+                                           out_dtype=torch.float32,
+                                           a_amax=amax)
+                    want = fm.packed_block_matmul_plain(
+                        ar, wr.packed, wr.scales, wr.tscale, spec_a,
+                        a_amax=amax)
+                    torch.cuda.synchronize(dev)
+                    ops = k4_operands(ar, wr, spec_a, amax)
+                    case = (f"tp=2 row rank {r} M={M} K={Kl} of {2 * Kl} "
+                            f"N={N} a_amax route {route}")
+                    check(fm.NAME, case, got, want,
+                          lambda g, w_, o=ops: compare_tc(g, w_, *o))
+                    out["a_amax_max_abs_err"] = max(
+                        out["a_amax_max_abs_err"],
+                        float((got - want).abs().max()))
+                    parts.append(got)
+                    out["cases"] += 1
+                pair = parts[0] + parts[1]
+                ops = k4_operands(a, w, spec_a)
+                check(fm.NAME, f"tp=2 row pair summed vs 1-device M={M} "
+                      f"K={2 * Kl} N={N} route {route}", pair, one,
+                      lambda g, w_, o=ops: compare_tc(g, w_, *o))
+                out["row_pair_max_abs_err"] = max(
+                    out["row_pair_max_abs_err"],
+                    float((pair - one).abs().max()))
+                out["cases"] += 1
+                del a, w, one, parts, pair, got, want, ops
+    out["routes"] = sorted(out["routes"])
+    return out
 
 
 def _first_divergence_ok(got, want, margins, tol=0.02):
@@ -3327,6 +3454,198 @@ def phase_encdec_vlm(dev) -> dict:
     return out
 
 
+# phase mesh: the serving mesh through ``launch/serve.py --mesh``, gloo ranks
+# sharing the one card (NCCL refuses two ranks on one device).  Runs: label
+# -> (mesh spec, the launcher's arguments).  b: ContinuousEngine at tp=2 on
+# run A's traffic cut to 4 requests (shared 128-token prefix, prefix cache,
+# 64-token chunks, 32 new); c: the lockstep Engine at tp=2 (serve's batch 4
+# x 64, 32 new); both llama2-7b at full width and depth.  d: dp=2,tp=2 (4
+# ranks), depth cut 32 -> 4, lockstep, 16 new: every GEMM weight gathered
+# over "data" (allgather_packed) before use.  Each run is also served by
+# one process (no --mesh, its programs graphed), the comparison.
+MESH_RUNS = {
+    "b": ("tp=2", ["--queue", "4", "--max-slots", "4", "--batch", "4",
+                   "--shared-prefix", "128", "--prompt-len", "64",
+                   "--prefix-cache", "--prefill-chunk", "64", "--max-new",
+                   "32", "--max-len", "512"]),
+    "c": ("tp=2", ["--batch", "4", "--prompt-len", "64", "--max-new", "32",
+                   "--max-len", "256"]),
+    "d": ("dp=2,tp=2", ["--batch", "4", "--prompt-len", "64", "--max-new",
+                        "16", "--max-len", "256", "--layers", "4"]),
+}
+# The rules the mesh runs are held to against the one-process runs, written
+# in PERF.md before the first card run: a stream may first part from the
+# one-process stream only at a step whose one-process greedy margin is
+# below MESH_MARGIN (after a parting nothing more is compared), and the
+# prompts' last-token prefill logits agree within MESH_LOGITS_RTOL
+# (relative L2).  The mesh's row-parallel GEMMs add their f32 partials in
+# another order, which can flip a bf16 rounding and, through the next FP4
+# activation quantization, a code.
+MESH_MARGIN = 0.05
+MESH_LOGITS_RTOL = 1e-2
+# the runs started together: the 2-rank runs first, then run d's 4 ranks
+# beside the one-process runs
+MESH_WAVES = ((("b", "mesh"), ("c", "mesh")),
+              (("d", "mesh"), ("b", "one"), ("c", "one"), ("d", "one")))
+
+
+def card_used_mib() -> int:
+    """Device memory in use on the card, every process's (nvidia-smi)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return int(out.split()[0])
+
+
+def _launcher(arch, mesh, args, out: Path) -> subprocess.Popen:
+    """``python -m repro_torch.launch.serve`` as a child (its own ranks,
+    spawned by the launcher), reporting into ``out``."""
+    import os
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+           "--seed", str(SEED), "--report", str(out), *args]
+    if mesh:
+        cmd += ["--mesh", mesh, "--dist-backend", "gloo"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _reports(out: Path, n: int) -> list:
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(n)]
+
+
+def mesh_expected(cfg, rep) -> dict:
+    """Each kernel's launches on one rank from its programs' calls: every
+    rank runs every layer on its shards, so a rank launches what one
+    process launches (``expected_launches``, ``lockstep_launches``)."""
+    calls = rep["calls"]
+    if "decode" in calls and "prefill_suffix" in calls:
+        return expected_launches(cfg, {f"_{k}": v for k, v in calls.items()})
+    return lockstep_launches(cfg, calls["decode"])
+
+
+def mesh_compare(mesh_rep, one_rep) -> dict:
+    """Streams of the mesh run (rank 0) against the one-process run:
+    common prefix per stream, and at a first parting the one-process
+    greedy margin there, held to MESH_MARGIN."""
+    rows, ok = {}, True
+    for k, want in one_rep["streams"].items():
+        got = mesh_rep["streams"][k]
+        t = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+        if t is None and len(got) != len(want):
+            t = min(len(got), len(want))
+        margin = None if t is None else one_rep["margins"][k][t]
+        ok &= t is None or (margin is not None and margin < MESH_MARGIN)
+        rows[k] = {"common_prefix": len(want) if t is None else t,
+                   "of": len(want), "parting_margin": margin}
+    return {"streams_ok": bool(ok), "streams": rows}
+
+
+def phase_mesh(dev) -> dict:
+    """The serving mesh on gloo ranks sharing the card; see the docstring
+    at the top and MESH_RUNS."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    _build.build_all()              # built once: the ranks load it
+    gc.collect()
+    torch.cuda.empty_cache()        # the earlier phases' cached blocks
+    root = ROOT / "build" / "mesh_phase"
+    if root.exists():
+        import shutil
+        shutil.rmtree(root)
+    emit({"phase": "mesh", "parent_allocated_bytes":
+          torch.cuda.memory_allocated(dev), "parent_reserved_bytes":
+          torch.cuda.memory_reserved(dev), "card_used_mib": card_used_mib()})
+    t0 = time.perf_counter()
+    logs = {}
+    # two waves, so the children's build peaks (each packs whole layers
+    # before cutting its shard) stay within the card
+    for wave in MESH_WAVES:
+        procs = {}
+        for label, side in wave:
+            mesh, args = MESH_RUNS[label]
+            procs[(label, side)] = _launcher(
+                "llama2-7b", mesh if side == "mesh" else None, args,
+                root / f"{label}_{side}")
+        for key, proc in procs.items():
+            try:
+                logs[key], _ = proc.communicate(timeout=900)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                logs[key], _ = proc.communicate()
+                raise AssertionError(f"mesh run {key} timed out:\n"
+                                     f"{logs[key][-3000:]}")
+            if proc.returncode != 0:
+                raise AssertionError(f"mesh run {key} failed:\n"
+                                     f"{logs[key][-3000:]}")
+    wall = time.perf_counter() - t0
+    full = get_config("llama2-7b")
+    failures, launches, out = [], {}, {}
+    label_gloo = "gloo, ranks sharing one card: not a TP speed"
+    for label, (mesh, args) in MESH_RUNS.items():
+        n = 4 if mesh == "dp=2,tp=2" else 2
+        cfg = dataclasses.replace(full, n_layers=int(args[args.index(
+            "--layers") + 1])) if "--layers" in args else full
+        reps = _reports(root / f"{label}_mesh", n)
+        one = _reports(root / f"{label}_one", 1)[0]
+        if "serving mesh: " not in logs[(label, "mesh")]:
+            failures.append((label, "no serving-mesh line"))
+        for rep in reps:
+            if rep["streams"] != reps[0]["streams"]:
+                failures.append((label, f"rank {rep['rank']} streams"))
+            want = mesh_expected(cfg, rep)
+            if rep["launches"] != want:
+                failures.append((label, f"rank {rep['rank']} launches "
+                                 f"{rep['launches']} != {want}"))
+            for k, v in rep["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        if one["launches"] != mesh_expected(cfg, one):
+            failures.append((label, "one-process launches"))
+        cmp = mesh_compare(reps[0], one)
+        if not cmp["streams_ok"]:
+            failures.append((label, "stream parted at a decisive step"))
+        lg = np.load(root / f"{label}_mesh" / "prefill_logits.npy")
+        lw = np.load(root / f"{label}_one" / "prefill_logits.npy")
+        rel = float(np.linalg.norm(lg - lw) / np.linalg.norm(lw))
+        if not (np.isfinite(lg).all() and rel <= MESH_LOGITS_RTOL):
+            failures.append((label, f"prefill logits rel L2 {rel}"))
+        r0 = reps[0]
+        steps = max(1, r0["calls"]["decode"])
+        row = {
+            "phase": "mesh", "run": label, "mesh": mesh, "ranks": n,
+            "layers": cfg.n_layers, "backend": r0["backend"],
+            "label": label_gloo, **cmp,
+            "prefill_logits_rel_l2": rel,
+            "logits_rms": float(np.sqrt(np.mean(lw.astype(np.float64) ** 2))),
+            "tokens": r0["tokens"], "seconds": r0["seconds"],
+            "tokens_per_s": r0["tokens"] / r0["seconds"],
+            "one_process_tokens_per_s": one["tokens"] / one["seconds"],
+            "decode_calls": r0["calls"]["decode"],
+            "ms_per_decode_call": (r0["seconds"] - (
+                r0["prefill_s"] if "prefill_suffix" not in r0["calls"]
+                else 0.0)) * 1e3 / steps,
+            "sharded_prefill_ms": r0["prefill_s"] * 1e3,
+            "collectives": [rep["collectives"] for rep in reps],
+            "collective_ms_per_decode_call": [
+                rep["collectives"]["seconds"] * 1e3 / steps for rep in reps],
+            "peak_allocated_bytes": [rep["peak_allocated"] for rep in reps],
+            "one_process_peak_allocated": one["peak_allocated"],
+            "weight_store_bytes": [rep["weight_store_bytes"] for rep in reps],
+            "gemm_wire_bytes_per_param": r0["gemm_wire_bytes"]
+            / r0["gemm_params"],
+            "launches_rank0": r0["launches"]}
+        emit(row)
+        out[label] = row
+    emit({"phase": "mesh", "wall_s": wall, "card": card_line()})
+    if failures:
+        raise AssertionError(f"mesh phase: {failures}")
+    return {"launches": launches, "runs": out}
+
+
 def phase_ops(dev) -> dict:
     """The unfused FQT GEMM through ``kernels/ops.py`` at llama2-7b's forward
     GEMM shapes, held to the plain versions and to K1."""
@@ -4019,6 +4338,7 @@ def main(argv=None) -> int:
                           "archs": phase_archs,
                           "recurrent": phase_recurrent,
                           "encdec_vlm": phase_encdec_vlm,
+                          "mesh": phase_mesh,
                           "ops": phase_ops,
                           "times": phase_times}[p](dev)
             emit({"phase": p, "done": True,
@@ -4040,7 +4360,7 @@ def main(argv=None) -> int:
         # and each kernel's launches on the archs' paths (runs a-e), the
         # recurrent families' (serve and train) and the encdec and vlm
         # families' (runs a-d)
-        for ph in ("archs", "recurrent", "encdec_vlm"):
+        for ph in ("archs", "recurrent", "encdec_vlm", "mesh"):
             for name, n in results[ph]["launches"].items():
                 launches[name] = launches.get(name, 0) + n
         line = []
@@ -4054,6 +4374,9 @@ def main(argv=None) -> int:
                          "bound_by": row["bound_by"],
                          "library_ms": row["library_ms"],
                          "case": list(case)})
+            if name == "packed_block_matmul":
+                # the tensor-parallel forms held in phase kernels
+                line[-1]["tp"] = results["kernels"]["k4_tp"]
         emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

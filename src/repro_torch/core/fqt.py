@@ -244,12 +244,43 @@ def _packed_forward(x: torch.Tensor, w: PackedQuantizedTensor, seed: int,
     return _matmul_f32(qx, w.dequant()).to(x.dtype)
 
 
+def _sharded_forward(x: torch.Tensor, w, seed: int, cfg: QuantConfig,
+                     mesh, kind: str) -> torch.Tensor:
+    """The forward on this rank's shard of a weight of sharding rule
+    ``kind`` ("io", "oi", "d_vocab"; ``distributed/sharding.py``) under a
+    multi-rank ``mesh``: column-parallel where the rule splits N over
+    "model", row-parallel where it splits K, the "data" (FSDP) split
+    gathered first, through ``tp_fp4_matmul``.  The weight must be packed:
+    an unpacked shard's fwd_w tensor scale would be the shard's, not the
+    weight's."""
+    from repro_torch.distributed.sharding import weight_kind
+    from repro_torch.kernels.fp4_matmul import tp_fp4_matmul
+    if not isinstance(w, PackedQuantizedTensor):
+        raise NotImplementedError(
+            "a multi-rank mesh serves packed weights (Engine(pack_weights="
+            "True) under a config with fwd_w); unpacked GEMM weights are "
+            "served on one rank")
+    k_ax, n_ax = weight_kind(kind, mesh)
+    return tp_fp4_matmul(x, w, cfg=cfg, mesh=mesh, seed=seed,
+                         parallel="row" if k_ax == "model" else "column",
+                         gather_axis="data" if "data" in (k_ax, n_ax)
+                         else None,
+                         gather_dim=0 if k_ax == "data" else -1)
+
+
 def fp4_matmul(x: torch.Tensor, w, *, cfg: QuantConfig,
-               seed: Optional[int] = None) -> torch.Tensor:
+               seed: Optional[int] = None, mesh=None,
+               kind: Optional[str] = None) -> torch.Tensor:
     """FQT matmul (..., K) @ (K, N) -> (..., N) per the paper's scheme.
 
     ``seed``: the uint32 SR seed of this call (a Python int; the layer and
-    step seeds of ``models.layers.QCtx``)."""
+    step seeds of ``models.layers.QCtx``).  ``mesh`` and ``kind``: ``w``
+    is this rank's shard of a weight of sharding rule ``kind`` under a
+    serving mesh (``_sharded_forward``); a 1-rank mesh, or no kind, is the
+    1-device matmul."""
+    if mesh is not None and mesh.size > 1 and kind is not None:
+        return _sharded_forward(x, w, 0 if seed is None else int(seed) & M32,
+                                cfg, mesh, kind)
     if w.ndim != 2:
         raise ValueError(f"weight must be 2D, got {tuple(w.shape)}")
     if x.shape[-1] != w.shape[0]:
@@ -264,9 +295,11 @@ def fp4_matmul(x: torch.Tensor, w, *, cfg: QuantConfig,
 
 
 def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, *,
-          cfg: QuantConfig, seed: Optional[int] = None) -> torch.Tensor:
-    """Linear layer through the FP4 matmul (bias added in x's dtype)."""
-    y = fp4_matmul(x, w, cfg=cfg, seed=seed)
+          cfg: QuantConfig, seed: Optional[int] = None, mesh=None,
+          kind: Optional[str] = None) -> torch.Tensor:
+    """Linear layer through the FP4 matmul (bias added in x's dtype; on a
+    column-parallel shard, this rank's slice of it)."""
+    y = fp4_matmul(x, w, cfg=cfg, seed=seed, mesh=mesh, kind=kind)
     if b is not None:
         y = y + b
     return y

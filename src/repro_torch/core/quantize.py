@@ -270,6 +270,13 @@ class PackedQuantizedTensor:
                    + self.scales.numel() * self.scales.element_size()
                    + self.tscale.numel() * 4)
 
+    def wire_nbytes(self) -> int:
+        """Bytes an FSDP-style all-gather of this tensor moves: the codes
+        and block scales (~4.5 bits a parameter for NVFP4); the tensor
+        scale is replicated and never travels."""
+        return int(self.packed.numel() * self.packed.element_size()
+                   + self.scales.numel() * self.scales.element_size())
+
     def dequant(self) -> torch.Tensor:
         """codes * block_scales * tscale, bit-identical to the fake-quant
         reconstruction of the same tensor."""

@@ -309,12 +309,15 @@ __global__ void quant_blocks_kernel(const void* __restrict__ x, int x_bf16,
 // (along_rows = 0) or rows (1) on `stream`: the tensor scale from an
 // absmax launch (two-level specs; it stays on the device in *ts_ws), then
 // quant_blocks_kernel writing code * scale (exact in f32) to xq.
+// amax_given: *amax_ws already holds the |x| max to take (the f32 bits of a
+// caller's value, e.g. a row-parallel GEMM's global max), so no absmax pass.
 inline void quantize_operand(const void* x, int x_bf16, const uint32_t* rbits,
                              size_t rows, size_t cols, int block,
                              int along_rows, const QuantParams& qp,
                              unsigned int* amax_ws, float* ts_ws, float* xq,
-                             cudaStream_t stream) {
-  if (qp.two_level) launch_absmax(x, x_bf16, rows * cols, amax_ws, stream);
+                             cudaStream_t stream, bool amax_given = false) {
+  if (qp.two_level && !amax_given)
+    launch_absmax(x, x_bf16, rows * cols, amax_ws, stream);
   size_t n_blocks = rows * cols / block;
   quant_blocks_kernel<<<unsigned((n_blocks + 255) / 256), 256, 0, stream>>>(
       x, x_bf16, rbits, n_blocks, block, int(cols), along_rows, qp, amax_ws,
@@ -409,13 +412,16 @@ __global__ void quant_operand_kernel(const void* __restrict__ x, int x_bf16,
 // the device in *ts_ws).  A contiguous destination block of 16 or 32
 // values (A in place, or B transposed) takes the vector-store kernel; dst
 // is 16-byte aligned and, transposed, rows * sizeof(T) % 16 == 0.
+// amax_given as in quantize_operand.
 template <typename T>
 inline void quantize_operand_to(const void* x, int x_bf16, const SrBits& sr,
                                 size_t rows, size_t cols, int block,
                                 int along_rows, int transpose,
                                 const QuantParams& qp, unsigned int* amax_ws,
-                                float* ts_ws, T* dst, cudaStream_t stream) {
-  if (qp.two_level) launch_absmax(x, x_bf16, rows * cols, amax_ws, stream);
+                                float* ts_ws, T* dst, cudaStream_t stream,
+                                bool amax_given = false) {
+  if (qp.two_level && !amax_given)
+    launch_absmax(x, x_bf16, rows * cols, amax_ws, stream);
   size_t n_blocks = rows * cols / block;
   const bool contiguous = !along_rows || transpose;
   auto kernel = contiguous && block == 16   ? quant_operand_kernel<T, 16>

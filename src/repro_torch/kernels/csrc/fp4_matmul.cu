@@ -22,7 +22,10 @@
 //     (m16n8k16, bf16 operands, f32 accumulation), two launches.  A
 //     64-block prologue writes partial maxima of |A| for A's power-of-two
 //     tensor scale (it stays on the device: no host sync) and zeroes the
-//     arrival counters.  Then a block owns 256 output columns, 8 or 16 rows
+//     arrival counters.  Given a_amax (a row-parallel shard's global |A|
+//     max, a device f32) the scale comes from it and the prologue only
+//     zeroes the counters; a column-parallel shard passes the full N's
+//     split plan, so its columns sum in the 1-device order.  Then a block owns 256 output columns, 8 or 16 rows
 //     of A and one K range: a 4-stage cp.async ring streams the packed rows
 //     and their scale rows in 16-byte copies, neighbouring threads on
 //     neighbouring bytes, while the block quantizes its slice of A into
@@ -38,8 +41,9 @@
 //     same bits.  The decode rows are bound by the packed weight's bytes;
 //     the tensor cores keep the products off the CUDA cores.
 //   * "core" (M above that): A' in bf16 from fp4::quantize_operand_to (an
-//     |A| max, then one thread per block of A in the TPU kernel's order of
-//     operations), B' (N, K) bf16 from a dequantization pre-pass (nibble x E4M3 is exact in bf16: 16-byte
+//     |A| max or the given a_amax, then one thread per block of A in the
+//     TPU kernel's order of operations), B' (N, K) bf16 from a
+//     dequantization pre-pass (nibble x E4M3 is exact in bf16: 16-byte
 //     reads, 64 x 128 shared-memory tiles, 16-byte stores of 8 consecutive
 //     k), then the tensor-core GEMM core of fp4_gemm.cuh (TMA ring + wgmma
 //     m64n256k16, f32 accumulation), tsA * tsB in its epilogue: exact
@@ -148,8 +152,8 @@ static size_t gemv_smem(int mr, int ks) {
          size_t(GV_STAGES) * GV_STAGE_BYTES;
 }
 
-// GV_PARTS blocks: partial maxima of |A| (two-level specs) into parts[],
-// and block 0 zeroes the GEMV's arrival counters.
+// GV_PARTS blocks: partial maxima of |A| (two-level specs without a given
+// amax) into parts[], and block 0 zeroes the GEMV's arrival counters.
 __global__ void __launch_bounds__(256)
 k4_gemv_prologue_kernel(const void* __restrict__ a, int a_bf16, size_t n,
                         int two_level, float* __restrict__ parts,
@@ -267,6 +271,7 @@ __global__ void __launch_bounds__(GV_THREADS)
 k4_gemv_kernel(const void* __restrict__ a, int a_bf16,
                const uint32_t* __restrict__ a_rbits, fp4::QuantParams qa,
                int block_a, const float* __restrict__ parts,
+               const float* __restrict__ a_amax,
                const float* __restrict__ tsb, const uint8_t* __restrict__ bp,
                const uint8_t* __restrict__ bs, float* __restrict__ part,
                int* __restrict__ counters, void* __restrict__ out,
@@ -336,12 +341,18 @@ k4_gemv_kernel(const void* __restrict__ a, int a_bf16,
     const __nv_bfloat16 sv = __float2bfloat16_rn(fp4::decode_e4m3(i));
     memcpy(&luts[i], &sv, 2);
   }
-  // A's tensor scale from the prologue's partial maxima (each warp alike)
+  // A's tensor scale from the given |A| max, or from the prologue's
+  // partial maxima (each warp alike)
   float ts = 1.0f;
   if (qa.two_level) {
-    float m = fmaxf(parts[lane], parts[lane + 32]);
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    float m;
+    if (a_amax) {
+      m = *a_amax;
+    } else {
+      m = fmaxf(parts[lane], parts[lane + 32]);
+      for (int off = 16; off > 0; off >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    }
     ts = fp4::tensor_scale_pow2(m, qa.ts_denom);
   }
   {
@@ -524,7 +535,8 @@ k4_gemv_kernel(const void* __restrict__ a, int a_bf16,
 template <int MR>
 int launch_gemv(const void* a, int a_bf16, const uint32_t* a_rbits,
                 const fp4::QuantParams& qa, int block_a, float* parts,
-                const float* tsb, const uint8_t* bp, const uint8_t* bs,
+                const float* a_amax, const float* tsb, const uint8_t* bp,
+                const uint8_t* bs,
                 float* part, int* counters, void* out, int out_bf16, int M,
                 int N, int K, int block_b, int splits, int ks,
                 cudaStream_t stream) {
@@ -537,10 +549,11 @@ int launch_gemv(const void* a, int a_bf16, const uint32_t* a_rbits,
                                    reinterpret_cast<uintptr_t>(bs)) & 15) == 0;
   const dim3 grid((N + GV_NT - 1) / GV_NT, splits, (M + MR - 1) / MR);
   k4_gemv_prologue_kernel<<<GV_PARTS, 256, 0, stream>>>(
-      a, a_bf16, size_t(M) * K, qa.two_level, parts, counters,
+      a, a_bf16, size_t(M) * K, qa.two_level && !a_amax, parts, counters,
       int(grid.x * grid.z));
   k4_gemv_kernel<MR><<<grid, GV_THREADS, smem, stream>>>(
-      a, a_bf16, a_rbits, qa, block_a, parts, tsb, bp, bs, part, counters,
+      a, a_bf16, a_rbits, qa, block_a, parts, a_amax, tsb, bp, bs, part,
+      counters,
       out, out_bf16, M, N, K, block_b, ks, vec);
   return int(cudaGetLastError());
 }
@@ -620,11 +633,16 @@ k4_dequant_t_kernel(const uint8_t* __restrict__ bp,
 // route 1 "core": ws_a uint32 (1) + f32 (1): |A| max and tensor scale;
 //   ws_b bf16 (M, K) A'; ws_c bf16 (N, K) B'; K % 8 == 0, 16-byte aligned.
 // route 2 "f32": ws_a as "core"; ws_b f32 (M, K) A'.
+// a_amax: null, or a device f32 holding the |A| max to derive A's tensor
+// scale from (a row-parallel shard's global max), in place of every
+// route's own absmax pass.  The GEMV's split plan (splits, ks) comes from
+// the caller (fp4_matmul.py: k4_gemv_plan).
 // Returns a cudaError_t.
 extern "C" int fp4_packed_matmul(const void* a, int a_bf16,
                                  const uint8_t* b_packed,
                                  const uint8_t* b_scales, const float* tsb,
-                                 const uint32_t* a_rbits, int M, int N, int K,
+                                 const uint32_t* a_rbits,
+                                 const float* a_amax, int M, int N, int K,
                                  int block_a, int block_b,
                                  const fp4::QuantParams* qa, int route,
                                  int splits, int ks, void* ws_a, void* ws_b,
@@ -635,22 +653,26 @@ extern "C" int fp4_packed_matmul(const void* a, int a_bf16,
     auto* ctr = static_cast<int*>(ws_b);
     auto* part = static_cast<float*>(ws_c);
     return M <= 8 ? launch_gemv<8>(a, a_bf16, a_rbits, *qa, block_a, parts,
-                                   tsb, b_packed, b_scales, part, ctr, out,
-                                   out_bf16, M, N, K, block_b, splits, ks,
-                                   stream)
+                                   a_amax, tsb, b_packed, b_scales, part, ctr,
+                                   out, out_bf16, M, N, K, block_b, splits,
+                                   ks, stream)
                   : launch_gemv<16>(a, a_bf16, a_rbits, *qa, block_a, parts,
-                                    tsb, b_packed, b_scales, part, ctr, out,
-                                    out_bf16, M, N, K, block_b, splits, ks,
-                                    stream);
+                                    a_amax, tsb, b_packed, b_scales, part,
+                                    ctr, out, out_bf16, M, N, K, block_b,
+                                    splits, ks, stream);
   }
-  auto* amax = static_cast<unsigned int*>(ws_a);
+  // a given |A| max is read as the bits the absmax pass would have written
+  // (a non-negative float orders like its bit pattern)
+  auto* amax = a_amax ? reinterpret_cast<unsigned int*>(
+                            const_cast<float*>(a_amax))
+                      : static_cast<unsigned int*>(ws_a);
   float* tsa = static_cast<float*>(ws_a) + 1;
   if (route == 1) {
     auto* aq = static_cast<__nv_bfloat16*>(ws_b);
     auto* bq = static_cast<__nv_bfloat16*>(ws_c);
     const fp4::SrBits sr{a_rbits, 0u, 0u, 0u, 0};
     fp4::quantize_operand_to(a, a_bf16, sr, size_t(M), size_t(K), block_a, 0,
-                             0, *qa, amax, tsa, aq, stream);
+                             0, *qa, amax, tsa, aq, stream, a_amax != nullptr);
     const int vec = N % 32 == 0 &&
                     ((reinterpret_cast<uintptr_t>(b_packed) |
                       reinterpret_cast<uintptr_t>(b_scales)) & 15) == 0;
@@ -662,7 +684,7 @@ extern "C" int fp4_packed_matmul(const void* a, int a_bf16,
   }
   auto* aq = static_cast<float*>(ws_b);
   fp4::quantize_operand(a, a_bf16, a_rbits, size_t(M), size_t(K), block_a, 0,
-                        *qa, amax, tsa, aq, stream);
+                        *qa, amax, tsa, aq, stream, a_amax != nullptr);
   constexpr int BM = 64, BN = 64, BK = 32;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   packed_gemm_kernel<BM, BN, BK, 4, 4><<<grid, (BM / 4) * (BN / 4), 0,

@@ -47,16 +47,19 @@ _I = ctypes.c_int
 
 
 def _quantized_operand(x: torch.Tensor, spec: BlockQuantSpec,
-                       rbits: Optional[torch.Tensor],
-                       along_rows: bool) -> tuple:
+                       rbits: Optional[torch.Tensor], along_rows: bool,
+                       amax: Optional[torch.Tensor] = None) -> tuple:
     """(code * scale in f32, tensor scale) of a 2-D operand blocked along
     its columns (A) or its rows (B), in the TPU kernel's order of operations
-    (fp4_matmul.py:90-131)."""
+    (fp4_matmul.py:90-131); the tensor scale from ``amax`` where given, else
+    from the operand's own |max|."""
     xf = x.to(torch.float32)
     if along_rows:
         xf = xf.T
         rbits = None if rbits is None else rbits.T
-    ts = _tensor_scale(torch.amax(torch.abs(xf)), spec)
+    if amax is None:
+        amax = torch.amax(torch.abs(xf))
+    ts = _tensor_scale(amax.to(torch.float32).reshape(()), spec)
     codes, scales = quant_blocks(xf, spec, ts, rbits)
     deq = (codes * scales.unsqueeze(-1)).reshape(xf.shape)
     return (deq.T if along_rows else deq), ts
@@ -67,12 +70,16 @@ def packed_block_matmul_plain(a: torch.Tensor, b_packed: torch.Tensor,
                               spec_a: BlockQuantSpec = NVFP4, *,
                               block_b: int = 16,
                               a_rbits: Optional[torch.Tensor] = None,
-                              out_dtype=torch.float32) -> torch.Tensor:
+                              out_dtype=torch.float32,
+                              a_amax: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch, in the TPU kernel's order
-    of operations (fp4_matmul.py:90-108, 242-254)."""
+    of operations (fp4_matmul.py:90-108, 242-254); ``a_amax`` as in
+    ``packed_block_matmul``."""
     M, K = a.shape
     N = b_packed.shape[1] * 2
-    ad, tsa = _quantized_operand(a, spec_a, a_rbits, along_rows=False)
+    ad, tsa = _quantized_operand(a, spec_a, a_rbits, along_rows=False,
+                                 amax=a_amax)
     if b_scales.dtype == torch.float8_e4m3fn:
         bsc = c.decode_e4m3_byte_k(b_scales.view(torch.uint8))
     else:
@@ -113,14 +120,17 @@ def k4_route(M: int, spec_a: BlockQuantSpec) -> str:
     return "gemv" if M <= K4_GEMV_MAX_M else "core"
 
 
-def k4_gemv_plan(N: int, K: int, block_a: int = 16) -> Tuple[int, int]:
+def k4_gemv_plan(N: int, K: int, block_a: int = 16,
+                 plan_n: Optional[int] = None) -> Tuple[int, int]:
     """(splits, rows per split) of the GEMV's K dimension, from static
     shapes alone: enough splits that the column tiles x splits fill
     ``K4_GEMV_BLOCKS`` blocks, ranges of at most ``K4_GEMV_MAX_ROWS`` rows
     in multiples of ``K4_GEMV_ROWS`` and of A's block (a block of A
-    quantizes its own slice)."""
+    quantizes its own slice).  ``plan_n``: plan for that many columns
+    instead of N -- a column-parallel shard of N/tp columns takes the full
+    N's plan, so each of its columns sums in the 1-device order."""
     unit = K4_GEMV_ROWS * block_a // math.gcd(K4_GEMV_ROWS, block_a)
-    tiles = -(-N // K4_GEMV_COLS)
+    tiles = -(-(N if plan_n is None else plan_n) // K4_GEMV_COLS)
     want = max(-(-K4_GEMV_BLOCKS // tiles), -(-K // K4_GEMV_MAX_ROWS))
     want = min(want, -(-K // unit))
     ks = -(-(-(-K // want)) // unit) * unit
@@ -136,14 +146,15 @@ def _lib():
     lib = _build.library("fp4_matmul")
     fn = lib.fp4_packed_matmul
     if fn.argtypes is None:
-        fn.argtypes = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        fn.argtypes = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        ctypes.POINTER(_QuantParams), _I, _I, _I, _P, _P, _P,
                        _P, _I, _P]
         fn.restype = _I
     return fn
 
 
-def _check(a, b_packed, b_scales, spec_a, block_b, a_rbits, out_dtype):
+def _check(a, b_packed, b_scales, spec_a, block_b, a_rbits, out_dtype,
+           a_amax=None, plan_n=None):
     M, K = a.shape
     K2, half_n = b_packed.shape
     N = 2 * half_n
@@ -161,6 +172,12 @@ def _check(a, b_packed, b_scales, spec_a, block_b, a_rbits, out_dtype):
         raise ValueError("spec_a stochastic requires a_rbits of a.shape")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype {out_dtype} not supported")
+    if a_amax is not None and (a_amax.dtype != torch.float32
+                               or a_amax.numel() != 1
+                               or a_amax.device != a.device):
+        raise ValueError("a_amax must be one f32 value on a's device")
+    if plan_n is not None and plan_n < N:
+        raise ValueError(f"plan_n={plan_n} < N={N}")
     return M, N, K
 
 
@@ -169,28 +186,39 @@ def packed_block_matmul(a: torch.Tensor, b_packed: torch.Tensor,
                         spec_a: BlockQuantSpec = NVFP4, *,
                         block_b: int = 16,
                         a_rbits: Optional[torch.Tensor] = None,
-                        out_dtype=torch.float32) -> torch.Tensor:
+                        out_dtype=torch.float32,
+                        a_amax: Optional[torch.Tensor] = None,
+                        plan_n: Optional[int] = None) -> torch.Tensor:
     """(M, K) activation x packed (K, N) weight -> (M, N) in ``out_dtype``.
 
     ``b_packed``: (K, N/2) uint8 nibble pairs packed along N; ``b_scales``:
     (K/block_b, N) float8_e4m3fn; ``b_tscale``: f32 scalar tensor.  A is
     quantized on the fly with ``spec_a`` (blocks along K); its tensor scale
     stays on the device.  On the card the route is ``k4_route(M, spec_a)``.
+
+    The tensor-parallel forms (``tp_fp4_matmul``): ``a_amax``, a one-value
+    f32 tensor on a's device holding the |A| max to take A's tensor scale
+    from (a row-parallel shard's GLOBAL max; A's block scales stay its own,
+    K a multiple of A's block), in place of the route's own absmax pass;
+    ``plan_n``: the GEMV route splits K as for ``plan_n`` columns
+    (``k4_gemv_plan``).  Absent, neither changes a result or a route.
     """
     M, N, K = _check(a, b_packed, b_scales, spec_a, block_b, a_rbits,
-                     out_dtype)
+                     out_dtype, a_amax, plan_n)
     if a.device.type == "cpu":
         return packed_block_matmul_plain(
             a, b_packed, b_scales, b_tscale, spec_a, block_b=block_b,
-            a_rbits=a_rbits, out_dtype=out_dtype)
+            a_rbits=a_rbits, out_dtype=out_dtype, a_amax=a_amax)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
     return _k4_launch(a, b_packed, b_scales, b_tscale, spec_a, block_b,
-                      a_rbits, out_dtype, k4_route(M, spec_a))
+                      a_rbits, out_dtype, k4_route(M, spec_a), a_amax,
+                      plan_n)
 
 
 def _k4_launch(a, b_packed, b_scales, b_tscale, spec_a, block_b, a_rbits,
-               out_dtype, route: str) -> torch.Tensor:
+               out_dtype, route: str, a_amax=None,
+               plan_n: Optional[int] = None) -> torch.Tensor:
     """K4 on CUDA tensors by ``route``, on operands that passed ``_check``:
     what ``packed_block_matmul`` runs after ``k4_route``; chip_smoke.py
     times both routes through it to find the crossover."""
@@ -217,7 +245,7 @@ def _k4_launch(a, b_packed, b_scales, b_tscale, spec_a, block_b, a_rbits,
     # one workspace, carved into (a, b, c) as csrc/fp4_matmul.cu documents
     splits = ks = 0
     if route == "gemv":
-        splits, ks = k4_gemv_plan(N, K, spec_a.block)
+        splits, ks = k4_gemv_plan(N, K, spec_a.block, plan_n)
         ctr = -(-N // K4_GEMV_COLS) * -(-M // 16)
         sizes = (256, _round_up(4 * ctr, 16), 4 * splits * M * N)
     elif route == "core":
@@ -230,7 +258,9 @@ def _k4_launch(a, b_packed, b_scales, b_tscale, spec_a, block_b, a_rbits,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib()(a.data_ptr(), int(a.dtype == torch.bfloat16),
                  b_packed.data_ptr(), b_scales.data_ptr(),
-                 b_tscale.data_ptr(), rb_ptr, M, N, K, spec_a.block, block_b,
+                 b_tscale.data_ptr(), rb_ptr,
+                 None if a_amax is None else a_amax.data_ptr(), M, N, K,
+                 spec_a.block, block_b,
                  ctypes.byref(_QuantParams.of(spec_a)),
                  K4_ROUTES.index(route), splits, ks, p0, p0 + sizes[0],
                  p0 + sizes[0] + sizes[1], out.data_ptr(),
@@ -244,14 +274,97 @@ def _k4_launch(a, b_packed, b_scales, b_tscale, spec_a, block_b, a_rbits,
 def packed_matmul(a: torch.Tensor, w: PackedQuantizedTensor,
                   spec_a: BlockQuantSpec = NVFP4, *,
                   a_rbits: Optional[torch.Tensor] = None,
-                  out_dtype=torch.float32) -> torch.Tensor:
+                  out_dtype=torch.float32,
+                  a_amax: Optional[torch.Tensor] = None,
+                  plan_n: Optional[int] = None) -> torch.Tensor:
     """``packed_block_matmul`` on a (K, N) ``PackedQuantizedTensor``."""
     if w.ndim != 2 or w.axis != -2:
         raise ValueError(f"packed weight must be (K, N) blocked along K, got "
                          f"shape {w.shape}, axis {w.axis}")
     return packed_block_matmul(a, w.packed, w.scales, w.tscale, spec_a,
                                block_b=w.block, a_rbits=a_rbits,
-                               out_dtype=out_dtype)
+                               out_dtype=out_dtype, a_amax=a_amax,
+                               plan_n=plan_n)
+
+
+# ---- the tensor-parallel form (mesh-native serving) -------------------------------
+#
+# The explicit Megatron decomposition of the packed FQT matmul, the
+# counterpart of ``repro/kernels/fp4_matmul.py::tp_fp4_matmul`` (:351-412).
+# The reference writes it as a shard_map over full operands; here every rank
+# is a process holding its own shards (``distributed/sharding.py``):
+#
+#   column: W sharded on N -- K4 on the full activation and the local N
+#     columns, with the full N's GEMV plan (so every column sums in the
+#     1-device order), no collective;
+#   row: activation and W sharded on K -- K4 on the local K columns with
+#     the GLOBAL |A| max (the reference quantizes outside its shard_map, over
+#     the full K), f32 out, one all-reduce of the partial products, the cast.
+#
+# ``gather_axis``: the weight is also sharded over that axis (FSDP) and its
+# packed wire format is all-gathered first (``allgather_packed``).
+
+
+def tp_fp4_matmul(x: torch.Tensor, w: PackedQuantizedTensor, *, cfg, mesh,
+                  seed: Optional[int] = None, parallel: str = "column",
+                  axis: str = "model", gather_axis: Optional[str] = None,
+                  gather_dim: int = 0) -> torch.Tensor:
+    """Tensor-parallel packed FQT matmul on this rank's shards.
+
+    column: x (..., K) full, w this rank's (K, N/tp) -> (..., N/tp).
+    row: x (..., K/tp) and w (K/tp, N) this rank's -> (..., N), the sum over
+    the ``axis`` ranks, the same bits on each of them.  ``w`` is a 2-D
+    ``PackedQuantizedTensor`` (blocked along K); with ``gather_axis`` it is
+    also split on its ``gather_dim`` over that axis and gathered first.
+    ``seed``: the call's SR seed; an SR ``fwd_a`` draws the bits of the
+    full activation and takes this rank's columns (row)."""
+    from repro_torch.core import fqt
+    from repro_torch.distributed.compression import allgather_packed
+    if not isinstance(w, PackedQuantizedTensor) or w.ndim != 2:
+        raise ValueError("tp_fp4_matmul needs a 2D PackedQuantizedTensor")
+    if parallel not in ("column", "row"):
+        raise ValueError(f"parallel={parallel!r}")
+    if gather_axis:
+        w = allgather_packed(w, mesh, gather_axis, dim=gather_dim)
+    K_loc, N_loc = w.shape
+    if x.shape[-1] != K_loc:
+        raise ValueError(f"contraction mismatch: {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)}")
+    tp = mesh.axis_size(axis)
+    K = K_loc * tp if parallel == "row" else K_loc
+    seed = 0 if seed is None else int(seed) & fqt.M32
+    lead = tuple(x.shape[:-1])
+    x2 = x.reshape(-1, K_loc).contiguous()
+    fwd_a = fqt._if_divisible(cfg.fwd_a, K)
+    if fwd_a is not None and (w.axis != -2 or fwd_a.block != w.block
+                              or K_loc % fwd_a.block):
+        raise ValueError(f"fwd_a block {fwd_a.block} does not fit the "
+                         f"packed weight (block {w.block}) and the shard's "
+                         f"K={K_loc}")
+    if parallel == "column":
+        if fwd_a is None:
+            y = fqt._matmul_f32(x2, w.dequant())
+        else:
+            rb = (fqt._site_bits(x.shape, seed, 0, x.device).reshape(-1, K)
+                  if fwd_a.stochastic else None)
+            y = packed_matmul(x2, w, fwd_a, a_rbits=rb, out_dtype=x.dtype,
+                              plan_n=N_loc * mesh.axis_size(axis))
+        return y.to(x.dtype).reshape(lead + (N_loc,))
+    if fwd_a is None:
+        y = fqt._matmul_f32(x2, w.dequant())
+    else:
+        amax = torch.amax(torch.abs(x2.to(torch.float32))).reshape(1)
+        mesh.all_reduce(amax, axis, op="max")
+        rb = None
+        if fwd_a.stochastic:
+            r = mesh.axis_index(axis)
+            full = fqt._site_bits(lead + (K,), seed, 0, x.device)
+            rb = full.reshape(-1, K)[:, r * K_loc:(r + 1) * K_loc] \
+                .contiguous()
+        y = packed_matmul(x2, w, fwd_a, a_rbits=rb, out_dtype=torch.float32,
+                          a_amax=amax)
+    mesh.all_reduce(y, axis, op="sum")
+    return y.to(x.dtype).reshape(lead + (N_loc,))
 
 
 # ---- K1: fused_quant_matmul ------------------------------------------------------

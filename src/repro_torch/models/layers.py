@@ -48,21 +48,30 @@ class QCtx:
     """Quantization context: the static QuantConfig and a per-call SR seed
     stream.  A fresh QCtx is made per (layer, step); each ``dense`` call
     gets its own seed ``seed + n * 40503`` (uint32), in call order, so a
-    recomputed (rematerialised) layer draws the same streams."""
+    recomputed (rematerialised) layer draws the same streams.
 
-    def __init__(self, qcfg: QuantConfig, seed: int = 0):
+    ``mesh``: the serving mesh whose shards the weights are
+    (``distributed/mesh.py``); ``dense(..., kind=)`` names the weight's
+    sharding rule ("io" column-parallel, "oi" row-parallel, "d_vocab" the
+    lm_head), which picks the Megatron form on a multi-rank mesh."""
+
+    def __init__(self, qcfg: QuantConfig, seed: int = 0, mesh=None):
         self.qcfg = qcfg
         self.seed = int(seed) & M32
+        self.mesh = mesh
         self._n = 0
 
     def fold(self, idx: int) -> "QCtx":
         """Child context for layer/expert ``idx``."""
-        return QCtx(self.qcfg, (self.seed + int(idx) * 2654435761) & M32)
+        return QCtx(self.qcfg, (self.seed + int(idx) * 2654435761) & M32,
+                    self.mesh)
 
-    def dense(self, x: torch.Tensor, w, b: Optional[torch.Tensor] = None):
+    def dense(self, x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
+              kind: Optional[str] = None):
         s = (self.seed + self._n * 40503) & M32
         self._n += 1
-        return fqt.dense(x, w, b, cfg=self.qcfg, seed=s)
+        return fqt.dense(x, w, b, cfg=self.qcfg, seed=s, mesh=self.mesh,
+                         kind=kind)
 
     def dense_hp(self, x: torch.Tensor, w: torch.Tensor,
                  b: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -123,9 +132,24 @@ class _EmbedLookup(torch.autograd.Function):
         return onehot.T @ g2, None
 
 
-def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 mesh=None) -> torch.Tensor:
     """Rows of the embedding ``table`` (V, d) at ``tokens``; differentiable
-    in ``table`` with a deterministic backward (``_EmbedLookup``)."""
+    in ``table`` with a deterministic backward (``_EmbedLookup``).
+
+    Under a multi-rank serving ``mesh`` the table is this rank's shard
+    (vocab on "model", d on "data": the rule "vocab_d"): the d split is
+    gathered, then each rank looks up the tokens of its vocabulary range
+    (zeros for the others) and the rows are summed over "model" -- exact,
+    as every other rank adds zeros."""
+    if mesh is not None and mesh.size > 1:
+        table = mesh.all_gather(table, "data", dim=1)
+        v_loc = table.shape[0]
+        local = tokens - mesh.axis_index("model") * v_loc
+        mine = (local >= 0) & (local < v_loc)
+        rows = table[torch.clamp(local, 0, v_loc - 1)]
+        rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+        return mesh.all_reduce(rows, "model")
     if table.requires_grad and torch.is_grad_enabled():
         return _EmbedLookup.apply(table, tokens)
     return table[tokens]
@@ -540,6 +564,11 @@ class PagedKVCache:
     block: int = 16
     page_size: int = 16
 
+    # the pools' KV-heads axis, which a serving mesh splits over "model"
+    # (distributed/sharding.serve_cache_shardings): each rank holds the
+    # pages of the heads it attends with
+    HEADS_AXIS = -2
+
     @property
     def n_slots(self) -> int:
         return self.page_table.shape[0]
@@ -829,9 +858,9 @@ def attn_apply(p, x: torch.Tensor, ctx: QCtx, *, n_heads: int, n_kv: int,
     dev = x.device
     src = x if xkv is None else xkv
     Sk = src.shape[1]
-    q = ctx.dense(x, p["wq"], p.get("bq")).reshape(B, S, n_heads, hd)
-    k = ctx.dense(src, p["wk"], p.get("bk")).reshape(B, Sk, n_kv, hd)
-    v = ctx.dense(src, p["wv"], p.get("bv")).reshape(B, Sk, n_kv, hd)
+    q = ctx.dense(x, p["wq"], p.get("bq"), "io").reshape(B, S, n_heads, hd)
+    k = ctx.dense(src, p["wk"], p.get("bk"), "io").reshape(B, Sk, n_kv, hd)
+    v = ctx.dense(src, p["wv"], p.get("bv"), "io").reshape(B, Sk, n_kv, hd)
     if "q_norm" in p:
         q = rmsnorm(q, p["q_norm"], norm_eps)
         k = rmsnorm(k, p["k_norm"], norm_eps)
@@ -840,7 +869,8 @@ def attn_apply(p, x: torch.Tensor, ctx: QCtx, *, n_heads: int, n_kv: int,
             raise ValueError("cross-attention writes no KV cache")
         o = _attn_fresh(q, k, v, causal=False, window=window, chunk=chunk,
                         serving=serving)
-        return ctx.dense(o.reshape(B, S, n_heads * hd), p["wo"]), None
+        return ctx.dense(o.reshape(B, S, n_heads * hd), p["wo"],
+                         kind="oi"), None
     paged = isinstance(cache, PagedKVCache)
     if paged and slot is not None:
         positions = dyn_rows(0 if pfx is None else pfx, S, dev).to(
@@ -883,7 +913,7 @@ def attn_apply(p, x: torch.Tensor, ctx: QCtx, *, n_heads: int, n_kv: int,
         else:
             o = _attn_decode_dense(q, cache.k, cache.v, pos, causal=causal,
                                    window=window)
-    out = ctx.dense(o.reshape(B, S, n_heads * hd), p["wo"])
+    out = ctx.dense(o.reshape(B, S, n_heads * hd), p["wo"], kind="oi")
     return out, cache
 
 
@@ -979,13 +1009,14 @@ def mlp_apply(p, x: torch.Tensor, ctx: QCtx, act: str) -> torch.Tensor:
     GELU in f32 as XLA computes it (``refnum.Gelu``), cast to x's dtype,
     then the biased ``w_out`` GEMM."""
     if act == "gelu":
-        h = refnum.Gelu.apply(ctx.dense(x, p["w_in"], p["b_in"]).to(
+        h = refnum.Gelu.apply(ctx.dense(x, p["w_in"], p["b_in"], "io").to(
             torch.float32))
-        return ctx.dense(h.to(x.dtype), p["w_out"], p["b_out"])
-    g = ctx.dense(x, p["w_gate"])
-    u = ctx.dense(x, p["w_up"])
+        return ctx.dense(h.to(x.dtype), p["w_out"], p["b_out"], "oi")
+    g = ctx.dense(x, p["w_gate"], kind="io")
+    u = ctx.dense(x, p["w_up"], kind="io")
     if act == "smooth_swiglu":
-        return ctx.dense(smooth_swiglu(g, u, p["smooth"]), p["w_down"])
+        return ctx.dense(smooth_swiglu(g, u, p["smooth"]), p["w_down"],
+                         kind="oi")
     if act == "swiglu":
-        return ctx.dense(swiglu(g, u), p["w_down"])
+        return ctx.dense(swiglu(g, u), p["w_down"], kind="oi")
     raise ValueError(f"unknown activation {act!r}")

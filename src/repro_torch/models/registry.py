@@ -20,6 +20,11 @@ serve in lockstep only: they prefill by a loop of decode steps (the
 reference's ``lax.scan``).  The continuous-batching entries serve dense and
 moe, and ``prefill_slot`` the whisper decoder too; every other family
 raises, with the reference's reasons.
+
+Under a serving mesh of more than one rank (``mesh=``, this rank's view:
+``distributed/mesh.py``) the serving entries run the dense family on this
+rank's shards (``check_mesh``); the other families raise
+``NotImplementedError`` naming the module still to port.
 """
 from __future__ import annotations
 
@@ -48,6 +53,31 @@ def _module(cfg: ModelConfig):
         return whisper
     transformer.check_family(cfg)
     return transformer
+
+
+# the module each family still needs before it serves on a multi-rank mesh
+_MESH_TODO = {
+    "moe": "models/moe.py under a mesh (expert-parallel dispatch)",
+    "vlm": "the vlm prefix under a mesh (models/transformer.py "
+           "prefix_embeds)",
+    "hybrid": "models/mamba2.py under a mesh (SSM heads over 'model')",
+    "ssm": "models/xlstm.py under a mesh",
+    "encdec": "models/whisper.py under a mesh (encoder, cross-attention, "
+              "its biases)",
+}
+
+
+def check_mesh(cfg: ModelConfig, mesh) -> None:
+    """A multi-rank serving mesh serves the dense family, whose heads split
+    evenly over "model"; any other family raises ``NotImplementedError``."""
+    if mesh is None or mesh.size == 1:
+        return
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"serving {cfg.family!r} on a mesh of {mesh.size} ranks needs "
+            f"{_MESH_TODO[cfg.family]}, not yet ported; the port serves the "
+            f"dense family on a mesh")
+    transformer.local_heads(cfg, mesh)
 
 
 def _paged_only(cfg: ModelConfig, what: str, why: str):
@@ -105,7 +135,8 @@ def forward(params, cfg: ModelConfig, qcfg: QuantConfig, batch, *,
 def make_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       dtype=torch.bfloat16, kv_cache_format: str = "bf16",
                       page_size: Optional[int] = None,
-                      total_pages: Optional[int] = None, device=None):
+                      total_pages: Optional[int] = None, device=None,
+                      mesh=None):
     """Empty per-layer KV caches: bf16, or block-quantized "nvfp4"/"fp8";
     with ``page_size``, ``PagedKVCache``s over a shared page pool with
     per-slot lengths (continuous batching; ``total_pages`` sizes the pool,
@@ -114,7 +145,9 @@ def make_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     hybrid: (the stacked Mamba states, one cache per application of the
     shared block); ssm: the per-layer recurrent states, which stay f32 (no
     KV cache); encdec: (the encoder output (B, enc_seq, d), the decoder's
-    caches), allocated once and written in place by the prefills."""
+    caches), allocated once and written in place by the prefills.  Under a
+    serving ``mesh`` the caches hold this rank's KV heads."""
+    check_mesh(cfg, mesh)
     dev = resolve_device(device)
     if cfg.family == "encdec":
         return (torch.zeros((batch, cfg.enc_seq, cfg.d_model), dtype=dtype,
@@ -132,7 +165,7 @@ def make_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     transformer.check_family(cfg)
     return transformer.init_cache(cfg, batch, max_len, dtype,
                                   kv_cache_format, page_size, total_pages,
-                                  device=dev)
+                                  device=dev, mesh=mesh)
 
 
 def reset_decode_state(carry) -> None:
@@ -156,14 +189,16 @@ def reset_decode_state(carry) -> None:
 
 
 def prefill(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, carry, *,
-            extras=None):
+            extras=None, mesh=None):
     """Fill the decode carry from a prompt.  Returns (last_logits, carry).
     The recurrent families run one decode step per prompt token (the
     reference's ``lax.scan`` of ``decode_step``; no chunk-parallel
     prefill), updating the carry in place.  encdec encodes
     ``extras["frames"]`` (zeros where none are given) into the carry's
     encoder output, in place; vlm prefills ``extras["prefix_embeds"]``
-    before the prompt."""
+    before the prompt.  ``mesh``: the serving mesh of the shards (every
+    serving entry below takes it; ``check_mesh``)."""
+    check_mesh(cfg, mesh)
     extras = extras or {}
     if cfg.family in _RECURRENT:
         for t in range(tokens.shape[1]):
@@ -181,14 +216,15 @@ def prefill(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, carry, *,
     transformer.check_family(cfg)
     logits, carry = transformer.prefill(
         params, cfg, qcfg, tokens, carry,
-        prefix_embeds=extras.get("prefix_embeds"))
+        prefix_embeds=extras.get("prefix_embeds"), mesh=mesh)
     return logits[:, -1], carry
 
 
 def decode_step(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, carry,
-                *, seed: int = 0, write_mask=None):
+                *, seed: int = 0, write_mask=None, mesh=None):
     """``write_mask`` ((B,) bool): paged caches only -- slots mid-chunked-
     prefill write to the trash page and keep their length."""
+    check_mesh(cfg, mesh)
     mod = _module(cfg)
     if write_mask is not None and mod is not transformer:
         raise NotImplementedError(
@@ -197,11 +233,13 @@ def decode_step(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, carry,
     if mod is not transformer:
         return mod.decode_step(params, cfg, qcfg, tokens, carry, seed=seed)
     return transformer.decode_step(params, cfg, qcfg, tokens, carry,
-                                   seed=seed, write_mask=write_mask)
+                                   seed=seed, write_mask=write_mask,
+                                   mesh=mesh)
 
 
 def prefill_slot(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
-                 carry, slot, plen, *, seed: int = 0, extras=None):
+                 carry, slot, plen, *, seed: int = 0, extras=None,
+                 mesh=None):
     """Prefill ONE slot of a paged carry from a right-padded (1, Sp)
     prompt.  ``slot``/``plen``: host ints or int32 device scalars, as the
     reference takes ints or traced values.  Returns (logits (1, V),
@@ -209,6 +247,7 @@ def prefill_slot(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
     none are given) and writes it to ``enc_out[slot]`` in place.  The
     other families raise with the reference's reason: a right-padded
     static prefill would absorb the pad tokens into a recurrent state."""
+    check_mesh(cfg, mesh)
     if cfg.family == "encdec":
         enc_out, caches = carry
         enc_slot = whisper.encode(params, cfg, qcfg, _frames(
@@ -222,11 +261,11 @@ def prefill_slot(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
     _paged_only(cfg, "prefill_slot", "not supported (recurrent state "
                 "cannot be prefilled from a right-padded static shape)")
     return transformer.prefill_slot(params, cfg, qcfg, tokens, carry, slot,
-                                    plen, seed=seed)
+                                    plen, seed=seed, mesh=mesh)
 
 
 def prefill_suffix(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
-                   carry, slot, plen, pfx, *, seed: int = 0):
+                   carry, slot, plen, pfx, *, seed: int = 0, mesh=None):
     """Prefill ONE slot from a right-padded (1, Sp) prompt SUFFIX whose
     first ``pfx`` tokens are cached in shared prefix pages (``slot``/
     ``plen``/``pfx``: host ints or int32 device scalars).  Returns (logits
@@ -235,31 +274,34 @@ def prefill_suffix(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
     families have no pageable cache to share."""
     _paged_only(cfg, "prefill_suffix", "cannot share prefix pages (K/V "
                 "are not a pure function of the prompt prefix)")
+    check_mesh(cfg, mesh)
     return transformer.prefill_suffix(params, cfg, qcfg, tokens, carry,
-                                      slot, plen, pfx, seed=seed)
+                                      slot, plen, pfx, seed=seed, mesh=mesh)
 
 
 def prefill_chunk(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
-                  carry, slot, off, *, seed: int = 0):
+                  carry, slot, off, *, seed: int = 0, mesh=None):
     """Write one FULL intermediate chunk (1, C) of a prompt into a paged
     slot at [off, off + C) (``slot``/``off``: host ints or int32 device
     scalars).  Returns the carry.  Dense and moe only."""
     _paged_only(cfg, "prefill_chunk", "cannot prefill through the paged "
                 "cache (K/V are not a pure function of the prompt prefix)")
+    check_mesh(cfg, mesh)
     return transformer.prefill_chunk(params, cfg, qcfg, tokens, carry, slot,
-                                     off, seed=seed)
+                                     off, seed=seed, mesh=mesh)
 
 
 def verify_k(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, carry,
-             *, seed: int = 0, write_mask=None):
+             *, seed: int = 0, write_mask=None, mesh=None):
     """Teacher-forced speculative verify of (B, k) tokens over the paged
     carry.  Returns (logits (B, k, V), carry).  Dense and moe only: a
     recurrent state absorbs drafted tokens irreversibly, and the other
     families have no exactly truncatable paged carry."""
     _paged_only(cfg, "verify_k", "cannot roll back rejected drafts (no "
                 "exactly-truncatable paged cache)")
+    check_mesh(cfg, mesh)
     return transformer.verify_k(params, cfg, qcfg, tokens, carry, seed=seed,
-                                write_mask=write_mask)
+                                write_mask=write_mask, mesh=mesh)
 
 
 def draft_view(params, carry, draft_layers: int):

@@ -69,27 +69,40 @@ def init(cfg: ModelConfig, gen: torch.Generator, dtype=torch.bfloat16,
                                   device=device)
         return finish(p)
 
-    params = {
-        "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype,
-                            device=device),
+    params = finish({"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                         dtype, device=device)})
+    params.update({
         "layers": [layer() for _ in range(cfg.n_layers)],
         "ln_f": torch.ones((cfg.d_model,), dtype=dtype, device=device),
-    }
+    })
     if not cfg.tie_embeddings:
         params.update(finish({"lm_head": dense_init(
             gen, cfg.d_model, cfg.padded_vocab, dtype, device=device)}))
     return params
 
 
+def local_heads(cfg: ModelConfig, mesh=None):
+    """(query heads, KV heads) of this rank: the model's, split over the
+    mesh's "model" axis (Megatron TP shards attention by heads)."""
+    tp = 1 if mesh is None else mesh.axis_size("model")
+    if cfg.n_heads % tp or cfg.n_kv_heads % tp:
+        raise ValueError(f"{cfg.name}: {cfg.n_heads} heads / {cfg.n_kv_heads} "
+                         f"KV heads do not split over tp={tp}")
+    return cfg.n_heads // tp, cfg.n_kv_heads // tp
+
+
 def _layer_apply(cfg: ModelConfig, lp, x, seed: int, *, cache,
                  qcfg: QuantConfig, slot=None, plen=None, pfx=None,
-                 write_mask=None):
+                 write_mask=None, mesh=None):
     """One layer: (x, cache, aux), aux the moe router's auxiliary loss (a
-    zero f32 scalar for the dense family)."""
-    ctx = QCtx(qcfg, seed)
+    zero f32 scalar for the dense family).  Under a serving ``mesh`` the
+    layer's weights and cache are this rank's shards: its attention runs
+    on the local heads, norms and the residual stay replicated."""
+    ctx = QCtx(qcfg, seed, mesh)
+    n_heads, n_kv = local_heads(cfg, mesh)
     h, cache = attn_apply(
         lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps), ctx,
-        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
+        n_heads=n_heads, n_kv=n_kv, hd=cfg.hd,
         rope_theta=cfg.rope_theta, window=cfg.sliding_window,
         chunk=cfg.attn_chunk, cache=cache, slot=slot, plen=plen, pfx=pfx,
         write_mask=write_mask, norm_eps=cfg.norm_eps)
@@ -108,14 +121,15 @@ def _layer_apply(cfg: ModelConfig, lp, x, seed: int, *, cache,
 
 def apply_layers(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed=0, *,
                  caches=None, remat: bool = False, slot=None, plen=None,
-                 pfx=None, write_mask=None):
+                 pfx=None, write_mask=None, mesh=None):
     """Run the layers in order; caches (one per layer) update in place.
     Returns (x, caches, the sum of the layers' aux losses).
 
     ``remat``: each layer body runs under ``torch.utils.checkpoint`` and
     is recomputed in the backward; its QCtx is built inside the body, so
     the recompute draws the same SR streams.  ``slot``/``plen``/``pfx``/
-    ``write_mask``: the paged-cache operands of ``layers.attn_apply``."""
+    ``write_mask``: the paged-cache operands of ``layers.attn_apply``;
+    ``mesh``: the serving mesh of the weights' shards."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params["layers"]):
         s = (int(seed) + i * _SEED_STRIDE) & M32
@@ -128,22 +142,28 @@ def apply_layers(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed=0, *,
         else:
             x, _, a = _layer_apply(cfg, lp, x, s, qcfg=qcfg, cache=cache,
                                    slot=slot, plen=plen, pfx=pfx,
-                                   write_mask=write_mask)
+                                   write_mask=write_mask, mesh=mesh)
         aux = aux + a
     return x, caches, aux
 
 
-def _logits(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed=0):
+def _logits(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed=0,
+            mesh=None):
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return head(cfg, qcfg, x, w, seed)
+    return head(cfg, qcfg, x, w, seed, mesh)
 
 
-def head(cfg: ModelConfig, qcfg: QuantConfig, x, w, seed=0):
+def head(cfg: ModelConfig, qcfg: QuantConfig, x, w, seed=0, mesh=None):
     """x @ w, the LM head, under ``qcfg`` where ``cfg.quantize_lm_head``
     (else bf16) with the head's SR seed; the padded vocabulary ids get
-    -1e30."""
+    -1e30.  Under a multi-rank ``mesh`` it is column-parallel over the
+    vocabulary, and the logits are all-gathered: every rank picks from the
+    same full logits."""
     head_cfg = qcfg if cfg.quantize_lm_head else QuantConfig()
-    logits = QCtx(head_cfg, (int(seed) + 0xABCDEF) & M32).dense(x, w)
+    logits = QCtx(head_cfg, (int(seed) + 0xABCDEF) & M32, mesh).dense(
+        x, w, kind="d_vocab")
+    if mesh is not None:
+        logits = mesh.all_gather(logits, "model", dim=-1)
     if cfg.padded_vocab != cfg.vocab_size:        # mask padded ids
         pad = torch.arange(cfg.padded_vocab, device=logits.device) \
             >= cfg.vocab_size
@@ -190,11 +210,15 @@ def loss_fn(params, cfg: ModelConfig, qcfg: QuantConfig, batch, *,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, kv_format: str = "bf16",
                page_size: Optional[int] = None,
-               total_pages: Optional[int] = None, device=None) -> List:
+               total_pages: Optional[int] = None, device=None,
+               mesh=None) -> List:
     """One cache per layer.  With ``page_size``: ``PagedKVCache``s over one
     pool per layer, the slot buffer rounded up to whole pages; every layer
     shares ONE page-table tensor, and each layer's lengths are a row of
-    one (L, B) tensor."""
+    one (L, B) tensor.  Under a serving ``mesh`` each holds this rank's KV
+    heads only (the paged pools as the reference shards them; the lockstep
+    caches too, which the reference replicates: the same values, a
+    declared layout divergence)."""
     buf = max_len if cfg.sliding_window is None else min(
         max_len, cfg.sliding_window)
     shared = [{} for _ in range(cfg.n_layers)]
@@ -206,21 +230,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                               device=device)
         shared = [{"page_table": table, "lengths": lengths[i]}
                   for i in range(cfg.n_layers)]
-    return [make_kv_cache(batch, buf, cfg.n_kv_heads, cfg.hd, dtype,
+    return [make_kv_cache(batch, buf, local_heads(cfg, mesh)[1], cfg.hd,
+                          dtype,
                           kv_format, page_size=page_size,
                           total_pages=total_pages, device=device, **sh)
             for sh in shared]
 
 
 def prefill(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, caches,
-            *, prefix_embeds=None):
+            *, prefix_embeds=None, mesh=None):
     """Run the prompt (after ``prefix_embeds`` (B, P, d), if given) through
     the model, filling the (empty) caches; returns (last-token logits
-    (B, 1, V), caches)."""
-    x = _with_prefix(params["embed"][tokens], prefix_embeds)
-    x, caches, _ = apply_layers(params, cfg, qcfg, x, caches=caches)
+    (B, 1, V), caches).  ``mesh``: the serving mesh of the shards (every
+    serving entry below takes it)."""
+    x = _with_prefix(embed_lookup(params["embed"], tokens, mesh),
+                     prefix_embeds)
+    x, caches, _ = apply_layers(params, cfg, qcfg, x, caches=caches,
+                                mesh=mesh)
     x = rmsnorm(x[:, -1:], params["ln_f"], cfg.norm_eps)
-    return _logits(params, cfg, qcfg, x), caches
+    return _logits(params, cfg, qcfg, x, mesh=mesh), caches
 
 
 def _token_at(x, i):
@@ -229,67 +257,67 @@ def _token_at(x, i):
 
 
 def prefill_slot(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
-                 caches, slot, plen, *, seed=0):
+                 caches, slot, plen, *, seed=0, mesh=None):
     """Prefill ONE paged slot from a right-padded (1, Sp) prompt; ``plen``
     is the true prompt length.  ``slot`` and ``plen`` are host ints or
     int32 device scalars (dynamic operands).  Returns (logits at the last
     prompt token (1, V), caches)."""
-    x = params["embed"][tokens]
+    x = embed_lookup(params["embed"], tokens, mesh)
     x, caches, _ = apply_layers(params, cfg, qcfg, x, seed, caches=caches,
-                             slot=slot, plen=plen)
+                                slot=slot, plen=plen, mesh=mesh)
     x = rmsnorm(_token_at(x, plen - 1), params["ln_f"], cfg.norm_eps)
-    return _logits(params, cfg, qcfg, x, seed)[:, 0], caches
+    return _logits(params, cfg, qcfg, x, seed, mesh)[:, 0], caches
 
 
 def prefill_suffix(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
-                   caches, slot, plen, pfx, *, seed=0):
+                   caches, slot, plen, pfx, *, seed=0, mesh=None):
     """Prefill ONE paged slot from a right-padded (1, Sp) prompt SUFFIX
     whose first ``pfx`` tokens are already cached in the slot's pages;
     ``plen`` is the TOTAL prompt length.  The suffix rows are written at
     [pfx, plen) and the queries attend through the paged cache (K5).
     ``slot``, ``plen`` and ``pfx``: host ints or int32 device scalars.
     Returns (logits at the last prompt token (1, V), caches)."""
-    x = params["embed"][tokens]
+    x = embed_lookup(params["embed"], tokens, mesh)
     x, caches, _ = apply_layers(params, cfg, qcfg, x, seed, caches=caches,
-                             slot=slot, plen=plen, pfx=pfx)
+                                slot=slot, plen=plen, pfx=pfx, mesh=mesh)
     x = rmsnorm(_token_at(x, plen - pfx - 1), params["ln_f"], cfg.norm_eps)
-    return _logits(params, cfg, qcfg, x, seed)[:, 0], caches
+    return _logits(params, cfg, qcfg, x, seed, mesh)[:, 0], caches
 
 
 def prefill_chunk(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
-                  caches, slot, off, *, seed=0):
+                  caches, slot, off, *, seed=0, mesh=None):
     """Write ONE full intermediate (1, C) chunk of a prompt into a paged
     slot at [off, off + C), attending through the paged cache (the suffix
     machinery: chunking cannot change any value).  ``slot`` and ``off``:
     host ints or int32 device scalars.  No logits.  Returns the caches."""
-    x = params["embed"][tokens]
+    x = embed_lookup(params["embed"], tokens, mesh)
     C = x.shape[1]
     _, caches, _ = apply_layers(params, cfg, qcfg, x, seed, caches=caches,
-                             slot=slot, plen=off + C, pfx=off)
+                                slot=slot, plen=off + C, pfx=off, mesh=mesh)
     return caches
 
 
 def decode_step(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, caches,
-                *, seed=0, write_mask=None):
+                *, seed=0, write_mask=None, mesh=None):
     """One new token per sequence.  tokens: (B, 1).  Returns (logits,
     caches).  ``write_mask`` ((B,) bool, paged caches): slots mid-chunked-
     prefill write to the trash page and keep their length."""
-    x = params["embed"][tokens]
+    x = embed_lookup(params["embed"], tokens, mesh)
     x, caches, _ = apply_layers(params, cfg, qcfg, x, seed, caches=caches,
-                             write_mask=write_mask)
+                                write_mask=write_mask, mesh=mesh)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
-    return _logits(params, cfg, qcfg, x, seed), caches
+    return _logits(params, cfg, qcfg, x, seed, mesh), caches
 
 
 def verify_k(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, caches,
-             *, seed=0, write_mask=None):
+             *, seed=0, write_mask=None, mesh=None):
     """Teacher-forced verify over a speculative block: ``tokens`` (B, k),
     written at each slot's [len, len + k) and attended with per-slot causal
     positions, so row j's logits equal a sequential decode's.  Returns
     (logits (B, k, V), caches); the caller rolls rejected rows back with
     ``PagedKVCache.truncate_to``."""
     return decode_step(params, cfg, qcfg, tokens, caches, seed=seed,
-                       write_mask=write_mask)
+                       write_mask=write_mask, mesh=mesh)
 
 
 def draft_view(params, caches, draft_layers: int):

@@ -24,12 +24,22 @@ once at engine build (the K4 kernel).
     memory before the programs that read it, and reads back once, at the
     end of the tick.
 
+Both engines serve on an explicit serving mesh (``ServeConfig.mesh``, or
+a ``distributed.mesh.Mesh`` passed in), the reference's one mesh-native
+path: the default is the 1-rank mesh, whose placement is the identity.  On
+a mesh of more than one rank every rank is a process running the same
+engine on its shards (the dense family: ``registry.check_mesh``); every
+collective gives each rank the same bits, so the host state (scheduler,
+page tables, prefix cache) evolves alike everywhere.
+
 Each program is a ``serve.graphs.Program``: on the card one CUDA graph per
 static signature (``cuda_graphs=False`` runs them eagerly), on the CPU the
-eager body.  The engines keep one KV carry at fixed addresses and reset it
-in place; slot, lengths and offsets reach the programs as int32 device
-scalars.  ``ContinuousEngine`` reports each program's compile count
-(distinct signatures) as the reference does, and with a tracer emits its
+eager body.  A multi-rank mesh on the card needs ``cuda_graphs=False``:
+its collectives (gloo's, staged through the host) cannot be captured.
+The engines keep one KV carry at fixed addresses and reset it in place;
+slot, lengths and offsets reach the programs as int32 device scalars.
+``ContinuousEngine`` reports each program's compile count (distinct
+signatures) as the reference does, and with a tracer emits its
 ``jit_compile`` instants and ``jit_compiles`` counter.
 """
 from __future__ import annotations
@@ -44,6 +54,7 @@ from repro_torch._device import resolve_device
 from repro_torch.convert import tensor_from_numpy
 from repro_torch.core import fqt
 from repro_torch.core.quantize import PackedQuantizedTensor
+from repro_torch.distributed.mesh import make_serve_mesh
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import TRASH_PAGE
@@ -77,13 +88,11 @@ class ServeConfig:
     prefix_cache_pages: Optional[int] = None   # cap on cached pages (LRU)
     spec_k: Optional[int] = None        # speculative verify block (None: off)
     draft_layers: Optional[int] = None  # draft depth (default n_layers // 2)
-    mesh: Optional[str] = None          # serving mesh: not ported
-
-    def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "mesh-native serving is not ported (ROADMAP Queue 1: "
-                "distributed/sharding.py); the port serves on one device")
+    # ---- mesh-native serving --------------------------------------------
+    # "--mesh" spec ("tp=2", "dp=2,tp=2", "fsdp=2", ...) of the serving
+    # mesh both engines place their weights and KV pools under; None is the
+    # 1-rank mesh, the same code path (distributed/mesh.make_serve_mesh)
+    mesh: Optional[str] = None
 
 
 def _sample(logits: torch.Tensor, scfg: ServeConfig,
@@ -127,20 +136,23 @@ class Engine:
 
     ``cuda_graphs`` (default True): on the card each program replays as
     one CUDA graph per signature; False runs them eagerly (the comparison
-    path).  The CPU always runs them eagerly."""
+    path).  The CPU always runs them eagerly.  ``mesh``: the serving mesh
+    (default: built from ``scfg.mesh``); ``params`` are full, or this
+    rank's shards (``packing.init_packed_params(mesh=)``)."""
 
     def __init__(self, cfg: ModelConfig, params, scfg: ServeConfig,
                  qcfg: Optional[fqt.QuantConfig] = None,
                  pack_weights: bool = True, device=None,
-                 cuda_graphs: bool = True):
-        self.device = resolve_device(device)
+                 cuda_graphs: bool = True, mesh=None):
+        self.device, self.mesh, graphs = _placement(scfg, mesh, device,
+                                                    cuda_graphs)
+        registry.check_mesh(cfg, self.mesh)
         self.cfg, self.scfg = cfg, scfg
         self.qcfg, self.params = _packed(cfg, params, qcfg, pack_weights,
-                                         self.device)
+                                         self.device, self.mesh)
         self.margins: List[np.ndarray] = []   # per-step greedy margins
         self.steps = 0                        # decode steps of the last run
         self._carry = None                    # one carry, reset per run
-        graphs = cuda_graphs and self.device.type == "cuda"
         self.programs = {"prefill": Program("prefill", self._prefill_impl,
                                             graphs),
                          "decode": Program("decode", self._decode_impl,
@@ -157,7 +169,8 @@ class Engine:
                                     ("prefix_embeds", prefix_embeds))
                   if v is not None}
         logits, _ = registry.prefill(self.params, self.cfg, self.qcfg,
-                                     tokens, self._carry, extras=extras)
+                                     tokens, self._carry, extras=extras,
+                                     mesh=self.mesh)
         return logits
 
     def _decode_impl(self, tokens, done):
@@ -170,7 +183,7 @@ class Engine:
         done = done | (tokens == eos)
         logits, _ = registry.decode_step(self.params, self.cfg, self.qcfg,
                                          emit[:, None].to(torch.int64),
-                                         self._carry)
+                                         self._carry, mesh=self.mesh)
         return (emit, done) + _head(logits[:, -1], self.scfg)
 
     @torch.no_grad()
@@ -192,7 +205,8 @@ class Engine:
         if self._carry is None:
             self._carry = registry.make_decode_state(
                 cfg, scfg.batch_size, scfg.max_len,
-                kv_cache_format=scfg.kv_cache_format, device=dev)
+                kv_cache_format=scfg.kv_cache_format, device=dev,
+                mesh=self.mesh)
         else:
             registry.reset_decode_state(self._carry)
         extras = extras or {}
@@ -291,17 +305,19 @@ class ContinuousEngine:
     def __init__(self, cfg: ModelConfig, params, scfg: ServeConfig,
                  qcfg: Optional[fqt.QuantConfig] = None,
                  pack_weights: bool = True, device=None, tracer=None,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True, mesh=None):
         if cfg.family not in ("dense", "moe", "encdec"):
             raise NotImplementedError(
                 f"continuous batching serves dense/moe/encdec families; "
                 f"{cfg.family!r} stays on the lockstep Engine")
         pure = cfg.family in registry.PROMPT_PURE
-        self.device = resolve_device(device)
+        self.device, self.mesh, graphs = _placement(scfg, mesh, device,
+                                                    cuda_graphs)
+        registry.check_mesh(cfg, self.mesh)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.cfg, self.scfg = cfg, scfg
         self.qcfg, self.params = _packed(cfg, params, qcfg, pack_weights,
-                                         self.device)
+                                         self.device, self.mesh)
 
         self.n_slots = scfg.max_slots or scfg.batch_size
         psz = scfg.page_size
@@ -364,7 +380,6 @@ class ContinuousEngine:
         self._pt_host: Optional[np.ndarray] = None   # host page-table mirror
         self._pt_dirty = False
         self.margins: Dict[int, np.ndarray] = {}
-        graphs = cuda_graphs and self.device.type == "cuda"
         self.programs = {name: Program(name, body, graphs) for name, body in (
             ("prefill", self._prefill_impl),
             ("prefill_suffix", self._prefill_suffix_impl),
@@ -417,7 +432,8 @@ class ContinuousEngine:
     def _prefill_impl(self, tokens, plen, slot, frames):
         logits, _ = registry.prefill_slot(
             self.params, self.cfg, self.qcfg, tokens, self._carry, slot,
-            plen, extras=None if frames is None else {"frames": frames})
+            plen, extras=None if frames is None else {"frames": frames},
+            mesh=self.mesh)
         return _head(logits, self.scfg)
 
     def _prefill(self, tokens, plen, slot, rid: int, frames=None):
@@ -430,7 +446,7 @@ class ContinuousEngine:
     def _prefill_suffix_impl(self, tokens, plen, pfx, slot):
         logits, _ = registry.prefill_suffix(self.params, self.cfg,
                                             self.qcfg, tokens, self._carry,
-                                            slot, plen, pfx)
+                                            slot, plen, pfx, mesh=self.mesh)
         return _head(logits, self.scfg)
 
     def _prefill_suffix(self, tokens, plen, pfx, slot, rid: int):
@@ -442,7 +458,7 @@ class ContinuousEngine:
 
     def _prefill_chunk_impl(self, tokens, slot, off):
         registry.prefill_chunk(self.params, self.cfg, self.qcfg, tokens,
-                               self._carry, slot, off)
+                               self._carry, slot, off, mesh=self.mesh)
 
     def _prefill_chunk(self, tokens, slot, off) -> None:
         """Chunked prefill, intermediate chunk: write one FULL
@@ -452,7 +468,8 @@ class ContinuousEngine:
     def _decode_impl(self, tokens, mask):
         logits, _ = registry.decode_step(self.params, self.cfg, self.qcfg,
                                          tokens[:, None].to(torch.int64),
-                                         self._carry, write_mask=mask)
+                                         self._carry, write_mask=mask,
+                                         mesh=self.mesh)
         return _head(logits[:, -1], self.scfg)
 
     def _decode(self, tokens, mask, rids, steps):
@@ -483,13 +500,14 @@ class ContinuousEngine:
         for _ in range(k - 1):
             lg, _ = registry.decode_step(dparams, self._draft_cfg, self.qcfg,
                                          tok[:, None].to(torch.int64),
-                                         dcarry, write_mask=mask)
+                                         dcarry, write_mask=mask,
+                                         mesh=self.mesh)
             tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)
             blk.append(tok)
         blk = torch.stack(blk, dim=1)                          # (B, k)
         lg, _ = registry.verify_k(self.params, self.cfg, self.qcfg,
                                   blk.to(torch.int64), self._carry,
-                                  write_mask=mask)
+                                  write_mask=mask, mesh=self.mesh)
         g = torch.argmax(lg, dim=-1).to(torch.int32)           # (B, k)
         margin = _greedy_margin(lg)
         match = (g[:, :k - 1] == blk[:, 1:]).to(torch.int32)
@@ -585,7 +603,7 @@ class ContinuousEngine:
                     self.cfg, self.n_slots, scfg.max_len,
                     kv_cache_format=scfg.kv_cache_format,
                     page_size=scfg.page_size, total_pages=sched.total_pages,
-                    device=dev)
+                    device=dev, mesh=self.mesh)
             else:           # the programs hold its addresses: reset in place
                 registry.reset_decode_state(self._carry)
             self._pt_host = np.full((self.n_slots, self.n_pages_slot),
@@ -816,14 +834,37 @@ class ContinuousEngine:
         return [res[i] for i in range(len(prompts))]
 
 
+def _placement(scfg: ServeConfig, mesh, device, cuda_graphs: bool):
+    """(device, mesh, graphs) of an engine: the mesh given, or built from
+    ``scfg.mesh`` on the device; programs as CUDA graphs where asked on the
+    card.  A multi-rank mesh on the card with graphs raises: its
+    collectives cannot be captured (gloo's stage through the host, and
+    NCCL's capture cannot be checked on one card), and the engine does not
+    switch them off quietly."""
+    dev = resolve_device(device if device is not None or mesh is None
+                         else mesh.device)
+    if mesh is None:
+        mesh = make_serve_mesh(scfg.mesh, device=dev)
+    elif mesh.device.type != dev.type:
+        raise ValueError(f"mesh on {mesh.device}, engine on {dev}")
+    graphs = cuda_graphs and dev.type == "cuda"
+    if graphs and mesh.size > 1:
+        raise ValueError(
+            f"cuda_graphs=True on a mesh of {mesh.size} ranks: the mesh's "
+            f"collectives cannot be captured in a CUDA graph; pass "
+            f"cuda_graphs=False to run the programs eagerly")
+    return dev, mesh, graphs
+
+
 def _packed(cfg: ModelConfig, params, qcfg: Optional[fqt.QuantConfig],
-            pack_weights: bool, dev: torch.device):
+            pack_weights: bool, dev: torch.device, mesh):
     """(qcfg, params on ``dev``): the serving default is the paper's FP4
-    forward (``qaf_config``); GEMM weights are packed to NVFP4 once."""
+    forward (``qaf_config``); GEMM weights are packed to NVFP4 once and
+    placed under ``mesh`` (this rank's shards; the identity on 1 rank)."""
     qcfg = qcfg if qcfg is not None else fqt.qaf_config()
     spec = qcfg.fwd_w if (pack_weights and qcfg.fwd_w is not None) else None
     return qcfg, packing.pack_model_params(cfg, _to_device(params, dev),
-                                           spec)
+                                           spec, mesh=mesh)
 
 
 def _to_device(tree, dev):

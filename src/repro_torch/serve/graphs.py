@@ -108,6 +108,7 @@ class Program:
                       else lambda: body)
         self._sigs: Dict[Tuple, Optional[_Graph]] = {}
         self.capture_s: List[float] = []   # seconds of each capture
+        self.calls = 0                     # calls, eager or replayed
 
     @property
     def cache_size(self) -> int:
@@ -120,6 +121,7 @@ class Program:
 
     @torch.no_grad()
     def __call__(self, *args):
+        self.calls += 1
         sig = signature(self.name, args)
         if sig not in self._sigs:          # a new signature: the warm-up
             self._sigs[sig] = None

@@ -16,6 +16,12 @@ a time: the same tree as packing the whole bf16 init, within the memory of a
 card that could not hold that bf16 tree (qwen2.5-32b, Mixtral-8x7B); the
 recurrent families' inits pack each layer, the shared block and the lm_head
 as they are drawn in the same way.
+
+Under a serving mesh (``mesh=``) both return THIS rank's shards
+(``distributed/sharding.place_serve_params``): each weight is packed whole
+-- its tensor scale is the weight's, as on one device -- and then sliced, so
+the streaming packer holds one bf16 layer and this rank's packed slices,
+never the whole packed model.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import torch
 
 from repro_torch.core.quantize import (BlockQuantSpec, PackedQuantizedTensor,
                                        pack_quantize)
+from repro_torch.distributed import sharding
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
 
@@ -69,10 +76,7 @@ def _leaves(tree):
         yield tree
 
 
-def pack_model_params(cfg: ModelConfig, params: Any,
-                      spec: Optional[BlockQuantSpec]) -> Any:
-    """Pack every GEMM weight of ``params`` with ``spec`` (fwd_w); with
-    ``spec=None`` the tree is returned unchanged."""
+def _pack(cfg: ModelConfig, params: Any, spec: Optional[BlockQuantSpec]):
     if spec is None:
         return params
 
@@ -84,25 +88,62 @@ def pack_model_params(cfg: ModelConfig, params: Any,
     return _map(params, pack)
 
 
+def pack_model_params(cfg: ModelConfig, params: Any,
+                      spec: Optional[BlockQuantSpec], mesh=None) -> Any:
+    """Pack every GEMM weight of ``params`` with ``spec`` (fwd_w); with
+    ``spec=None`` the tree is left unpacked.  ``mesh``: return this rank's
+    shards of the tree (already-placed trees, such as
+    ``init_packed_params(mesh=)`` gives, are taken as they are)."""
+    if mesh is not None and mesh.size > 1:
+        registry.check_mesh(cfg, mesh)
+        if sharding.is_placed(params, cfg, mesh):
+            return params
+        return sharding.place_serve_params(_pack(cfg, params, spec), mesh)
+    return _pack(cfg, params, spec)
+
+
 def init_packed_params(cfg: ModelConfig, gen: torch.Generator,
-                       spec: Optional[BlockQuantSpec], device=None) -> Any:
+                       spec: Optional[BlockQuantSpec], device=None,
+                       mesh=None) -> Any:
     """``pack_model_params(cfg, registry.init_params(cfg, generator=gen),
-    spec)``, bit for bit (the same draws from ``gen`` in the same order),
-    with each layer and the lm_head packed as soon as it is drawn, so the
-    bf16 tree never exists whole: peak memory is the packed tree, the bf16
-    embedding and one bf16 layer."""
+    spec, mesh)``, bit for bit (the same draws from ``gen`` in the same
+    order), with each layer and the lm_head packed (and, under ``mesh``,
+    cut to this rank's shards) as soon as it is drawn, so the bf16 tree
+    never exists whole: peak memory is the packed tree, the bf16 embedding
+    and one bf16 layer."""
+    if mesh is not None and mesh.size > 1:
+        registry.check_mesh(cfg, mesh)
+        return registry.init_params(
+            cfg, generator=gen, device=device,
+            finish=lambda tree: sharding.place_serve_params(
+                _pack(cfg, tree, spec), mesh))
     return registry.init_params(
         cfg, generator=gen, device=device,
-        finish=lambda tree: pack_model_params(cfg, tree, spec))
+        finish=lambda tree: _pack(cfg, tree, spec))
 
 
 def weight_store_bytes(params: Any) -> int:
     """Total stored bytes (packed leaves at their packed size): the
-    decode-path weight traffic of one full pass."""
+    decode-path weight traffic of one full pass (of this rank's shards,
+    under a mesh)."""
     total = 0
     for leaf in _leaves(params):
         if isinstance(leaf, PackedQuantizedTensor):
             total += leaf.nbytes()
+        elif isinstance(leaf, torch.Tensor):
+            total += leaf.numel() * leaf.element_size()
+    return total
+
+
+def weight_wire_bytes(params: Any) -> int:
+    """Bytes an FSDP-style all-gather of the whole tree moves: packed leaves
+    as their wire format (codes + block scales, ~4.5 bits a parameter,
+    ``PackedQuantizedTensor.wire_nbytes``; the replicated tensor scale
+    never travels), other leaves as stored."""
+    total = 0
+    for leaf in _leaves(params):
+        if isinstance(leaf, PackedQuantizedTensor):
+            total += leaf.wire_nbytes()
         elif isinstance(leaf, torch.Tensor):
             total += leaf.numel() * leaf.element_size()
     return total

@@ -45,8 +45,10 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.train import step as step_mod
 
-_MESH = ("mesh training arrives with the distributed slice (ROADMAP Queue "
-         "1: distributed/sharding.py, compression.py)")
+_MESH = ("training on a mesh needs distributed/compression.pod_mean_grads "
+         "(the compressed gradient all-reduce), distributed/pipeline.py and "
+         "Trainer(mesh=), not yet ported; the port trains on one device "
+         "(it serves on a mesh: ServeConfig.mesh)")
 
 
 @dataclasses.dataclass
