@@ -70,12 +70,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
   serve_continuous
            the ContinuousEngine: (a) at smoke size on the card held to the
            same engine on the CPU's plain versions (prefix cache + chunked
-           prefill, and speculative verify-k); (b) llama2-7b at full width
-           and depth from random packed NVFP4 weights over a paged nvfp4
-           KV pool, as two runs of 16 requests (2 arriving per tick, 32
-           new tokens each, greedy, no EOS): run A with the shared-prefix
-           cache and 64-token chunked prefill, run B with cold prefills
-           (K7) and speculative verify-k (k = 4, 16-layer draft).  Each run
+           prefill, and speculative verify-k); (b) llama2-7b at full
+           width, depth cut 32 -> CONT_LAYERS = 16 (since phase train_mesh
+           joined the script, to keep it inside its time limit), from
+           random packed NVFP4 weights over a paged nvfp4 KV pool, as two
+           runs of 16 requests (2 arriving per tick, 32 new tokens each,
+           greedy, no EOS): run A with the shared-prefix cache and
+           64-token chunked prefill, run B with cold prefills (K7) and
+           speculative verify-k (k = 4, 8-layer draft).  Each run
            goes through an engine whose five programs replay as CUDA graphs
            (the main path) and through an eager one; the streams must be
            equal token for token.  On both sides the launch counts are
@@ -225,6 +227,34 @@ Phases, each printing JSON lines; any failure exits non-zero:
            parameter -- gloo ranks sharing one card: not a TP speed.  Phase
            kernels holds K4's ``a_amax`` and ``plan_n`` at the tp=2 shard
            shapes (``k4_tp_checks``).
+  train_mesh
+           the training mesh (``Trainer(mesh=)``, ``distributed/``,
+           ``fqt._ShardedFP4Matmul``): llama2-7b at full width, depth cut
+           32 -> 2, a global batch of 2 x 512, nvfp4_paper_config, remat,
+           the sigma_q probe, 3 steps from one seeded state on gloo ranks
+           sharing the card (spawned from this process after the kernels
+           are built, in two waves), each run against one process
+           (``Trainer`` without a mesh).  Run b: tp=2, checkpointed after
+           step 2; c: fsdp=2, then dp=2,tp=2 (4 ranks); d: (pod, data,
+           model) = (2, 1, 1) with the GRAD_FP8 compressed pod mean; e:
+           run b's checkpoint restored in this process (its leaves equal
+           to the ranks' shards bit for bit, by digests) and step 3 taken
+           there; f: ``pipeline_apply`` over (pipe, data) = (2, 1), the
+           dense block as layer_fn, 4 layers, 4 microbatches, forward and
+           backward against the sequential application.  Every rank's
+           metrics equal, K1 and K2 launches a step as derived
+           (``k1_step_gemms``, ``tm_probe_launches``, the compressor's one
+           a leaf), losses, updates, grad_norm and sigma_q within the TM_*
+           rules (scaled, where the run splits a contraction over "model",
+           by the SR spread of a one-process run with re-drawn SR
+           streams), run b's rank 0 (the checkpoint writer) peaking within
+           one logical leaf of rank 1, the pipeline within PIPE_FWD_RTOL /
+           PIPE_RTOL; reports step ms,
+           collectives a step (FSDP gather and reduce-scatter bytes) and
+           peak memory a rank -- gloo ranks sharing one card: not a DP/TP
+           speed.  Phase kernels holds K1 with ``a_amax`` / ``b_amax`` at
+           the tp=2 shard shapes (``k1_tp_checks``) and K2 at GRAD_FP8 and
+           on the probe's shards (``k2_mesh_checks``).
   ops      the kernel-level public API (``kernels/ops.py``) as a user calls
            it: the unfused FQT GEMM at each forward GEMM shape of the
            train phase's llama2-7b (M = 4096 tokens; (K, N) = (4096, 4096),
@@ -278,8 +308,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("env", "kernels", "serve", "serve_continuous", "train",
-          "pipeline", "archs", "recurrent", "encdec_vlm", "mesh", "ops",
-          "times")
+          "pipeline", "archs", "recurrent", "encdec_vlm", "mesh",
+          "train_mesh", "ops", "times")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core peak
 SEED = 0
@@ -949,6 +979,8 @@ def phase_kernels(dev) -> dict:
     if routes != set(fm.K4_ROUTES):
         failures.append((fm.NAME, f"routes met {sorted(routes)}"))
     worst["k4_tp"] = k4_tp_checks(dev, check, e3m4_a)
+    worst["k1_tp"] = k1_tp_checks(dev, check)
+    worst["k2_mesh"] = k2_mesh_checks(dev, check)
     for B, H, KVH, D, Sk, kv_len, window in tuple(
             c + (None,) for c in K6_CASES) + K6_EDGE:
         plan = fa.k6_plan(1, H, KVH, D, Sk)
@@ -1540,6 +1572,11 @@ def stop_cpu_children() -> None:
         child.proc.wait()
 
 
+# serve_continuous's llama2-7b depth: cut 32 -> 16 (the draft of run B is
+# then 8 layers) since phase train_mesh joined the script
+CONT_LAYERS = 16
+
+
 def continuous_configs() -> dict:
     """Runs A and B's ServeConfigs (llama2-7b's continuous engine)."""
     from repro_torch.serve import ServeConfig
@@ -1627,9 +1664,9 @@ def phase_serve_continuous(dev) -> dict:
             if compiles(eng) != compiles(ref):
                 raise AssertionError(f"{label}: compile counts differ")
 
-    # (b) llama2-7b at full width and depth: runs A and B through graphed
-    # engines (the main path) and the same traces through eager ones
-    cfg = get_config("llama2-7b")
+    # (b) llama2-7b at full width, depth CONT_LAYERS: runs A and B through
+    # graphed engines (the main path) and the same traces through eager ones
+    cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=CONT_LAYERS)
     t0 = time.perf_counter()
     params = registry.init_params(cfg, seed=SEED, device=dev)
     configs = continuous_configs()
@@ -2242,9 +2279,9 @@ class CkptLog:
                 "bytes": dir_bytes(path), "skipped": skipped})
             return path
 
-        def restore(d, step, like):
+        def restore(d, step, like, **kw):
             t0 = time.perf_counter()
-            out = self._restore(d, step, like)
+            out = self._restore(d, step, like, **kw)
             self.rows.append({"op": "restore", "step": step,
                               "seconds": time.perf_counter() - t0,
                               "bytes": dir_bytes(Path(d)
@@ -3646,6 +3683,823 @@ def phase_mesh(dev) -> dict:
     return {"launches": launches, "runs": out}
 
 
+# ---- phase train_mesh: the training mesh on gloo ranks sharing the card ------
+#
+# llama2-7b at full width, depth cut 32 -> 2 (its training state is ~108 GB at
+# 32 layers; the ranks share one 80 GB card), a global batch of 2 x 512
+# tokens (a cut of the train phase's 4 x 1024: gloo stages every activation
+# all-reduce through the host), nvfp4_paper_config, remat, the sigma_q probe,
+# 3 steps from one seeded initial state, each run against one process
+# (``Trainer`` without a mesh, in this process while the ranks run).  Wave A
+# (2 ranks): b, tp=2, checkpointed after step 2 (run e restores it in this
+# process and takes step 3); c, fsdp=2; d, (pod, data, model) = (2, 1, 1)
+# with the GRAD_FP8 compressed pod mean; f, ``pipeline_apply`` over (pipe,
+# data) = (2, 1) with the dense block as layer_fn, 4 layers, 4 microbatches
+# of 1 x 512.  Wave B (4 ranks): c, dp=2,tp=2.
+TM_LAYERS = 2
+TM_BATCH, TM_SEQ, TM_STEPS, TM_SPLIT = 2, 512, 3, 2
+TM_RUNS = {
+    "b": ((2,), ("model",), False),
+    "c_fsdp": ((2,), ("data",), False),
+    "d_pod": ((2, 1, 1), ("pod", "data", "model"), True),
+    "c_dptp": ((2, 2), ("data", "model"), False),
+}
+TM_WAVES = {2: ("b", "c_fsdp", "d_pod"), 4: ("c_dptp",)}
+TM_PIPE_LAYERS, TM_PIPE_MB, TM_PIPE_SEQ = 4, 4, 512
+# The rules, written in PERF.md before the card runs that test them: the
+# step-0 loss of every mesh run within TM_LOSS0_RTOL of one process
+# (bit-equality reported), the later losses within TM_LOSS_RTOL; each
+# leaf's update after the 3 steps, as a relative L2 from one process's,
+# within TM_UPDATE_REL_L2 where no contraction is split over "model" and
+# nothing is compressed, else within max(TM_UPDATE_REL_L2, the SR spread)
+# (b, dp=2,tp=2: the ranks' f32 partial products are all-reduced, which
+# moves last bits that FP4 re-quantization amplifies; d: the pods' means
+# carry the compressor's SR noise): the SR spread is the same relative L2
+# of a second one-process run whose every SR stream is re-drawn (step
+# seeds XOR TM_REDRAW), under 1 for every leaf, so a run that applied no
+# update fails; the compressed pods' losses within TM_COMP_LOSS_RTOL of one
+# process's; in every run
+# grad_norm and sigma_q at every step within max(TM_NOISE_X x their SR
+# spread, TM_NORM_RTOL) relative of one process's (a gradient counted
+# twice, or summed and not averaged, moves its norm by 41-100%); run b's
+# rank 0, which writes the checkpoint, peaking within the largest logical
+# leaf of the other rank's peak; the pipeline's output within relative L2
+# PIPE_FWD_RTOL of the sequential application (each microbatch through the
+# layers in order on one rank) and its gradients within PIPE_RTOL.
+TM_LOSS0_RTOL = 1e-5
+TM_LOSS_RTOL = 1e-3
+TM_UPDATE_REL_L2 = 3e-2
+TM_COMP_LOSS_RTOL = 1e-2
+TM_REDRAW = 0x5A5A5A5A
+TM_NOISE_X = 2.0
+TM_NORM_RTOL = 1e-2
+PIPE_FWD_RTOL = 1e-6
+PIPE_RTOL = 1e-2
+TM_LABEL = "gloo ranks sharing one card: not a DP/TP speed"
+
+
+def tm_setup():
+    """(cfg, qcfg, TrainConfig, DataConfig) of the phase's runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import fqt
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train import TrainConfig
+    cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=TM_LAYERS)
+    return (cfg, fqt.nvfp4_paper_config(), TrainConfig(remat=True),
+            DataConfig(cfg.vocab_size, TM_SEQ, TM_BATCH))
+
+
+def tm_probe_launches(cfg, shape, names) -> int:
+    """K2 launches of one step's sigma_q probe on a rank of the mesh, from
+    the rule table: one per reference leaf of 2+ dims (the per-layer
+    leaves stacked) whose last dim takes whole blocks, and L for a stacked
+    leaf whose layers are split on another dim than the last (its rows
+    are then no progression of the whole leaf's)."""
+    import torch
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.mesh import Mesh
+    mesh = Mesh(shape, names, device=torch.device("cpu"))
+    d, f, V = cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    qd = cfg.n_heads * cfg.hd
+    kv = cfg.n_kv_heads * cfg.hd
+    stacked = {"wq": (d, qd), "wk": (d, kv), "wv": (d, kv), "wo": (qd, d),
+               "w_gate": (d, f), "w_up": (d, f), "w_down": (f, d),
+               "ln1": (d,), "ln2": (d,)}
+    if cfg.act == "smooth_swiglu":
+        stacked["smooth"] = (f,)
+    n = 2                                # embed, lm_head (2-D, unstacked)
+    for name, shp in stacked.items():
+        spec = sharding.placed_spec(name, len(shp), mesh)
+        n += cfg.n_layers if any(ax is not None for ax in
+                                 spec[:len(shp) - 1]) else 1
+    return n
+
+
+def tm_leaf_count(cfg) -> int:
+    """The port's parameter leaves (the compressor's K2 launches a step)."""
+    per = 9 + int(cfg.act == "smooth_swiglu")
+    return 3 + per * cfg.n_layers
+
+
+def digest(t) -> list:
+    """Two int64 sums of a tensor's bytes read as int32 words (one of them
+    weighted by position): equal digests for equal bits, computed on the
+    card."""
+    import torch
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    pad = (-b.numel()) % 4
+    if pad:
+        b = torch.cat([b, b.new_zeros(pad)])
+    w = b.view(torch.int32).to(torch.int64)
+    pos = torch.arange(w.numel(), device=w.device) % 1021 + 1
+    return [int(w.sum()), int((w * pos).sum())]
+
+
+def state_digests(state) -> dict:
+    from repro_torch.distributed import sharding
+    out = {}
+
+    def one(path, x):
+        if hasattr(x, "dtype"):
+            out[path] = digest(x)
+        return x
+    sharding.map_paths(state, one)
+    return out
+
+
+def tm_trainer(cfg, qcfg, tcfg, data, steps, mesh=None, ckpt_dir=None,
+               compression=False):
+    from repro_torch.distributed import compression as comp
+    from repro_torch.train import Trainer, TrainerConfig
+    if compression:
+        tcfg = dataclasses.replace(tcfg, compression=comp.CompressionConfig(
+            spec=comp.GRAD_FP8))
+    rc = TrainerConfig(total_steps=steps, seed=SEED, export_packed=False)
+    if ckpt_dir:
+        rc = dataclasses.replace(rc, ckpt_dir=ckpt_dir, ckpt_every=TM_SPLIT,
+                                 keep_ckpts=1)
+    return Trainer(cfg, qcfg, tcfg, rc, data, mesh=mesh,
+                   device=None if mesh is not None else "cuda")
+
+
+def tm_history(trainers) -> list:
+    keys = ("loss", "nll", "grad_norm", "sigma_q", "gnr", "lr")
+    return [{k: h[k] for k in keys} for tr in trainers for h in tr.history]
+
+
+def tm_redrawn(cfg, qcfg, tcfg, data):
+    """The one-process run again with every SR stream re-drawn (each step's
+    seed XOR TM_REDRAW, the probe's with it): (history, final flat
+    params).  Its distance from the one-process run is the SR noise that
+    the rules scale by."""
+    from repro_torch.train import step as step_mod
+    seed_of = step_mod.step_seed
+    step_mod.step_seed = lambda s: seed_of(s) ^ TM_REDRAW
+    try:
+        tr = tm_trainer(cfg, qcfg, tcfg, data, TM_STEPS)
+        state = tr.run()
+    finally:
+        step_mod.step_seed = seed_of
+    return tm_history([tr]), _flat_params(state.params)
+
+
+def tm_update_rel_l2(init, want_final, got_final) -> dict:
+    """Each leaf's update (final - initial) of ``got_final`` against
+    ``want_final``'s, as a relative L2 (whole tensors on one process)."""
+    out = {}
+    for path, w in want_final.items():
+        i0 = init[path].float()
+        want = w.float() - i0
+        out[path] = float(torch_norm(got_final[path].float() - i0 - want)
+                          / max(float(torch_norm(want)), 1e-30))
+    return out
+
+
+def torch_norm(t):
+    import torch
+    return torch.linalg.vector_norm(t.reshape(-1).double())
+
+
+def tm_run(rank, label, root: Path) -> None:
+    """One run of the phase on this rank; writes its report (and its final
+    parameter shards) under ``root``."""
+    import torch
+    from repro_torch.distributed.mesh import make_mesh
+    from repro_torch.kernels import counters
+    shape, names, compressed = TM_RUNS[label]
+    cfg, qcfg, tcfg, data = tm_setup()
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(shape, names, device=dev, backend="gloo")
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    counters.reset()
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    per, trainers, rep = [], [], {"rank": rank, "label": label}
+    if label == "b":
+        first = tm_trainer(cfg, qcfg, tcfg, data, TM_SPLIT, mesh,
+                           ckpt_dir=str(root / "ckpt"))
+        marks = count_steps(first)
+        state = first.run()
+        marks.append(counters.snapshot())
+        per += step_launches(marks)
+        rep["digests"] = state_digests(state)
+        counters.reset()
+        second = tm_trainer(cfg, qcfg, tcfg, data, TM_STEPS, mesh)
+        marks = count_steps(second)
+        state = second.run(state)
+        marks.append(counters.snapshot())
+        per += step_launches(marks)
+        trainers = [first, second]
+    else:
+        tr = tm_trainer(cfg, qcfg, tcfg, data, TM_STEPS, mesh,
+                        compression=compressed)
+        marks = count_steps(tr)
+        state = tr.run()
+        marks.append(counters.snapshot())
+        per += step_launches(marks)
+        trainers = [tr]
+    torch.cuda.synchronize(dev)
+    rep.update(seconds=time.perf_counter() - t0, launches=per,
+               history=tm_history(trainers),
+               events=[e for tr in trainers for e in tr.events],
+               stats=mesh.stats, coords=dict(mesh.coords),
+               peak_allocated=torch.cuda.max_memory_allocated(dev))
+    torch.save({k: v.cpu() for k, v in _flat_params(state.params).items()},
+               root / f"{label}_rank{rank}.pt")
+    del state
+    (root / f"{label}_rank{rank}.json").write_text(json.dumps(rep))
+
+
+def _flat_params(tree, prefix="") -> dict:
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flat_params(v, f"{prefix}/{k}" if prefix else k))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            out.update(_flat_params(v, f"{prefix}/{i}"))
+    else:
+        out[prefix] = tree
+    return out
+
+
+def tm_pipeline(rank, root: Path) -> None:
+    """Run f: ``pipeline_apply`` over (pipe, data) = (2, 1) with the dense
+    block of llama2-7b (full width) as layer_fn, against the sequential
+    application of the same layers on this rank; forward and backward of
+    sum(out^2)."""
+    import torch
+    from repro_torch.distributed import pipeline as pp
+    from repro_torch.kernels import counters
+    from repro_torch.models import registry, transformer
+    cfg, qcfg, _, _ = tm_setup()
+    cfg = dataclasses.replace(cfg, n_layers=TM_PIPE_LAYERS)
+    dev = torch.device("cuda", 0)
+    mesh = pp.make_pipeline_mesh(2, device=dev, backend="gloo")
+    layers = registry.init_params(cfg, seed=SEED + 7, device=dev)["layers"]
+
+    def stack(ls):
+        if isinstance(ls[0], dict):
+            return {k: stack([lp[k] for lp in ls]) for k in ls[0]}
+        return torch.stack(ls).requires_grad_(True)
+
+    params = stack(layers)
+    del layers
+    leaves = list(_flat_params(params).items())
+    x = (torch.randn((TM_PIPE_MB, TM_PIPE_SEQ, cfg.d_model),
+                     generator=gen(dev, SEED + 8), device=dev)
+         ).to(torch.bfloat16)
+
+    def fn(p, h):
+        return transformer._layer_apply(cfg, p, h, 0x5EED, cache=None,
+                                        qcfg=qcfg)[0]
+
+    s, per = mesh.axis_index("pipe"), TM_PIPE_LAYERS // 2
+    torch.cuda.synchronize(dev)
+    counters.reset()
+    t0 = time.perf_counter()
+    xg = x.clone().requires_grad_(True)
+    out = pp.pipeline_apply(fn, params, xg, mesh, pp.PipelineConfig(
+        n_stages=2, n_microbatches=TM_PIPE_MB))
+    torch.sum(out.float() ** 2).backward()
+    mesh.wait_sends()
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    launches = counters.snapshot()
+    grads = {k: v.grad[s * per:(s + 1) * per].clone() for k, v in leaves}
+    dx = xg.grad
+    for _, v in leaves:
+        v.grad = None
+    # the sequential application: each microbatch through the 4 layers
+    xs = x.clone().requires_grad_(True)
+    outs = []
+    for mb in xs.chunk(TM_PIPE_MB):
+        h = mb
+        for i in range(TM_PIPE_LAYERS):
+            h = fn({k: _index_params(params, k, i) for k in params}, h)
+        outs.append(h)
+    seq = torch.cat(outs)
+    torch.sum(seq.float() ** 2).backward()
+    torch.cuda.synchronize(dev)
+    rep = {"rank": rank, "stage": s, "seconds": seconds,
+           "launches": launches, "stats": mesh.stats,
+           "out_rel_l2": rel_l2(out, seq),
+           "out_bitwise": bool(torch.equal(out, seq)),
+           "grad_rel_l2": {k: rel_l2(grads[k], v.grad[s * per:(s + 1) * per])
+                           for k, v in leaves},
+           "dx_rel_l2": rel_l2(dx, xs.grad) if s == 0 else None,
+           "peak_allocated": torch.cuda.max_memory_allocated(dev)}
+    (root / f"pipe_rank{rank}.json").write_text(json.dumps(rep))
+
+
+def _index_params(params, k, i):
+    v = params[k]
+    if isinstance(v, dict):
+        return {kk: vv[i] for kk, vv in v.items()}
+    return v[i]
+
+
+def train_mesh_child(rank, world, root) -> None:
+    """The ranks of one wave: each of the wave's runs in turn, then (2
+    ranks) the pipeline."""
+    import gc
+    import torch
+    root = Path(root)
+    for label in TM_WAVES[world]:
+        tm_run(rank, label, root)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if world == 2:
+        tm_pipeline(rank, root)
+
+
+def tm_start(world, root: Path):
+    """Start a wave's ranks (spawned, gloo over a file rendezvous; the
+    kernels built already), not waiting for them."""
+    import torch.multiprocessing as mp
+    from repro_torch.distributed.mesh import _rank_main
+    return mp.start_processes(
+        _rank_main, args=(train_mesh_child, world, "gloo", "cuda:0",
+                          f"file://{root}/rendezvous{world}",
+                          (world, str(root))),
+        nprocs=world, join=False, start_method="spawn")
+
+
+def tm_join(ctx, timeout=600) -> None:
+    t0 = time.perf_counter()
+    while not ctx.join(timeout=5):
+        if time.perf_counter() - t0 > timeout:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError("train_mesh ranks timed out")
+
+
+def tm_reports(root: Path, label: str, n: int) -> list:
+    return [json.loads((root / f"{label}_rank{r}.json").read_text())
+            for r in range(n)]
+
+
+def tm_compare_updates(label, shape, names, init, one_final, root) -> dict:
+    """Each leaf's update (final - initial) of the mesh run against one
+    process's, as a relative L2 over the whole leaf from every rank's
+    shard (a replicated leaf counted once)."""
+    import torch
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.mesh import Mesh
+    n = math.prod(shape)
+    num, den = {}, {}
+    for r in range(n):
+        m = Mesh(shape, names, device=torch.device("cpu"), rank=r)
+        mine = torch.load(root / f"{label}_rank{r}.pt")
+        for path, got in mine.items():
+            spec = sharding.placed_spec(path.rsplit("/", 1)[-1], got.ndim, m)
+            if not sharding.is_owner(spec, m):
+                continue
+            i0 = sharding.local_shard(init[path], spec, m).float()
+            want = sharding.local_shard(one_final[path], spec, m).float() - i0
+            diff = got.to(i0.device).float() - i0 - want
+            num[path] = num.get(path, 0.0) + float((diff ** 2).sum())
+            den[path] = den.get(path, 0.0) + float((want ** 2).sum())
+    return {p: math.sqrt(num[p]) / max(math.sqrt(den[p]), 1e-30)
+            for p in num}
+
+
+def phase_train_mesh(dev) -> dict:
+    """The training mesh on gloo ranks sharing the card; see the docstring
+    at the top and TM_RUNS."""
+    import gc
+    import shutil
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.kernels import _build, counters
+    from repro_torch.models import registry
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train import step as step_mod
+    _build.build_all()              # built once: the ranks load it
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = ROOT / "build" / "train_mesh_phase"
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    cfg, qcfg, tcfg, data = tm_setup()
+    emit({"phase": "train_mesh", "arch": "llama2-7b", "cut": {
+        "n_layers": [32, TM_LAYERS], "batch": [4, TM_BATCH],
+        "seq": [1024, TM_SEQ]}, "steps": TM_STEPS, "label": TM_LABEL,
+        "card": card_line(), "free_disk_bytes":
+        shutil.disk_usage(root).free})
+    t_phase = time.perf_counter()
+    failures, out = [], {}
+    k1_step = sum(k1_step_gemms(cfg, qcfg, TM_BATCH * TM_SEQ).values())
+    wave_a = tm_start(2, root)
+    # one process: the reference of runs b-d, the like of run e
+    torch.cuda.reset_peak_memory_stats(dev)
+    counters.reset()
+    t0 = time.perf_counter()
+    one = tm_trainer(cfg, qcfg, tcfg, data, TM_STEPS)
+    marks = count_steps(one)
+    one_state = one.run()
+    marks.append(counters.snapshot())
+    torch.cuda.synchronize(dev)
+    one_s = time.perf_counter() - t0
+    one_hist = tm_history([one])
+    want1 = {k: 0 for k in counters.COUNTS}
+    want1.update(fused_quant_matmul=k1_step, block_quantize=tm_probe_launches(
+        cfg, (1,), ("model",)))
+    if any(c != want1 for c in step_launches(marks)):
+        failures.append(("one process", "launches"))
+    init = {k: v for k, v in _flat_params(registry.init_params(
+        cfg, seed=SEED, device=dev)).items()}
+    one_final = _flat_params(one_state.params)
+    emit({"phase": "train_mesh", "run": "one", "seconds": one_s,
+          "history": one_hist, "peak_allocated":
+          torch.cuda.max_memory_allocated(dev)})
+    # the SR spread: one process again with every SR stream re-drawn
+    t0 = time.perf_counter()
+    red_hist, red_final = tm_redrawn(cfg, qcfg, tcfg, data)
+    spread = tm_update_rel_l2(init, one_final, red_final)
+    del red_final
+    emit({"phase": "train_mesh", "run": "one_redrawn",
+          "seconds": time.perf_counter() - t0, "history": red_hist,
+          "update_rel_l2": spread})
+    leaf_bytes = 4 * max(v.numel() for v in init.values())   # f32 master
+    tm_join(wave_a)
+    wave_b = tm_start(4, root)
+    # run e: run b's step-2 checkpoint restored in this process, step 3
+    t0 = time.perf_counter()
+    step, restored = ckpt.restore_latest(str(root / "ckpt"), one_state)
+    del one_state
+    restore_s = time.perf_counter() - t0
+    reps_b = tm_reports(root, "b", 2)
+    same = step == TM_SPLIT
+    for r, rep in enumerate(reps_b):
+        m = Mesh((2,), ("model",), device=dev, rank=r)
+        placed = sharding.place_train_state(restored, m)
+        same &= state_digests(placed) == rep["digests"]
+        del placed
+    e_tr = Trainer(cfg, qcfg, tcfg, TrainerConfig(total_steps=TM_STEPS,
+                                                  export_packed=False),
+                   data, device=dev)
+    e_tr.run(restored)
+    del restored
+    e_loss = e_tr.history[0]["loss"]
+    b_loss = reps_b[0]["history"][TM_SPLIT]["loss"]
+    e_row = {"phase": "train_mesh", "run": "e", "restored_step": step,
+             "restored_equals_gathered": bool(same), "restore_s": restore_s,
+             "step3_loss": e_loss, "tp2_step3_loss": b_loss,
+             "bit_equal": e_loss == b_loss}
+    emit(e_row)
+    if not same:
+        failures.append(("e", "restored leaves differ from the gathered"))
+    if abs(e_loss - b_loss) > TM_LOSS_RTOL * abs(b_loss):
+        failures.append(("e", f"step-3 loss {e_loss} vs {b_loss}"))
+    tm_join(wave_b)
+    wall = time.perf_counter() - t_phase
+    launches = {}
+    for label, (shape, names, compressed) in TM_RUNS.items():
+        n = math.prod(shape)
+        reps = tm_reports(root, label, n)
+        want = dict(want1)
+        want["block_quantize"] = tm_probe_launches(cfg, shape, names) + (
+            tm_leaf_count(cfg) if compressed else 0)
+        for rep in reps:
+            if rep["history"] != reps[0]["history"]:
+                failures.append((label, f"rank {rep['rank']} metrics"))
+            if any(c != want for c in rep["launches"]):
+                failures.append((label, f"rank {rep['rank']} launches "
+                                 f"{rep['launches']} != {want}"))
+            for c in rep["launches"]:
+                for k, v in c.items():
+                    launches[k] = launches.get(k, 0) + v
+        h, o = reps[0]["history"], one_hist
+        loss0_equal = h[0]["loss"] == o[0]["loss"]
+        rtol = TM_COMP_LOSS_RTOL if compressed else TM_LOSS_RTOL
+        if abs(h[0]["loss"] - o[0]["loss"]) > TM_LOSS0_RTOL * abs(o[0]["loss"]):
+            failures.append((label, "step-0 loss"))
+        for i in range(1, TM_STEPS):
+            if abs(h[i]["loss"] - o[i]["loss"]) > rtol * abs(o[i]["loss"]):
+                failures.append((label, f"step-{i} loss"))
+        upd = tm_compare_updates(label, shape, names, init, one_final, root)
+        worst = max(upd.values())
+        split = "model" in names and shape[names.index("model")] > 1
+        bound = {p: max(TM_UPDATE_REL_L2, spread[p]) if split or compressed
+                 else TM_UPDATE_REL_L2 for p in upd}
+        over = {p: (v, bound[p]) for p, v in upd.items() if v > bound[p]}
+        if over:
+            failures.append((label, f"update rel L2 over its bound {over}"))
+        norm_dev = {}
+        for k in ("grad_norm", "sigma_q"):
+            norm_dev[k] = []
+            for i in range(TM_STEPS):
+                dev_i = abs(h[i][k] - o[i][k])
+                lim = max(TM_NOISE_X * abs(red_hist[i][k] - o[i][k]),
+                          TM_NORM_RTOL * abs(o[i][k]))
+                norm_dev[k].append([dev_i / abs(o[i][k]), lim / abs(o[i][k])])
+                if dev_i > lim:
+                    failures.append((label, f"step-{i} {k} {h[i][k]} vs "
+                                     f"{o[i][k]} (limit {lim})"))
+        peaks = [r["peak_allocated"] for r in reps]
+        if label == "b" and peaks[0] > max(peaks[1:]) + leaf_bytes:
+            failures.append((label, f"rank 0 peak {peaks[0]} over the "
+                             f"others' {max(peaks[1:])} + {leaf_bytes}"))
+        ops = reps[0]["stats"]["ops"]
+        per_step = {k: {"calls": v["calls"] / TM_STEPS,
+                        "bytes": v["bytes"] / TM_STEPS,
+                        "host_ms": v["seconds"] * 1e3 / TM_STEPS}
+                    for k, v in ops.items()}
+        row = {"phase": "train_mesh", "run": label,
+               "mesh": dict(zip(names, shape)), "ranks": n,
+               "compression": "GRAD_FP8" if compressed else None,
+               "label": TM_LABEL, "loss0_bit_equal": loss0_equal,
+               "losses": [x["loss"] for x in h],
+               "one_process_losses": [x["loss"] for x in o],
+               "max_loss_rel": max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                                   for a, b in zip(h, o)),
+               "worst_update_rel_l2": worst,
+               "worst_update_leaf": max(upd, key=upd.get),
+               "worst_update_over_bound": max(upd[p] / bound[p]
+                                              for p in upd),
+               "sr_spread_of_worst_leaf": spread[max(upd, key=upd.get)],
+               "grad_norm": [x["grad_norm"] for x in h],
+               "one_process_grad_norm": [x["grad_norm"] for x in o],
+               "redrawn_grad_norm": [x["grad_norm"] for x in red_hist],
+               "sigma_q": [x["sigma_q"] for x in h],
+               "one_process_sigma_q": [x["sigma_q"] for x in o],
+               "redrawn_sigma_q": [x["sigma_q"] for x in red_hist],
+               "norm_rel_dev_and_limit": norm_dev,
+               "seconds": reps[0]["seconds"],
+               "ms_per_step": reps[0]["seconds"] * 1e3 / TM_STEPS,
+               "one_process_ms_per_step": one_s * 1e3 / TM_STEPS,
+               "launches_per_step": want,
+               "collectives_per_step": per_step,
+               "fsdp_gather_bytes_per_step": per_step.get(
+                   "fsdp_gather", {}).get("bytes", 0),
+               "reduce_scatter_bytes_per_step": per_step.get(
+                   "reduce_scatter", {}).get("bytes", 0),
+               "peak_allocated_bytes": peaks}
+        emit(row)
+        out[label] = row
+    pipes = [json.loads((root / f"pipe_rank{r}.json").read_text())
+             for r in range(2)]
+    per_mb = sum(v for k, v in k1_step_gemms(
+        dataclasses.replace(cfg, n_layers=TM_PIPE_LAYERS // 2), qcfg,
+        TM_PIPE_SEQ, remat=False).items() if cfg.padded_vocab not in k[2:4])
+    for p in pipes:
+        if p["out_rel_l2"] > PIPE_FWD_RTOL or max(
+                p["grad_rel_l2"].values()) > PIPE_RTOL or (
+                p["dx_rel_l2"] is not None and p["dx_rel_l2"] > PIPE_RTOL):
+            failures.append(("f", f"stage {p['stage']} off the sequential"))
+        if p["launches"]["fused_quant_matmul"] != per_mb * TM_PIPE_MB:
+            failures.append(("f", f"stage {p['stage']} K1 launches "
+                             f"{p['launches']['fused_quant_matmul']}"))
+        launches["fused_quant_matmul"] = launches.get(
+            "fused_quant_matmul", 0) + p["launches"]["fused_quant_matmul"]
+    emit({"phase": "train_mesh", "run": "f", "label": TM_LABEL,
+          "layers": TM_PIPE_LAYERS, "microbatches": TM_PIPE_MB,
+          "stages": [{k: p[k] for k in ("stage", "seconds", "out_rel_l2",
+                                        "out_bitwise", "dx_rel_l2",
+                                        "peak_allocated")}
+                     | {"max_grad_rel_l2": max(p["grad_rel_l2"].values()),
+                        "transfers": {k: p["stats"]["ops"].get(k, {}).get(
+                            "calls", 0) for k in ("send", "recv")}}
+                     for p in pipes]})
+    emit({"phase": "train_mesh", "wall_s": wall, "card": card_line()})
+    shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        raise AssertionError(f"train_mesh phase: {failures}")
+    return {"launches": launches, "runs": out, "e": e_row}
+
+
+def k1_tp_checks(dev, check) -> dict:
+    """K1 with given global maxima (``a_amax`` / ``b_amax``) at llama2-7b's
+    tp=2 shard shapes of the train_mesh phase (M = 1024 tokens): for each
+    of wq and w_gate (column: N split) and wo and w_down (row: K split),
+    every rank's forward, dX and dW as ``core/fqt._ShardedFP4Matmul``
+    launches them (the global maxima, the counters offset into the whole
+    operand's bits: ``formats.counter_at``) against the plain version
+    given the same (the tensor-core rule), and against the 1-device K1: a
+    GEMM whose contraction is whole on the rank (column forward and dW,
+    row dX and dW) bit for bit against the 1-device output's block, a pair
+    of partial products (column dX, row forward) summed in f32, as
+    ``fqt._shard_gemm``'s all-reduce sums them, within the same rule over
+    the full contraction; and the f32 route (E3M4 data) with given maxima
+    against its plain version."""
+    import torch
+    from repro_torch.core import formats, fqt
+    from repro_torch.core.quantize import BlockQuantSpec
+    from repro_torch.kernels import fp4_matmul as fm
+    qc = fqt.nvfp4_paper_config()
+    M, seed = 1024, 0x9E3779B1
+    out = {"cases": 0, "bitwise": 0, "pair_max_abs_err": 0.0,
+           "amax_max_abs_err": 0.0}
+
+    def site(s):
+        return fqt._site_seed32(seed, s)
+
+    def ctr(spec, s, off, rs, cs):
+        return ((formats.counter_at(site(s), off), rs, cs)
+                if spec.stochastic else None)
+
+    def amax(t):
+        return torch.amax(torch.abs(t.float())).reshape(1)
+
+    def k1(a, b, sa, sb, ca, cb, aa, ab, dt):
+        got = fm.fused_quant_matmul(a.contiguous(), b.contiguous(), sa, sb,
+                                    out_dtype=dt, a_counter=ca, b_counter=cb,
+                                    a_amax=aa, b_amax=ab)
+        want = fm.fused_quant_matmul_plain(
+            a.contiguous(), b.contiguous(), sa, sb, out_dtype=dt,
+            a_counter=ca, b_counter=cb, a_amax=aa, b_amax=ab)
+        return got, want
+
+    for name, K, N in (("wq", 4096, 4096), ("w_gate", 4096, 11008),
+                       ("wo", 4096, 4096), ("w_down", 11008, 4096)):
+        row = name in ("wo", "w_down")
+        g_ = gen(dev, SEED + K + N)
+        x = (torch.randn((M, K), generator=g_, device=dev) * 2
+             ).to(torch.bfloat16)
+        w = (torch.randn((K, N), generator=g_, device=dev) * K ** -0.5
+             ).to(torch.bfloat16)
+        gr = (torch.randn((M, N), generator=g_, device=dev) * 1e-3
+              ).to(torch.bfloat16)
+        calls = (  # (a, b, specs, sites, a strides, GEMM's global K)
+            ("fwd", x, w, qc.fwd_a, qc.fwd_w, (0, 1)),
+            ("dX", gr, w.T, qc.bwd_g, qc.bwd_w, (2, 3)),
+            ("dW", x.T, gr, qc.upd_a, qc.upd_g, (4, 5)))
+        one = {}
+        for role, a, b, sa, sb, (s1, s2) in calls:
+            rs_a = (1, K) if role == "dW" else (a.shape[1], 1)
+            ca = ctr(sa, s1, 0, *rs_a)
+            cb = ctr(sb, s2, 0, b.shape[1], 1)
+            for dt in (torch.bfloat16, torch.float32):
+                one[role, dt] = fm.fused_quant_matmul(
+                    a.contiguous(), b.contiguous(), sa, sb, out_dtype=dt,
+                    a_counter=ca, b_counter=cb)
+        parts = {}
+        for r in range(2):
+            if row:
+                k0, Kl = r * (K // 2), K // 2
+                ks = slice(k0, k0 + Kl)
+                shard = (
+                    ("fwd", x[:, ks], w[ks], qc.fwd_a, qc.fwd_w, (0, 1),
+                     (k0, K, 1), (k0 * N, N, 1), amax(x), amax(w), "pair"),
+                    ("dX", gr, w.T[:, ks], qc.bwd_g, qc.bwd_w, (2, 3),
+                     (0, N, 1), (k0, K, 1), None, amax(w), (slice(None), ks)),
+                    ("dW", x.T[ks], gr, qc.upd_a, qc.upd_g, (4, 5),
+                     (k0, 1, K), (0, N, 1), amax(x), None, (ks, slice(None))))
+            else:
+                n0, Nl = r * (N // 2), N // 2
+                ns = slice(n0, n0 + Nl)
+                shard = (
+                    ("fwd", x, w[:, ns], qc.fwd_a, qc.fwd_w, (0, 1),
+                     (0, K, 1), (n0, N, 1), None, amax(w),
+                     (slice(None), ns)),
+                    ("dX", gr[:, ns], w.T[ns], qc.bwd_g, qc.bwd_w, (2, 3),
+                     (n0, N, 1), (n0 * K, K, 1), amax(gr), amax(w), "pair"),
+                    ("dW", x.T, gr[:, ns], qc.upd_a, qc.upd_g, (4, 5),
+                     (0, 1, K), (n0, N, 1), None, amax(gr),
+                     (slice(None), ns)))
+            for (role, a, b, sa, sb, (s1, s2), (oa, ra, qa), (ob, rb, qb),
+                 aa, ab, where) in shard:
+                ca, cb = ctr(sa, s1, oa, ra, qa), ctr(sb, s2, ob, rb, qb)
+                dt = torch.float32 if where == "pair" else torch.bfloat16
+                got, want = k1(a, b, sa, sb, ca, cb, aa, ab, dt)
+                torch.cuda.synchronize(dev)
+                rb_ = (None if cb is None else
+                       fm.counter_rbits(b.shape, cb, dev))
+                ra_ = (None if ca is None else
+                       fm.counter_rbits(a.shape, ca, dev))
+                ad, tsa = fm._quantized_operand(a, sa, ra_, along_rows=False,
+                                                amax=aa)
+                bd, tsb = fm._quantized_operand(b, sb, rb_, along_rows=True,
+                                                amax=ab)
+                case = (f"tp=2 {name} rank {r} {role} M={a.shape[0]} "
+                        f"K={a.shape[1]} N={b.shape[1]} a_amax="
+                        f"{aa is not None} b_amax={ab is not None} "
+                        f"{str(dt)[6:]}")
+                check(fm.FUSED_NAME, case, got, want,
+                      lambda g, w_, o=(ad, bd, tsa * tsb):
+                      compare_tc(g, w_, *o))
+                out["amax_max_abs_err"] = max(out["amax_max_abs_err"], float(
+                    (got.float() - want.float()).abs().max()))
+                out["cases"] += 1
+                if where == "pair":
+                    parts.setdefault(role, []).append(got)
+                else:
+                    check(fm.FUSED_NAME, case + " vs 1-device block", got,
+                          one[role, dt][where].contiguous(), compare_bits)
+                    out["bitwise"] += 1
+                del got, want, ad, bd
+        for role, (p0, p1) in parts.items():
+            a, b, sa, sb, (s1, s2) = next(
+                (c[1], c[2], c[3], c[4], c[5]) for c in calls
+                if c[0] == role)
+            rs_a = (a.shape[1], 1)
+            ra_ = (None if not sa.stochastic else fm.counter_rbits(
+                a.shape, ctr(sa, s1, 0, *rs_a), dev))
+            rb_ = (None if not sb.stochastic else fm.counter_rbits(
+                b.shape, ctr(sb, s2, 0, b.shape[1], 1), dev))
+            ops = k1_operands(a.contiguous(), b.contiguous(), sa, sb, ra_,
+                              rb_)
+            pair = p0 + p1
+            check(fm.FUSED_NAME, f"tp=2 {name} {role} pair summed vs "
+                  f"1-device", pair, one[role, torch.float32],
+                  lambda g, w_, o=ops: compare_tc(g, w_, *o))
+            out["pair_max_abs_err"] = max(out["pair_max_abs_err"], float(
+                (pair - one[role, torch.float32]).abs().max()))
+            out["cases"] += 1
+            del ops, pair
+        del x, w, gr, one, parts
+    # the f32 route with given maxima
+    e3m4 = BlockQuantSpec(data_fmt="e3m4", scale_fmt="e4m3", block=16,
+                          two_level=True, stochastic=True)
+    g_ = gen(dev, SEED + 11)
+    a = torch.randn((512, 256), generator=g_, device=dev).to(torch.bfloat16)
+    b = torch.randn((256, 384), generator=g_, device=dev).to(torch.bfloat16)
+    aa, ab = amax(a) * 2, amax(b) * 4       # a larger global max
+    got, want = k1(a, b, e3m4, e3m4, (SEED, 256, 1), (SEED + 1, 384, 1), aa,
+                   ab, torch.float32)
+    torch.cuda.synchronize(dev)
+    check(fm.FUSED_NAME, "e3m4 f32 route a_amax b_amax", got, want)
+    out["cases"] += 1
+    return out
+
+
+def k2_mesh_checks(dev, check) -> dict:
+    """K2 on the training mesh's new call shapes, bit for bit: at
+    ``GRAD_FP8`` (E4M3 codes and block-32 scales, SR in counter mode, a
+    given tensor scale) on a column shard of a (4096, 4096) gradient and on
+    a replicated leaf flattened to one row, each against its plain
+    version; and the sigma_q probe's shards against the 1-device probe's
+    K2 call: a row-split stacked leaf (2, 4096, 4096) one call per layer
+    part, a column-split one on its stacked rows, each with the leaf's
+    tensor scale and its offset counter, equal to the 1-device call's
+    block."""
+    import torch
+    from repro_torch.core import formats
+    from repro_torch.core.quantize import NVFP4, _tensor_scale
+    from repro_torch.distributed.compression import GRAD_FP8
+    from repro_torch.kernels import nvfp4_quant as nq
+    out = {"cases": 0}
+    g_ = gen(dev, SEED + 21)
+    full = torch.randn((4096, 4096), generator=g_, device=dev) * 1e-3
+    ts = _tensor_scale(torch.amax(torch.abs(full)), GRAD_FP8).reshape(1)
+    for label, x, c in (
+            ("column shard (4096, 2048) of (4096, 4096)",
+             full[:, 2048:].contiguous(),
+             (formats.counter_at(SEED, 2048), 4096, 1)),
+            ("replicated leaf (1, 4096)", full[:1].contiguous(),
+             (SEED + 1, 4096, 1))):
+        kw = dict(tscale=ts, counter=c)
+        got = nq.block_quantize(x, GRAD_FP8, **kw)
+        want = nq.block_quantize_plain(x, GRAD_FP8, **kw)
+        torch.cuda.synchronize(dev)
+        check(nq.NAME, f"GRAD_FP8 {label} codes", got[0], want[0],
+              compare_bits)
+        check(nq.NAME, f"GRAD_FP8 {label} scales", got[1], want[1],
+              compare_bits)
+        out["cases"] += 2
+    spec = NVFP4.with_rounding(stochastic=True)
+    L, K, N = 2, 4096, 4096
+    stacked = torch.randn((L, K, N), generator=g_, device=dev) * 1e-3
+    ts = _tensor_scale(torch.amax(torch.abs(stacked)), spec).reshape(1)
+    codes, scales = nq.block_quantize(stacked.reshape(-1, N), spec,
+                                      tscale=ts, counter=(SEED + 2, N, 1))
+    codes, scales = codes.view(L, K, N), scales.view(L, K, N // 16)
+    for r in range(2):
+        for l in range(L):         # row split: one call per layer part
+            rows = slice(r * K // 2, (r + 1) * K // 2)
+            off = l * K * N + r * (K // 2) * N
+            got = nq.block_quantize(stacked[l, rows].contiguous(), spec,
+                                    tscale=ts, counter=(formats.counter_at(
+                                        SEED + 2, off), N, 1))
+            torch.cuda.synchronize(dev)
+            case = f"probe row shard rank {r} layer {l}"
+            check(nq.NAME, case + " codes vs 1-device", got[0],
+                  codes[l, rows].contiguous(), compare_bits)
+            check(nq.NAME, case + " scales vs 1-device", got[1],
+                  scales[l, rows].contiguous(), compare_bits)
+            out["cases"] += 2
+        cols = slice(r * N // 2, (r + 1) * N // 2)
+        got = nq.block_quantize(stacked[:, :, cols].reshape(-1, N // 2)
+                                .contiguous(), spec, tscale=ts,
+                                counter=(formats.counter_at(
+                                    SEED + 2, r * N // 2), N, 1))
+        torch.cuda.synchronize(dev)
+        case = f"probe column shard rank {r} (stacked rows)"
+        check(nq.NAME, case + " codes vs 1-device", got[0],
+              codes[:, :, cols].reshape(-1, N // 2).contiguous(),
+              compare_bits)
+        check(nq.NAME, case + " scales vs 1-device", got[1],
+              scales[:, :, r * N // 32:(r + 1) * N // 32].reshape(
+                  -1, N // 32).contiguous(), compare_bits)
+        out["cases"] += 2
+    return out
+
+
 def phase_ops(dev) -> dict:
     """The unfused FQT GEMM through ``kernels/ops.py`` at llama2-7b's forward
     GEMM shapes, held to the plain versions and to K1."""
@@ -3955,11 +4809,19 @@ def breakdown_call(case, dev):
     return lambda: fa.flash_attention_paged(*args, window=window)
 
 
-def breakdown_child(case) -> None:
+def breakdown_child(case, lock=None) -> None:
     """Child process of phase times: print one JSON line, the per-launch
-    breakdown of BREAKDOWNS[case] beside the call's CUDA-event time."""
+    breakdown of BREAKDOWNS[case] beside the call's CUDA-event time.
+    ``lock``: a file whose exclusive lock the child takes after its
+    imports and CUDA context, so children started together measure one at
+    a time (released at exit)."""
     import torch
     dev = torch.device("cuda", 0)
+    torch.cuda.init()
+    if lock is not None:
+        import fcntl
+        held = open(lock, "a")
+        fcntl.flock(held, fcntl.LOCK_EX)
     torch.backends.cuda.matmul.allow_tf32 = False
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
     with torch.no_grad():
@@ -3969,19 +4831,34 @@ def breakdown_child(case) -> None:
     print(json.dumps(out), flush=True)
 
 
-def breakdown_in_child(case, children=2) -> dict:
-    """BREAKDOWNS[case] from a fresh child process; a second child where
-    the first one's profiler recorded no consistent session (it has come
-    back with no device event at all)."""
+def start_breakdown_child(case, lock: Path):
+    """A fresh child process measuring BREAKDOWNS[case] once it holds
+    ``lock`` (``breakdown_child``)."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke."
+         f"breakdown_child({case!r}, {str(lock)!r})"], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def breakdown_in_child(case, lock: Path, first=None, children=2) -> dict:
+    """BREAKDOWNS[case] from a fresh child process (``first``, started
+    already, or a new one); a second child where the first one's profiler
+    recorded no consistent session (it has come back with no device event
+    at all)."""
     for _ in range(children):
-        r = subprocess.run([sys.executable, "-c", "import chip_smoke; "
-                            f"chip_smoke.breakdown_child({case!r})"],
-                           cwd=ROOT, capture_output=True, text=True,
-                           timeout=600)
-        if r.returncode != 0:
+        proc = first if first is not None else start_breakdown_child(case,
+                                                                     lock)
+        first = None
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"breakdown {case!r} timed out")
+        if proc.returncode != 0:
             raise AssertionError(f"breakdown {case!r} failed:\n"
-                                 f"{r.stderr[-3000:]}")
-        out = json.loads(r.stdout.strip().splitlines()[-1])
+                                 f"{stderr[-3000:]}")
+        out = json.loads(stdout.strip().splitlines()[-1])
         if out["consistent"]:
             break
     return out
@@ -4270,10 +5147,19 @@ def phase_times(dev) -> dict:
         del ac, asc, bc, bsc, ad, bd
     torch.cuda.empty_cache()
     # what one call spends in each of its launches, each call in a fresh
-    # process
-    for case, (kernel, _) in BREAKDOWNS.items():
-        emit({"phase": "times", "kernel": kernel, "case": case,
-              "launch_breakdown": breakdown_in_child(case)})
+    # process; the children start together and measure one at a time
+    lock = ROOT / "build" / "breakdown.lock"
+    lock.parent.mkdir(parents=True, exist_ok=True)
+    procs = {case: start_breakdown_child(case, lock) for case in BREAKDOWNS}
+    try:
+        for case, (kernel, _) in BREAKDOWNS.items():
+            emit({"phase": "times", "kernel": kernel, "case": case,
+                  "launch_breakdown": breakdown_in_child(
+                      case, lock, first=procs.pop(case))})
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.communicate()
     return rows
 
 
@@ -4339,6 +5225,7 @@ def main(argv=None) -> int:
                           "recurrent": phase_recurrent,
                           "encdec_vlm": phase_encdec_vlm,
                           "mesh": phase_mesh,
+                          "train_mesh": phase_train_mesh,
                           "ops": phase_ops,
                           "times": phase_times}[p](dev)
             emit({"phase": p, "done": True,
@@ -4360,7 +5247,7 @@ def main(argv=None) -> int:
         # and each kernel's launches on the archs' paths (runs a-e), the
         # recurrent families' (serve and train) and the encdec and vlm
         # families' (runs a-d)
-        for ph in ("archs", "recurrent", "encdec_vlm", "mesh"):
+        for ph in ("archs", "recurrent", "encdec_vlm", "mesh", "train_mesh"):
             for name, n in results[ph]["launches"].items():
                 launches[name] = launches.get(name, 0) + n
         line = []
@@ -4377,6 +5264,11 @@ def main(argv=None) -> int:
             if name == "packed_block_matmul":
                 # the tensor-parallel forms held in phase kernels
                 line[-1]["tp"] = results["kernels"]["k4_tp"]
+            if name == "fused_quant_matmul":
+                # the training mesh's shards (a_amax / b_amax)
+                line[-1]["tp"] = results["kernels"]["k1_tp"]
+            if name == "block_quantize":
+                line[-1]["mesh"] = results["kernels"]["k2_mesh"]
         emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -33,17 +33,29 @@ restores what the other wrote:
 with the dtype name in ``meta.json`` (``_VIEW_DTYPES``), and read back by
 viewing the raw bits.  ``meta["treedef"]``, which the reference writes and
 never reads, holds the leaf names here.
+
+On a multi-rank training mesh (``mesh=``) the tree holds this rank's shards
+(``distributed/sharding.place_train_state``): ``save`` gathers each leaf to
+its logical array, one leaf at a time, rank 0 writes the one
+``shard_0.npz`` (the format is the same) and every rank waits for it;
+``restore`` reads the logical arrays and keeps this rank's slice -- the
+reference's elastic restore
+(``repro/checkpoint/ckpt.py:105-139``), so a checkpoint saved on any mesh
+restores on any other, on one rank, or in the JAX reader.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
 import shutil
+import zipfile
 from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed
 
 from repro_torch.core.quantize import PackedQuantizedTensor
 
@@ -152,38 +164,96 @@ def _from_numpy(a: np.ndarray, dtype_name: str, device) -> torch.Tensor:
     return t.to(device)
 
 
-def save(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:
+def _multi(mesh) -> bool:
+    return mesh is not None and mesh.size > 1
+
+
+def save(ckpt_dir: str, step: int, tree, *, keep: int = 3, mesh=None) -> str:
     """Write ``tree`` as step ``step`` (atomic, idempotent) and keep the
-    newest ``keep`` steps.  Returns the step's directory."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    newest ``keep`` steps.  Returns the step's directory.  Leaves go to the
+    host and into ``shard_0.npz`` one at a time.  ``mesh``: the tree is
+    this rank's shards; every rank calls ``save`` and takes part in
+    gathering each leaf, and rank 0 copies the gathered leaf to the host
+    and writes it before the next gather, so a card holds one logical leaf
+    (a stacked leaf's layer) at most beyond its own shards."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     if os.path.isdir(final):             # idempotent re-save of a step
         return final
-    tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    multi = _multi(mesh)
+    writer = not multi or mesh.rank == 0
+    gather = _leaf_gather(tree, mesh) if multi else None
     leaves = reference_leaves(tree)
-    arrays, meta_leaves = {}, []
-    for i, (_, parts, stacked) in enumerate(leaves):
-        host = [_to_numpy(p) for p in parts]
-        arrays[f"leaf_{i}"] = (np.stack([a for a, _ in host]) if stacked
-                               else host[0][0])
-        meta_leaves.append({"dtype": host[0][1]})
-    np.savez(os.path.join(tmp, "shard_0.npz"), **arrays)
-    del arrays
-    with open(os.path.join(tmp, "meta.json"), "w") as f:
-        json.dump({"step": step, "n_leaves": len(leaves),
-                   "leaves": meta_leaves,
-                   "treedef": "repro_torch: "
-                   + " ".join(name for name, _, _ in leaves)}, f)
-    os.replace(tmp, final)
-    latest_tmp = os.path.join(ckpt_dir, "LATEST.tmp")
-    with open(latest_tmp, "w") as f:
-        f.write(os.path.basename(final))
-    os.replace(latest_tmp, os.path.join(ckpt_dir, "LATEST"))
-    _gc(ckpt_dir, keep)
+    tmp = final + ".tmp"
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+    meta_leaves = []
+    with (_NpzWriter(os.path.join(tmp, "shard_0.npz")) if writer
+          else contextlib.nullcontext()) as npz:
+        for i, (_, parts, stacked) in enumerate(leaves):
+            host = []
+            for p in parts:
+                if gather is not None and isinstance(p, torch.Tensor):
+                    p = gather(p)        # a collective: every rank
+                if writer:
+                    host.append(_to_numpy(p))
+                del p
+            if writer:
+                npz.write(f"leaf_{i}", np.stack([a for a, _ in host])
+                          if stacked else host[0][0])
+                meta_leaves.append({"dtype": host[0][1]})
+    if writer:
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump({"step": step, "n_leaves": len(leaves),
+                       "leaves": meta_leaves,
+                       "treedef": "repro_torch: "
+                       + " ".join(name for name, _, _ in leaves)}, f)
+        os.replace(tmp, final)
+        latest_tmp = os.path.join(ckpt_dir, "LATEST.tmp")
+        with open(latest_tmp, "w") as f:
+            f.write(os.path.basename(final))
+        os.replace(latest_tmp, os.path.join(ckpt_dir, "LATEST"))
+        _gc(ckpt_dir, keep)
+    if multi:
+        torch.distributed.barrier()      # the step exists for every rank
     return final
+
+
+class _NpzWriter:
+    """``np.savez``'s archive (uncompressed zip, one ``<name>.npy`` member
+    a leaf) written one array at a time."""
+
+    def __init__(self, path: str):
+        self.zf = zipfile.ZipFile(path, "w", zipfile.ZIP_STORED,
+                                  allowZip64=True)
+
+    def write(self, name: str, a: np.ndarray) -> None:
+        with self.zf.open(name + ".npy", "w", force_zip64=True) as f:
+            np.lib.format.write_array(f, np.asanyarray(a),
+                                      allow_pickle=False)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.zf.close()
+
+
+def _leaf_gather(tree, mesh) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The logical tensor of one of ``tree``'s placed shards
+    (``sharding.gather_leaf`` under its ``placed_spec``)."""
+    from repro_torch.distributed import sharding
+    specs = {}
+
+    def one(path, x):
+        if isinstance(x, torch.Tensor):
+            specs[id(x)] = sharding.placed_spec(path, x.ndim, mesh)
+        return x
+
+    sharding.map_paths(tree, one)
+    return lambda x: sharding.gather_leaf(x, specs[id(x)], mesh)
 
 
 def _gc(ckpt_dir: str, keep: int):
@@ -209,10 +279,34 @@ def _shape(part, stacked_n: Optional[int]) -> tuple:
     return s if stacked_n is None else (stacked_n,) + s
 
 
-def restore(ckpt_dir: str, step: int, like):
+def _logical_like(like, mesh):
+    """``like`` with each tensor replaced by a meta tensor of its logical
+    shape, and {id(meta tensor): (this rank's slices, device)}."""
+    from repro_torch.distributed import sharding
+    place = {}
+
+    def one(path, x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        spec = sharding.placed_spec(path, x.ndim, mesh)
+        full, off = sharding.shard_offsets(spec, x.shape, mesh)
+        meta = torch.empty(full, dtype=x.dtype, device="meta")
+        place[id(meta)] = (tuple(slice(o, o + n) for o, n in
+                                 zip(off, x.shape)), x.device)
+        return meta
+
+    return sharding.map_paths(like, one), place
+
+
+def restore(ckpt_dir: str, step: int, like, *, mesh=None):
     """Restore into the structure of ``like`` (a port tree), each tensor on
     the device of ``like``'s tensor in its place; ints come back as ints.
-    A leaf count or shape that does not match raises ``ValueError``."""
+    A leaf count or shape that does not match raises ``ValueError``.
+    ``mesh``: ``like`` holds this rank's shards; each comes back as this
+    rank's slice of the saved logical array."""
+    place = None
+    if _multi(mesh):
+        like, place = _logical_like(like, mesh)
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "meta.json")) as f:
         meta = json.load(f)
@@ -232,14 +326,20 @@ def restore(ckpt_dir: str, step: int, like):
             got = []
             for j, ref in enumerate(parts):
                 a = arr[j, ...] if stacked else arr     # 0-d stays an array
-                got.append(_from_numpy(a, dt, ref.device)
-                           if isinstance(ref, torch.Tensor) else int(a))
+                if not isinstance(ref, torch.Tensor):
+                    got.append(int(a))
+                elif place is not None:
+                    sl, dev = place[id(ref)]
+                    got.append(_from_numpy(a[sl].copy() if sl else a, dt,
+                                           dev))
+                else:
+                    got.append(_from_numpy(a, dt, ref.device))
             out.append(got if stacked else got[0])
     return _rebuild(like, iter(out).__next__)
 
 
-def restore_latest(ckpt_dir: str, like):
+def restore_latest(ckpt_dir: str, like, *, mesh=None):
     step = latest_step(ckpt_dir)
     if step is None:
         return None, None
-    return step, restore(ckpt_dir, step, like)
+    return step, restore(ckpt_dir, step, like, mesh=mesh)

@@ -167,6 +167,17 @@ def counter_bits(seed: int, shape: Sequence[int],
             tuple(int(d) for d in shape))
 
 
+def counter_at(seed: int, off: int) -> int:
+    """The seed whose ``counter_bits`` stream starts ``off`` places into
+    ``seed``'s: ``counter_bits`` hashes ``index * 0x9E3779B9 + seed``
+    (mod 2^32) before its mixing, so ``counter_bits(counter_at(seed,
+    off))[i] == counter_bits(seed)[i + off]``.  A shard whose element (r,
+    c) sits at the global flat index ``r * row_stride + c * col_stride +
+    off`` therefore draws the whole tensor's bits with the counter
+    ``(counter_at(seed, off), row_stride, col_stride)``."""
+    return (int(seed) + int(off) * 0x9E3779B9) & M32
+
+
 def counter_bits_at(seed: int, index: torch.Tensor) -> torch.Tensor:
     """``counter_bits`` of ``seed`` at the given int64 indices in [0, 2^32),
     as int32 of index's shape: what K1's counter mode hashes in the kernel.

@@ -176,7 +176,8 @@ def fake_quant(x: torch.Tensor, spec: BlockQuantSpec, *, axis: int = -1,
 
 
 def scale_health(x: torch.Tensor, spec: BlockQuantSpec, *,
-                 axis: int = -1) -> dict:
+                 axis: int = -1, amax: Optional[torch.Tensor] = None,
+                 counts: bool = False):
     """Block-scale saturation/underflow counts for telemetry.
 
     Replays ``_block_scales``' rounding on ``x`` (torch, on its device) and
@@ -185,7 +186,11 @@ def scale_health(x: torch.Tensor, spec: BlockQuantSpec, *,
     nonzero count flags an overflowing tensor) and blocks whose nonzero
     absmax rounds to a zero scale (underflow: ``_block_scales`` clamps it
     to 1, quantizing the block to zero).  Returns plain ints: one host
-    read, so call it outside a step."""
+    read, so call it outside a step.  ``amax``: the tensor scale's |max|
+    where ``x`` is one rank's shard of a larger tensor (the global one);
+    ``counts=True`` returns the three counts as an int64 device vector
+    (blocks, saturated, underflow), with no host read: the training
+    mesh's ``Trainer._scale_health`` sums it over the ranks."""
     axis = axis % x.ndim
     xf = x.to(torch.float32)
     absmax = torch.amax(torch.abs(_blocked(xf, axis, spec.block)),
@@ -194,11 +199,15 @@ def scale_health(x: torch.Tensor, spec: BlockQuantSpec, *,
         scale = formats.e8m0_floor(absmax) / (2.0 ** spec.data.emax)
         saturated = torch.zeros((), dtype=torch.int64, device=x.device)
     else:
-        tscale = _tensor_scale(torch.amax(torch.abs(xf)), spec)
+        tscale = _tensor_scale(torch.amax(torch.abs(xf)) if amax is None
+                               else amax.reshape(()), spec)
         raw = absmax / (spec.data.max * tscale)
         scale = formats.quantize_rtn(raw, spec.scale)
         saturated = torch.sum(raw > spec.scale.max)
     underflow = torch.sum((scale <= 0) & (absmax > 0))
+    if counts:
+        return torch.stack([torch.full_like(underflow, absmax.numel()),
+                            saturated, underflow])
     sat, under = torch.stack([saturated, underflow]).tolist()
     return {"blocks": absmax.numel(), "saturated": int(sat),
             "underflow": int(under)}

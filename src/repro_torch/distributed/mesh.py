@@ -1,12 +1,13 @@
-"""The serving mesh over ``torch.distributed``: one process per rank (SPMD).
+"""The process mesh over ``torch.distributed``: one process per rank (SPMD).
 
-Counterpart of ``jax.sharding.Mesh`` and ``repro.launch.mesh``.  The
-reference drives every device of its mesh from one controller; here every
-rank is a process of its own that runs the same engine code on its own
-shard, and the mesh gives it its coordinates and one process group per
-axis.  Ranks lie row-major over the axes ("data", then "model"): rank =
-data_index * model_size + model_index, as ``np.reshape`` lays devices out
-in the reference's ``make_serve_mesh``.
+Counterpart of ``jax.sharding.Mesh``, ``jax.make_mesh`` and
+``repro.launch.mesh``.  The reference drives every device of its mesh from
+one controller; here every rank is a process of its own that runs the same
+code on its own shard, and the mesh gives it its coordinates and one
+process group per axis.  Axes have any names, in row-major order: serving
+uses ("data", "model"), training ("pod", "data", "model") and the pipeline
+("pipe", "data").  rank = sum of index * (product of the later axes'
+sizes), as ``np.reshape`` lays devices out in the reference.
 
 The backend is explicit: ``nccl`` by default where the ranks run on CUDA
 (each rank owning a card), ``gloo`` on the CPU; ranks that share ONE card
@@ -15,16 +16,22 @@ through the host (NCCL refuses two ranks on one device with its own error,
 which is left to surface).  ``torch.distributed.device_mesh`` is not used:
 it makes NCCL groups for ``"cuda"``.
 
-Every collective of the port goes through ``Mesh.all_reduce`` /
-``Mesh.all_gather``, which skip an axis of size 1 and count the calls, the
-bytes this rank contributes and their host seconds (``Mesh.stats``).
+Every collective of the port goes through ``Mesh``: ``all_reduce`` (sum or
+max), ``all_gather``, ``reduce_scatter`` and the point-to-point ``send`` /
+``recv`` (the pipeline's transfers).  Each skips an axis of size 1 and counts its
+calls, the bytes this rank contributes and their host seconds, in total and
+per operation (``Mesh.stats``).  Where the backend lacks an operation for
+the tensor's device (gloo has no reduce-scatter, and no point-to-point
+transfer of CUDA tensors) the explicit equivalent runs -- an all-reduce,
+then this rank's slice; a transfer staged through host memory -- and is
+counted as the operation it implements.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import time
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -32,7 +39,7 @@ import torch.distributed as dist
 from repro_torch._device import resolve_device
 from repro_torch.distributed import specs as pspecs
 
-AXES = ("data", "model")
+AXES = ("data", "model")                    # the serving mesh's axes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,28 +57,36 @@ class MeshShape:
 
 
 class Mesh:
-    """This rank's view of the serving mesh: ``axis_names``, ``shape``,
-    ``size``, ``rank`` and its ``coords`` per axis, one process ``groups``
-    entry per axis of size > 1, the ``device`` the rank computes on and the
+    """This rank's view of a mesh: ``axis_names``, ``shape``, ``size``,
+    ``rank`` and its ``coords`` per axis, one process ``groups`` entry per
+    axis of size > 1 (with ``group_ranks``, the global ranks of this rank's
+    group on it, in axis order), the ``device`` the rank computes on and the
     collectives' ``backend``.  A 1-rank mesh has no group and needs no
     initialised process group: its collectives are the identity."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str], *,
                  device: torch.device, rank: int = 0,
                  groups: Optional[Dict[str, object]] = None,
-                 backend: Optional[str] = None):
+                 backend: Optional[str] = None,
+                 group_ranks: Optional[Dict[str, List[int]]] = None):
         self.shape = tuple(int(s) for s in shape)
         self.axis_names = tuple(axis_names)
+        if len(self.shape) != len(self.axis_names) or \
+                len(set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f"mesh shape {self.shape} and axes "
+                             f"{self.axis_names} do not pair up")
         self.rank = int(rank)
         self.device = device
         self.backend = backend
         self.groups = dict(groups or {})
+        self.group_ranks = dict(group_ranks or {})
         coords, r = {}, self.rank
         for name, n in reversed(tuple(zip(self.axis_names, self.shape))):
             coords[name] = r % n
             r //= n
         self.coords = {a: coords[a] for a in self.axis_names}
-        self.stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
+        self.stats = {"calls": 0, "bytes": 0, "seconds": 0.0, "ops": {}}
+        self.pending = []            # (work, buffer) of sends in flight
 
     @property
     def size(self) -> int:
@@ -85,40 +100,134 @@ class Mesh:
         """This rank's index along ``name`` (0 where absent)."""
         return self.coords.get(name, 0)
 
+    def axes_size(self, axes: Sequence[str]) -> int:
+        """Product of the sizes of ``axes`` (absent axes count 1)."""
+        return math.prod(self.axis_size(a) for a in axes)
+
+    def axes_index(self, axes: Sequence[str]) -> int:
+        """This rank's index over ``axes`` taken together, the first
+        major (the order a spec's tuple of axes splits a dim in)."""
+        idx = 0
+        for a in axes:
+            idx = idx * self.axis_size(a) + self.axis_index(a)
+        return idx
+
     # ---- collectives --------------------------------------------------------
 
-    def _timed(self, fn, nbytes: int):
+    def _timed(self, op: str, fn, nbytes: int):
         t0 = time.perf_counter()
         out = fn()
+        dt = time.perf_counter() - t0
         self.stats["calls"] += 1
         self.stats["bytes"] += int(nbytes)
-        self.stats["seconds"] += time.perf_counter() - t0
+        self.stats["seconds"] += dt
+        per = self.stats["ops"].setdefault(
+            op, {"calls": 0, "bytes": 0, "seconds": 0.0})
+        per["calls"] += 1
+        per["bytes"] += int(nbytes)
+        per["seconds"] += dt
         return out
 
-    def all_reduce(self, t: torch.Tensor, axis: str,
-                   op: str = "sum") -> torch.Tensor:
-        """``t`` reduced over ``axis`` IN PLACE (op "sum" or "max"); every
-        rank of the axis holds the same bits after it."""
-        if self.axis_size(axis) == 1:
-            return t
-        rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-        self._timed(lambda: dist.all_reduce(t, rop, group=self.groups[axis]),
-                    t.numel() * t.element_size())
+    def reset_stats(self) -> None:
+        self.stats = {"calls": 0, "bytes": 0, "seconds": 0.0, "ops": {}}
+
+    def all_reduce(self, t: torch.Tensor, axis, op: str = "sum"
+                   ) -> torch.Tensor:
+        """``t`` reduced over ``axis`` (a name, or a sequence of names
+        reduced one after the other) IN PLACE, op "sum" or "max"; every
+        rank of the axes holds the same bits after it."""
+        for a in ((axis,) if isinstance(axis, str) else tuple(axis)):
+            if self.axis_size(a) == 1:
+                continue
+            rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+            self._timed(f"all_reduce_{op}",
+                        lambda: dist.all_reduce(t, rop, group=self.groups[a]),
+                        t.numel() * t.element_size())
         return t
 
-    def all_gather(self, t: torch.Tensor, axis: str, dim: int = 0
-                   ) -> torch.Tensor:
+    def all_gather(self, t: torch.Tensor, axis: str, dim: int = 0,
+                   op: str = "all_gather") -> torch.Tensor:
         """The axis' shards of ``t`` concatenated along ``dim`` in rank
-        order (the reference's ``all_gather(tiled=True)``)."""
+        order (the reference's ``all_gather(tiled=True)``); ``op`` names
+        the purpose in ``stats`` (the FSDP weight gathers count as
+        "fsdp_gather")."""
         n = self.axis_size(axis)
         if n == 1:
             return t
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(n)]
-        self._timed(lambda: dist.all_gather(parts, t,
-                                            group=self.groups[axis]),
+        self._timed(op, lambda: dist.all_gather(parts, t,
+                                                group=self.groups[axis]),
                     t.numel() * t.element_size())
         return torch.cat(parts, dim=dim)
+
+    def reduce_scatter(self, t: torch.Tensor, axis: str, dim: int = 0
+                       ) -> torch.Tensor:
+        """The sum of ``t`` over ``axis``, cut along ``dim`` into the
+        axis' shards: this rank's shard (a tensor of its own).  ``t``'s
+        ``dim`` must divide by the axis size.  gloo has no reduce-scatter:
+        there it is an all-reduce and a slice, counted as
+        "reduce_scatter" with the bytes of the whole tensor."""
+        n = self.axis_size(axis)
+        if n == 1:
+            return t
+        if t.shape[dim] % n:
+            raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)}"
+                             f" does not split over {axis}={n}")
+        size = t.shape[dim] // n
+        idx = self.axis_index(axis)
+        if self.backend == "gloo":
+            full = t.contiguous().clone()
+            self._timed("reduce_scatter", lambda: dist.all_reduce(
+                full, dist.ReduceOp.SUM, group=self.groups[axis]),
+                full.numel() * full.element_size())
+            return full.narrow(dim, idx * size, size).contiguous()
+        parts = [p.contiguous() for p in t.split(size, dim=dim)]
+        out = torch.empty_like(parts[idx])
+        self._timed("reduce_scatter", lambda: dist.reduce_scatter(
+            out, parts, op=dist.ReduceOp.SUM, group=self.groups[axis]),
+            t.numel() * t.element_size())
+        return out
+
+    def _peer(self, axis: str, step: int) -> int:
+        """Global rank of the rank ``step`` places along ``axis`` (mod its
+        size)."""
+        ranks = self.group_ranks[axis]
+        return ranks[(self.axis_index(axis) + step) % len(ranks)]
+
+    def send(self, t: torch.Tensor, axis: str, step: int = 1,
+             tag: int = 0):
+        """Send ``t`` to the rank ``step`` places along ``axis``
+        (non-blocking: returns the pending work; the caller keeps ``t``
+        alive and waits on it).  CUDA tensors over gloo are staged through
+        host memory."""
+        src = t.contiguous()
+        if self.backend == "gloo" and src.is_cuda:
+            src = src.cpu()
+        peer = self._peer(axis, step)
+        work = self._timed("send", lambda: dist.isend(
+            src, dst=peer, group=self.groups[axis], tag=tag),
+            src.numel() * src.element_size())
+        return work, src
+
+    def wait_sends(self) -> None:
+        """Complete the sends kept in ``pending``."""
+        while self.pending:
+            work, _ = self.pending.pop(0)
+            work.wait()
+
+    def recv(self, like: torch.Tensor, axis: str, step: int = -1,
+             tag: int = 0) -> torch.Tensor:
+        """Receive a tensor of ``like``'s shape, dtype and device from the
+        rank ``step`` places along ``axis`` (blocking)."""
+        stage = self.backend == "gloo" and like.is_cuda
+        buf = torch.empty(like.shape, dtype=like.dtype,
+                          device="cpu" if stage else like.device)
+        peer = self._peer(axis, step)
+        self._timed("recv", lambda: dist.recv(
+            buf, src=peer, group=self.groups[axis], tag=tag),
+            buf.numel() * buf.element_size())
+        return buf.to(like.device) if stage else buf
 
 
 def _axis_groups(shape, axis_names, axis: str):
@@ -144,18 +253,19 @@ def _product(ranges):
             yield (i,) + rest
 
 
-def make_serve_mesh(spec: Optional[str] = None, *, device=None,
-                    backend: Optional[str] = None) -> Mesh:
-    """The serving mesh of a ``--mesh`` spec ("tp=2", "dp=2,tp=2", ...),
-    after ``repro.distributed.sharding.make_serve_mesh``.  ``None`` / ""
-    / a spec of size 1 is the 1-rank mesh: the identity placement, no
-    process group needed.  A larger spec needs an initialised world of
-    exactly that many ranks (each running this call), else ``ValueError``.
-    ``device``: the rank's device (default cuda; see ``resolve_device``);
-    ``backend``: the groups' (default "nccl" on CUDA, "gloo" on the CPU)."""
-    sizes = pspecs.parse_mesh_spec(spec)
-    axes = tuple(a for a in AXES if a in sizes)
-    shape = tuple(sizes[a] for a in axes)
+def make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
+              device=None, backend: Optional[str] = None) -> Mesh:
+    """The mesh ``shape`` over ``axis_names`` (row-major) on the
+    initialised world, the counterpart of ``jax.make_mesh``; each rank of
+    the world calls it.  A shape of size 1 is the 1-rank mesh (no process
+    group needed); any other must have exactly the world's number of
+    ranks, else ``ValueError``.  ``device``: the rank's device (default
+    cuda; see ``resolve_device``); ``backend``: the groups' (default
+    "nccl" on CUDA, "gloo" on the CPU)."""
+    shape = tuple(int(s) for s in shape)
+    axes = tuple(axis_names)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} do not pair up")
     need = math.prod(shape)
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
@@ -165,21 +275,50 @@ def make_serve_mesh(spec: Optional[str] = None, *, device=None,
     have = dist.get_world_size() if dist.is_initialized() else 1
     if have != need:
         raise ValueError(
-            f"mesh spec {spec!r} needs {need} ranks, the world has {have}; "
-            f"run one process per rank (distributed.mesh.spawn, "
+            f"mesh {dict(zip(axes, shape))} needs {need} ranks, the world "
+            f"has {have}; run one process per rank (distributed.mesh.spawn, "
             f"launch.serve --mesh, or torchrun)")
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     rank = dist.get_rank()
-    groups = {}
+    groups, group_ranks = {}, {}
     for axis, n in zip(axes, shape):
         if n == 1:
             continue
         for ranks in _axis_groups(shape, axes, axis):
             g = dist.new_group(ranks, backend=backend)
             if rank in ranks:
-                groups[axis] = g
+                groups[axis], group_ranks[axis] = g, ranks
     return Mesh(shape, axes, device=dev, rank=rank, groups=groups,
-                backend=backend)
+                backend=backend, group_ranks=group_ranks)
+
+
+def make_serve_mesh(spec: Optional[str] = None, *, device=None,
+                    backend: Optional[str] = None) -> Mesh:
+    """The serving mesh of a ``--mesh`` spec ("tp=2", "dp=2,tp=2", ...),
+    after ``repro.distributed.sharding.make_serve_mesh``: ``make_mesh``
+    over ("data", "model").  ``None`` / "" / a spec of size 1 is the
+    1-rank mesh; a larger spec needs an initialised world of exactly that
+    many ranks (each running this call), else ``ValueError``."""
+    sizes = pspecs.parse_mesh_spec(spec)
+    axes = tuple(a for a in AXES if a in sizes)
+    shape = tuple(sizes[a] for a in axes)
+    try:
+        return make_mesh(shape, axes, device=device, backend=backend)
+    except ValueError as e:
+        raise ValueError(f"mesh spec {spec!r}: {e}") from None
+
+
+def make_pipeline_mesh(n_stages: int, world: Optional[int] = None, *,
+                       device=None, backend: Optional[str] = None) -> Mesh:
+    """A ("pipe", "data") mesh of ``n_stages`` stages over ``world`` ranks
+    (default: the initialised world's), after the reference's
+    ``make_pipeline_mesh`` (pipeline.py:110-117)."""
+    n = world if world is not None else (
+        dist.get_world_size() if dist.is_initialized() else 1)
+    if n % n_stages:
+        raise ValueError(f"{n} ranks not divisible into {n_stages} stages")
+    return make_mesh((n_stages, n // n_stages), ("pipe", "data"),
+                     device=device, backend=backend)
 
 
 def describe(mesh) -> str:

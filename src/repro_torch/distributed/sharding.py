@@ -1,11 +1,13 @@
-"""Sharding rules of the serving mesh, and this rank's shards.
+"""Sharding rules of the serving and training meshes, and this rank's
+shards.
 
-Counterpart of ``repro.distributed.sharding`` (its serving half).  The rule
-table and its spec derivation are the reference's, on tuples of mesh-axis
-names (the tuples a JAX ``PartitionSpec`` holds), so the port's specs
-compare with the reference's leaf for leaf: TP shards the hidden / ffn /
-head / vocab dimension of every weight on "model", FSDP its d_model
-dimension on "data".
+Counterpart of ``repro.distributed.sharding``.  The rule table and its spec
+derivation are the reference's, on tuples of mesh-axis names (the tuples a
+JAX ``PartitionSpec`` holds), so the port's specs compare with the
+reference's leaf for leaf: TP shards the hidden / ffn / head / vocab
+dimension of every weight on "model", FSDP its d_model dimension on "data",
+DP the batch over ("pod", "data"); AdamW's master weights and moments follow
+their parameter (``opt_state_shardings``).
 
 Where the reference hands the specs to GSPMD, which places each shard on
 its device, here every rank is a process of its own: ``place_serve_params``
@@ -17,12 +19,28 @@ runs the Megatron decomposition on those shards (``core/fqt.py``,
 placement raises ``ValueError`` naming the leaf; the reference replicates
 the leaf and carries on (a declared divergence).
 
-``constrain``/``activation_sharding_scope`` (GSPMD layout annotations),
-``cache_specs``, ``batch_shardings`` and ``opt_state_shardings`` belong to
-the training mesh and are not here.
+``place_train_state`` is the training counterpart of
+``place_serve_params``: this rank's shard of every parameter and of its
+master weights and moments, the step counters and the threshold state
+replicated.
+
+``params_shardings``, ``batch_shardings``, ``opt_state_shardings``,
+``cache_specs`` and ``train/step.state_shardings`` return the reference's
+spec trees, for comparison with it (the tests hold them leaf for leaf);
+nothing on the port's path reads them: it places by the ``place_*``
+functions and reads a placed leaf's spec with ``placed_spec``.
+
+``activation_sharding_scope`` / ``constrain`` keep the reference's API:
+under GSPMD they pin the activation layout; here the layout is what the
+Megatron decomposition computes, which is the reference's "replicated"
+mode (the residual stream replicated over "model", the batch over the DP
+axes), so ``constrain`` is the identity.  The sequence-parallel mode "sp"
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import logging
 import re
@@ -87,6 +105,14 @@ def _spec_for(kind: str, ndim: int, mesh) -> tuple:
     if kind == "vec_out":
         return (*((None,) * (ndim - 1)), tp)
     return ()
+
+
+def param_kind(path: str) -> str:
+    """The rule-table kind of a leaf path ("io", "oi", "vocab_d", ...)."""
+    for pat, kind in _PARAM_RULES:
+        if re.search(pat, path):
+            return kind
+    return "rep"
 
 
 def param_spec(path: str, ndim: int, mesh) -> tuple:
@@ -159,6 +185,250 @@ def spec_for_packed(path: str, leaf: PackedQuantizedTensor, mesh,
     return out
 
 
+def params_shardings(params, mesh):
+    """The spec tree of a parameter tree (the reference's
+    ``params_shardings``, whose ``NamedSharding``s hold these specs)."""
+    return params_specs(params, mesh)
+
+
+def placed_spec(path: str, ndim: int, mesh) -> tuple:
+    """The spec of a leaf that ``place_train_state`` / ``place_serve_params``
+    placed: the planned rule with size-1 axes dropped (placement raised
+    where a split does not divide, so nothing else was dropped).  Read off
+    the leaf's path and rank only, as a local shard's shape no longer
+    tells divisibility."""
+    sizes = _mesh_axis_sizes(mesh)
+    spec = []
+    for ax in param_spec(path, ndim, mesh):
+        axes = pspecs._axes_of(ax)
+        spec.append(ax if axes and all(a in sizes for a in axes)
+                    and pspecs._axes_size(ax, sizes) > 1 else None)
+    return pspecs.strip_trailing_none(spec)
+
+
+def spec_axes(spec) -> Tuple[str, ...]:
+    """The mesh axes a spec names, in order."""
+    return tuple(a for ax in spec for a in pspecs._axes_of(ax))
+
+
+def tree_specs(tree, mesh):
+    """``placed_spec`` of every tensor leaf of a placed tree (a tree of
+    spec tuples of the same structure)."""
+    return _walk(tree, lambda path, x: placed_spec(path, x.ndim, mesh)
+                 if isinstance(x, torch.Tensor) else ())
+
+
+def is_owner(spec, mesh) -> bool:
+    """Whether this rank counts a leaf of ``spec`` in a sum over the whole
+    mesh: every rank holds a distinct shard along the axes the spec names,
+    and along the others (where the leaf is replicated) only index 0
+    counts, so no value is counted twice."""
+    named = set(spec_axes(spec))
+    return all(mesh.axis_index(a) == 0 for a in mesh.axis_names
+               if a not in named)
+
+
+def mesh_sum(values: torch.Tensor, owners, mesh) -> torch.Tensor:
+    """Per-leaf partial sums (an f32 vector, one entry a leaf) summed over
+    the whole mesh, each leaf's over its owners only (``is_owner``): the
+    same bits on every rank."""
+    if mesh.size == 1:
+        return values
+    mask = torch.tensor([1.0 if o else 0.0 for o in owners],
+                        dtype=torch.float32, device=values.device)
+    return mesh.all_reduce(values * mask, mesh.axis_names)
+
+
+# ---- activations / batch / optimizer ----------------------------------------
+
+
+def _as_p(spec) -> tuple:
+    """A spec in the form a JAX ``PartitionSpec`` holds its entries: an
+    empty tuple of axes is None, a one-axis tuple the bare name."""
+    return tuple(None if isinstance(ax, tuple) and not ax else
+                 ax[0] if isinstance(ax, tuple) and len(ax) == 1 else ax
+                 for ax in spec)
+
+
+def batch_spec(mesh) -> tuple:
+    """(B, S) token batches: the batch over the DP axes."""
+    return _as_p((dp_axes(mesh),))
+
+
+def _axes_size(mesh, axes) -> int:
+    sizes = _mesh_axis_sizes(mesh)
+    n = 1
+    for a in axes:
+        n *= sizes[a]
+    return max(n, 1)
+
+
+def _map_shaped(tree, fn):
+    """``fn(leaf)`` over every leaf with a ``shape`` of dicts, lists,
+    tuples and dataclasses (the port's batch and cache structures)."""
+    if isinstance(tree, dict):
+        return {k: _map_shaped(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_shaped(v, fn) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _map_shaped(getattr(tree, f.name), fn)
+            for f in dataclasses.fields(tree) if f.init})
+    if hasattr(tree, "shape"):
+        return fn(tree)
+    return tree
+
+
+def batch_shardings(batch_struct, mesh):
+    """Specs of a batch: the leading dim over the DP axes where they divide
+    it, else replicated (the reference's ``batch_shardings``)."""
+    dp = dp_axes(mesh)
+
+    def one(x):
+        return _as_p((dp,)) if x.shape and \
+            x.shape[0] % _axes_size(mesh, dp) == 0 else ()
+
+    return _map_shaped(batch_struct, one)
+
+
+def opt_state_shardings(opt_state, params_shards, mesh):
+    """AdamW state: master / m / v follow the parameter specs; the step
+    counter replicated."""
+    return dataclasses.replace(opt_state, step=(), master=params_shards,
+                               m=params_shards, v=params_shards)
+
+
+def cache_specs(cache_struct, mesh, batch: int):
+    """Specs of serving state (the reference's ``cache_specs``, specs
+    only): KV caches (B, S, KVH, D) batch on the DP axes when divisible,
+    the longest other dim on "model" when divisible (SP for the sequence,
+    head-parallel for SSM states); stacked (L, B, ...) caches keep the
+    layer axis whole."""
+    dp = dp_axes(mesh)
+    tp = tp_axis(mesh)
+    dp_ok = batch % _axes_size(mesh, dp) == 0
+
+    def one(x):
+        shape = tuple(x.shape)
+        bspec = dp if (dp_ok and len(shape) and shape[0] in (batch,)) \
+            else None
+        bdim = 0
+        if len(shape) >= 2 and shape[0] != batch and shape[1] == batch:
+            bdim = 1
+        spec = [None] * len(shape)
+        if bspec is not None and len(shape) > bdim and shape[bdim] == batch:
+            spec[bdim] = dp
+        if tp is not None and len(shape) > bdim + 1:
+            rest = [(d, n) for d, n in enumerate(shape) if d > bdim]
+            d_best, s_best = max(rest, key=lambda t: t[1])
+            if s_best % _axes_size(mesh, (tp,)) == 0 and s_best > 1:
+                spec[d_best] = tp
+        return _as_p(spec)
+
+    return _map_shaped(cache_struct, one)
+
+
+# ---- which DP axes the backward sums over -----------------------------------
+#
+# Under GSPMD the reference's gradient is the global batch's: every DP axis,
+# "pod" included, is summed in the backward.  A step that compresses the
+# inter-pod all-reduce instead leaves each pod the mean of its own tokens
+# (``compression.pod_mean_grads`` averages them after): inside
+# ``per_pod_gradients()`` the backward sums over "data" only.
+
+_PER_POD: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_per_pod_grads", default=False)
+
+
+@contextlib.contextmanager
+def per_pod_gradients(active: bool = True):
+    tok = _PER_POD.set(bool(active))
+    try:
+        yield
+    finally:
+        _PER_POD.reset(tok)
+
+
+def grad_sum_axes(mesh) -> Tuple[str, ...]:
+    """The DP axes (of size > 1) the backward sums the gradients over:
+    ("pod", "data"), or ("data",) inside ``per_pod_gradients``."""
+    axes = ("data",) if _PER_POD.get() else ("pod", "data")
+    return tuple(a for a in axes if mesh.axis_size(a) > 1)
+
+
+# ---- activation layout (the reference's GSPMD constraints) ------------------
+
+_ACT_CTX: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_act_sharding", default=None)
+_SP_TODO = ("activation mode 'sp' (the sequence-parallel residual stream: "
+            "an all-gather before and a reduce-scatter after every TP "
+            "block in models/layers.py) is not yet ported; the port runs "
+            "mode 'replicated'")
+
+
+@contextlib.contextmanager
+def activation_sharding_scope(mesh, mode: str = "sp"):
+    """The reference's scope of activation constraints.  "replicated" is
+    the layout the port's Megatron decomposition computes, so the scope
+    only records it; "sp" raises ``NotImplementedError``."""
+    if mode not in ("replicated", "sp"):
+        raise ValueError(mode)
+    if mode == "sp":
+        raise NotImplementedError(_SP_TODO)
+    tok = _ACT_CTX.set((mesh, mode))
+    try:
+        yield
+    finally:
+        _ACT_CTX.reset(tok)
+
+
+def _constrain_spec(kind: str, shape, mesh, mode: str) -> tuple:
+    """The reference's activation spec of ``kind`` ("res", "hidden",
+    "heads", "logits", "tokens", "experts", "groups", "qblocks")."""
+    dp, tp = dp_axes(mesh), tp_axis(mesh)
+    nd = len(shape)
+    if kind == "res":
+        seq = tp if (mode == "sp" and nd >= 3) else None
+        spec = (dp, seq) + (None,) * (nd - 2)
+    elif kind == "hidden":
+        spec = (dp,) + (None,) * (nd - 2) + (tp,)
+    elif kind == "heads":
+        spec = (dp,) + (None,) * (nd - 3) + (tp, None)
+    elif kind == "logits":
+        spec = (dp,) + (None,) * (nd - 2) + (tp,)
+    elif kind == "tokens":
+        spec = (dp,) + (None,) * (nd - 1)
+    elif kind == "experts":
+        spec = (None, dp) + (None,) * (nd - 2)
+    elif kind == "groups":
+        spec = (dp,) + (None,) * (nd - 1)
+    elif kind == "qblocks":
+        tp_size = _axes_size(mesh, (tp,)) if tp else 1
+        if nd == 6 and tp and (shape[3] * shape[4]) % tp_size == 0:
+            if shape[3] % tp_size == 0:
+                spec = (dp, None, None, tp, None, None)
+            elif shape[4] % tp_size == 0:
+                spec = (dp, None, None, None, tp, None)
+            else:
+                spec = (dp, tp, None, None, None, None)
+        else:
+            spec = (dp, tp) + (None,) * (nd - 2)
+    else:
+        raise ValueError(f"unknown constraint kind {kind!r}")
+    return _as_p(_divisible(spec, shape, mesh))
+
+
+def constrain(x, kind: str):
+    """The identity: under the "replicated" scope the Megatron
+    decomposition already computes the layout ``_constrain_spec`` names
+    (the kind is still checked)."""
+    ctx = _ACT_CTX.get()
+    if ctx is None or not hasattr(x, "shape") or x.ndim < 2:
+        return x
+    _constrain_spec(kind, x.shape, ctx[0], ctx[1])
+    return x
+
+
 # ---- this rank's shards -----------------------------------------------------
 
 
@@ -210,6 +480,94 @@ def place_serve_params(params, mesh):
     if mesh.size == 1:
         return params
     return _walk(params, one)
+
+
+def place_train_state(state, mesh):
+    """This rank's share of a full ``train.TrainState``: its shard of every
+    parameter leaf and of AdamW's master weights and moments (each the
+    parameter's spec, ``opt_state_shardings``), ``step`` and the threshold
+    state replicated.  On a 1-rank mesh the state itself.  Where a planned
+    split does not divide, ``ValueError`` names the leaf."""
+    if mesh.size == 1:
+        return state
+    place = place_train_params
+    opt = dataclasses.replace(state.opt, master=place(state.opt.master, mesh),
+                              m=place(state.opt.m, mesh),
+                              v=place(state.opt.v, mesh))
+    return dataclasses.replace(state, params=place(state.params, mesh),
+                               opt=opt)
+
+
+def place_train_params(params, mesh):
+    """This rank's shard of every leaf of a full parameter tree (the
+    training placement of ``place_train_state``); ``ValueError`` names a
+    leaf whose planned split does not divide."""
+    if mesh.size == 1:
+        return params
+
+    def one(path, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        spec = _divisible(param_spec(path, leaf.ndim, mesh), leaf.shape,
+                          mesh, path=path, strict=True)
+        return local_shard(leaf, spec, mesh)
+
+    return _walk(params, one)
+
+
+def map_paths(tree, fn, path: str = ""):
+    """``fn(path, leaf)`` over dicts, lists/tuples and dataclasses (a
+    ``TrainState`` and its ``AdamWState``: field names in the path), as
+    ``_walk``; a ``PackedQuantizedTensor`` is one leaf."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type) \
+            and not isinstance(tree, PackedQuantizedTensor):
+        return dataclasses.replace(tree, **{
+            f.name: map_paths(getattr(tree, f.name), fn,
+                              f"{path}/{f.name}" if path else f.name)
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: map_paths(v, fn, f"{path}/{k}" if path else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_paths(v, fn, f"{path}/{i}" if path else str(i))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def gather_leaf(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The logical tensor of this rank's shard ``x`` placed under
+    ``spec``: all-gathered along every split dim (a dim split over a tuple
+    of axes gathers its inner axis first)."""
+    for d, ax in enumerate(spec):
+        for a in reversed(pspecs._axes_of(ax)):
+            x = mesh.all_gather(x, a, dim=d)
+    return x
+
+
+def gather_tree(tree, mesh, keep: bool = True):
+    """Every tensor leaf of a placed tree gathered to its logical tensor
+    (``gather_leaf`` by ``placed_spec``); each rank takes part in every
+    gather.  ``keep=False``: the gathered tensors are dropped (a rank that
+    only serves the collectives), the leaves returned as ``None``."""
+    def one(path, x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        full = gather_leaf(x, placed_spec(path, x.ndim, mesh), mesh)
+        return full if keep else None
+    return map_paths(tree, one)
+
+
+def shard_offsets(spec, local_shape, mesh) -> Tuple[Tuple[int, ...],
+                                                     Tuple[int, ...]]:
+    """(full shape, this rank's offset per dim) of a local shard placed
+    under ``spec``."""
+    full, off = [], []
+    for d, n in enumerate(local_shape):
+        ax = spec[d] if d < len(spec) else None
+        k, idx = _shard_index(ax, mesh) if ax is not None else (1, 0)
+        full.append(n * k)
+        off.append(n * idx)
+    return tuple(full), tuple(off)
 
 
 def local_dims(kind: str, shape, mesh) -> tuple:

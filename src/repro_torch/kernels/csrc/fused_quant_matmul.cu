@@ -25,7 +25,11 @@
 //
 // What the design does about it:
 //   * per operand, one |x| max reduction (atomicMax on the float bits) whose
-//     power-of-two tensor scale stays on the device -- no host sync -- and
+//     power-of-two tensor scale stays on the device -- no host sync -- or,
+//     for an operand that is one rank's shard of a larger tensor, the
+//     given global |max| (a_amax / b_amax: a device f32 the caller
+//     all-reduced) read in its place, so the shard quantizes as the whole
+//     tensor does (the tensor-parallel GEMMs of core/fqt.py); and
 //     one quantizer launch (fp4::quantize_operand_to), one thread per block
 //     of `block` values in the TPU kernel's order of operations (the body
 //     K2 and K4 run): raw = amax / (data_max * ts), scale = RtN onto the
@@ -111,31 +115,47 @@ gemm_f32_kernel(const float* __restrict__ aq, const float* __restrict__ bq,
 
 }  // namespace
 
-// ws_amax: 2 uint32, ws_ts: 2 f32 (tsA, tsB).  bf16_core = 1: aq_ws (M, K)
-// and bq_ws (N, K) bf16, the tensor-core core; 0: aq_ws (M, K) and bq_ws
-// (K, N) f32, the f32 tile loop.  sr_a / sr_b: each operand's SR source.
+// A given |max| is read as the bits the absmax pass would have written (a
+// non-negative float orders like its bit pattern); null: the operand's own.
+static unsigned int* amax_source(const float* given, unsigned int* ws) {
+  return given ? reinterpret_cast<unsigned int*>(const_cast<float*>(given))
+               : ws;
+}
+
+// ws_amax: 2 uint32, ws_ts: 2 f32 (tsA, tsB).  a_amax / b_amax: null, or a
+// device f32 holding that operand's global |max| (its absmax pass is then
+// skipped).  bf16_core = 1: aq_ws (M, K) and bq_ws (N, K) bf16, the
+// tensor-core core; 0: aq_ws (M, K) and bq_ws (K, N) f32, the f32 tile
+// loop.  sr_a / sr_b: each operand's SR source.
 extern "C" int fp4_fused_quant_matmul(
     const void* a, int a_bf16, const void* b, int b_bf16,
     const fp4::SrBits* sr_a, const fp4::SrBits* sr_b, int M, int N, int K,
     int block, const fp4::QuantParams* qa, const fp4::QuantParams* qb,
-    int bf16_core, unsigned int* ws_amax, float* ws_ts, void* aq_ws,
-    void* bq_ws, void* out, int out_bf16, cudaStream_t stream) {
+    int bf16_core, unsigned int* ws_amax, float* ws_ts, const float* a_amax,
+    const float* b_amax, void* aq_ws, void* bq_ws, void* out, int out_bf16,
+    cudaStream_t stream) {
+  unsigned int* am_a = amax_source(a_amax, ws_amax);
+  unsigned int* am_b = amax_source(b_amax, ws_amax + 1);
   if (bf16_core) {
     auto* aq = static_cast<__nv_bfloat16*>(aq_ws);
     auto* bq = static_cast<__nv_bfloat16*>(bq_ws);
     fp4::quantize_operand_to(a, a_bf16, *sr_a, size_t(M), size_t(K), block,
-                             0, 0, *qa, ws_amax, ws_ts, aq, stream);
+                             0, 0, *qa, am_a, ws_ts, aq, stream,
+                             a_amax != nullptr);
     fp4::quantize_operand_to(b, b_bf16, *sr_b, size_t(K), size_t(N), block,
-                             1, 1, *qb, ws_amax + 1, ws_ts + 1, bq, stream);
+                             1, 1, *qb, am_b, ws_ts + 1, bq, stream,
+                             b_amax != nullptr);
     return fp4gemm::launch_gemm(aq, bq, M, N, K, ws_ts, ws_ts + 1, out,
                                 out_bf16, stream);
   }
   auto* aq = static_cast<float*>(aq_ws);
   auto* bq = static_cast<float*>(bq_ws);
   fp4::quantize_operand_to(a, a_bf16, *sr_a, size_t(M), size_t(K), block, 0,
-                           0, *qa, ws_amax, ws_ts, aq, stream);
+                           0, *qa, am_a, ws_ts, aq, stream,
+                           a_amax != nullptr);
   fp4::quantize_operand_to(b, b_bf16, *sr_b, size_t(K), size_t(N), block, 1,
-                           0, *qb, ws_amax + 1, ws_ts + 1, bq, stream);
+                           0, *qb, am_b, ws_ts + 1, bq, stream,
+                           b_amax != nullptr);
   constexpr int BM = 64, BN = 64, BK = 32;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   gemm_f32_kernel<BM, BN, BK, 4, 4><<<grid, (BM / 4) * (BN / 4), 0, stream>>>(

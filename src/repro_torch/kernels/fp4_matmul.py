@@ -401,15 +401,20 @@ def fused_quant_matmul_plain(a: torch.Tensor, b: torch.Tensor,
                              b_rbits: Optional[torch.Tensor] = None,
                              out_dtype=torch.float32,
                              a_counter: Optional[Counter] = None,
-                             b_counter: Optional[Counter] = None
+                             b_counter: Optional[Counter] = None,
+                             a_amax: Optional[torch.Tensor] = None,
+                             b_amax: Optional[torch.Tensor] = None
                              ) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: Q(A) (blocks along axis 1)
     @ Q(B) (blocks along axis 0), f32, times tsA * tsB.  A counter-mode
-    operand draws ``counter_rbits`` first."""
+    operand draws ``counter_rbits`` first; ``a_amax`` / ``b_amax`` as in
+    ``fused_quant_matmul``."""
     a_rbits = _sr_bits(spec_a, a_rbits, a_counter, a)
     b_rbits = _sr_bits(spec_b, b_rbits, b_counter, b)
-    ad, tsa = _quantized_operand(a, spec_a, a_rbits, along_rows=False)
-    bd, tsb = _quantized_operand(b, spec_b, b_rbits, along_rows=True)
+    ad, tsa = _quantized_operand(a, spec_a, a_rbits, along_rows=False,
+                                 amax=a_amax)
+    bd, tsb = _quantized_operand(b, spec_b, b_rbits, along_rows=True,
+                                 amax=b_amax)
     return (torch.matmul(ad, bd) * (tsa * tsb)).to(out_dtype)
 
 
@@ -421,13 +426,13 @@ def _fused_lib():
                        ctypes.POINTER(_SrBits), _I, _I, _I, _I,
                        ctypes.POINTER(_QuantParams),
                        ctypes.POINTER(_QuantParams), _I, _P, _P, _P, _P, _P,
-                       _I, _P]
+                       _P, _P, _I, _P]
         fn.restype = _I
     return fn
 
 
 def _check_fused(a, b, spec_a, spec_b, a_rbits, b_rbits, a_counter,
-                 b_counter, out_dtype):
+                 b_counter, out_dtype, a_amax=None, b_amax=None):
     if a.ndim != 2 or b.ndim != 2:
         raise ValueError(f"operands must be 2-D, got {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
@@ -452,6 +457,11 @@ def _check_fused(a, b, spec_a, spec_b, a_rbits, b_rbits, a_counter,
                              f"of {name}.shape or {name}_counter")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype {out_dtype} not supported")
+    for name, amax in (("a_amax", a_amax), ("b_amax", b_amax)):
+        if amax is not None and (amax.dtype != torch.float32
+                                 or amax.numel() != 1
+                                 or amax.device != a.device):
+            raise ValueError(f"{name} must be one f32 value on a's device")
     return M, N, K
 
 
@@ -461,9 +471,19 @@ def fused_quant_matmul(a: torch.Tensor, b: torch.Tensor,
                        b_rbits: Optional[torch.Tensor] = None,
                        out_dtype=torch.float32,
                        a_counter: Optional[Counter] = None,
-                       b_counter: Optional[Counter] = None) -> torch.Tensor:
+                       b_counter: Optional[Counter] = None,
+                       a_amax: Optional[torch.Tensor] = None,
+                       b_amax: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """Quantize-A (blocks along axis 1) x quantize-B (blocks along axis 0):
     (M, K) @ (K, N) -> (M, N) in ``out_dtype``.
+
+    ``a_amax`` / ``b_amax``: where the operand is one rank's shard of a
+    larger tensor (``core/fqt.py``'s tensor-parallel GEMMs), a one-value
+    f32 tensor on its device holding the whole tensor's |max|: the tensor
+    scale is derived from it and the operand's own absmax pass is skipped;
+    the block scales stay the shard's own.  Absent, the operand's own
+    |max| (nothing changes: result, route, launch count).
 
     SR operands come with uint32 bits of their own shape (int32 or uint32
     tensors holding the same patterns) or, port-internal, with a
@@ -474,11 +494,12 @@ def fused_quant_matmul(a: torch.Tensor, b: torch.Tensor,
     K % 8 == 0.
     """
     M, N, K = _check_fused(a, b, spec_a, spec_b, a_rbits, b_rbits,
-                           a_counter, b_counter, out_dtype)
+                           a_counter, b_counter, out_dtype, a_amax, b_amax)
     if a.device.type == "cpu":
         return fused_quant_matmul_plain(
             a, b, spec_a, spec_b, a_rbits=a_rbits, b_rbits=b_rbits,
-            out_dtype=out_dtype, a_counter=a_counter, b_counter=b_counter)
+            out_dtype=out_dtype, a_counter=a_counter, b_counter=b_counter,
+            a_amax=a_amax, b_amax=b_amax)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
     # ---- what the CUDA kernel takes ----
@@ -510,6 +531,8 @@ def fused_quant_matmul(a: torch.Tensor, b: torch.Tensor,
         int(b.dtype == torch.bfloat16), ctypes.byref(srcs[0]),
         ctypes.byref(srcs[1]), M, N, K, spec_a.block, ctypes.byref(qa),
         ctypes.byref(qb), int(core), ws_amax.data_ptr(), ws_ts.data_ptr(),
+        None if a_amax is None else a_amax.data_ptr(),
+        None if b_amax is None else b_amax.data_ptr(),
         aq_ws.data_ptr(), bq_ws.data_ptr(), out.data_ptr(),
         int(out_dtype == torch.bfloat16), stream)
     if err != 0:

@@ -132,24 +132,150 @@ class _EmbedLookup(torch.autograd.Function):
         return onehot.T @ g2, None
 
 
+# ---- the Megatron pair and the FSDP gather (autograd over Mesh collectives) ----
+#
+# On a multi-rank mesh every rank runs the layer on its shards.  The
+# collectives that autograd must see are these Functions (``torch.
+# distributed.nn`` is not used: its all_gather's backward sums over ranks):
+#
+#   copy_to_tp       identity forward, all-reduce over "model" backward: a
+#                    replicated tensor entering a "model"-local computation
+#                    (a replicated weight applied to local heads);
+#   reduce_from_tp   all-reduce over "model" forward, identity backward (the
+#                    vocab-parallel embedding's rows);
+#   gather_from_tp   all-gather over "model" forward, this rank's slice
+#                    backward (the logits: every rank computes the same loss
+#                    from the same full logits, so a sum would count the
+#                    head's gradient tp times);
+#   fsdp_gather      all-gather over "data" forward, reduce-scatter (f32
+#                    sum, this rank's slice) backward.
+#
+# The column- and row-parallel GEMMs carry their own "model" collective
+# inside ``core/fqt._ShardedFP4Matmul`` (the column dX's sum is copy_to_tp's
+# backward, the row forward's reduce_from_tp's): one accumulation continued
+# across the ranks in K order, so each output is the 1-device GEMM's bit
+# for bit.
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum32(ctx.mesh, g, "model"), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.all_reduce(x.clone(), "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.n = mesh, dim, x.shape[dim]
+        return mesh.all_gather(x, "model", dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = ctx.mesh.axis_index("model")
+        return g.narrow(ctx.dim, r * ctx.n, ctx.n).contiguous(), None, None
+
+
+class _GradSum(torch.autograd.Function):
+    """Identity forward; the gradient summed (f32) over ``axes``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum32(ctx.mesh, g, ctx.axes), None, None
+
+
+class _FSDPGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return mesh.all_gather(w, "data", dim=dim, op="fsdp_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        out = ctx.mesh.reduce_scatter(g.to(torch.float32), "data",
+                                      dim=ctx.dim)
+        return out.to(g.dtype), None, None
+
+
+def _sum32(mesh, t: torch.Tensor, axis) -> torch.Tensor:
+    """``t`` summed over ``axis`` in f32, back in its dtype."""
+    if mesh.axes_size((axis,) if isinstance(axis, str) else axis) == 1:
+        return t
+    return mesh.all_reduce(t.to(torch.float32), axis).to(t.dtype)
+
+
+def _multi(mesh) -> bool:
+    return mesh is not None and mesh.size > 1
+
+
+def copy_to_tp(x: torch.Tensor, mesh) -> torch.Tensor:
+    return _CopyToTP.apply(x, mesh) if _multi(mesh) else x
+
+
+def reduce_from_tp(x: torch.Tensor, mesh) -> torch.Tensor:
+    return _ReduceFromTP.apply(x, mesh) if _multi(mesh) else x
+
+
+def gather_from_tp(x: torch.Tensor, mesh, dim: int = -1) -> torch.Tensor:
+    if not _multi(mesh) or mesh.axis_size("model") == 1:
+        return x
+    return _GatherFromTP.apply(x, mesh, dim % x.ndim)
+
+
+def fsdp_gather(w: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    if not _multi(mesh) or mesh.axis_size("data") == 1:
+        return w
+    return _FSDPGather.apply(w, mesh, dim)
+
+
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
                  mesh=None) -> torch.Tensor:
     """Rows of the embedding ``table`` (V, d) at ``tokens``; differentiable
     in ``table`` with a deterministic backward (``_EmbedLookup``).
 
-    Under a multi-rank serving ``mesh`` the table is this rank's shard
-    (vocab on "model", d on "data": the rule "vocab_d"): the d split is
-    gathered, then each rank looks up the tokens of its vocabulary range
-    (zeros for the others) and the rows are summed over "model" -- exact,
-    as every other rank adds zeros."""
-    if mesh is not None and mesh.size > 1:
-        table = mesh.all_gather(table, "data", dim=1)
+    Under a multi-rank ``mesh`` the table is this rank's shard (vocab on
+    "model", d on "data": the rule "vocab_d"): the d split is gathered
+    (``fsdp_gather``), then each rank looks up the tokens of its vocabulary
+    range (zeros for the others) and the rows are summed over "model"
+    (``reduce_from_tp``) -- exact, as every other rank adds zeros.  The
+    backward scatters the rows' gradient into the local vocabulary rows
+    only, and sums it over the DP axes: "data" in ``fsdp_gather``'s
+    backward, "pod" where the backward sums it
+    (``sharding.grad_sum_axes``)."""
+    if _multi(mesh):
+        from repro_torch.distributed.sharding import grad_sum_axes
+        pods = tuple(a for a in grad_sum_axes(mesh) if a == "pod")
+        if pods and table.requires_grad and torch.is_grad_enabled():
+            table = _GradSum.apply(table, mesh, pods)
+        table = fsdp_gather(table, mesh, dim=1)
         v_loc = table.shape[0]
         local = tokens - mesh.axis_index("model") * v_loc
         mine = (local >= 0) & (local < v_loc)
-        rows = table[torch.clamp(local, 0, v_loc - 1)]
+        idx = torch.clamp(local, 0, v_loc - 1)
+        rows = (_EmbedLookup.apply(table, idx)
+                if table.requires_grad and torch.is_grad_enabled()
+                else table[idx])
         rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
-        return mesh.all_reduce(rows, "model")
+        return reduce_from_tp(rows, mesh)
     if table.requires_grad and torch.is_grad_enabled():
         return _EmbedLookup.apply(table, tokens)
     return table[tokens]
@@ -862,8 +988,10 @@ def attn_apply(p, x: torch.Tensor, ctx: QCtx, *, n_heads: int, n_kv: int,
     k = ctx.dense(src, p["wk"], p.get("bk"), "io").reshape(B, Sk, n_kv, hd)
     v = ctx.dense(src, p["wv"], p.get("bv"), "io").reshape(B, Sk, n_kv, hd)
     if "q_norm" in p:
-        q = rmsnorm(q, p["q_norm"], norm_eps)
-        k = rmsnorm(k, p["k_norm"], norm_eps)
+        # replicated weights on this rank's heads: their gradient is the
+        # sum over "model" (copy_to_tp)
+        q = rmsnorm(q, copy_to_tp(p["q_norm"], ctx.mesh), norm_eps)
+        k = rmsnorm(k, copy_to_tp(p["k_norm"], ctx.mesh), norm_eps)
     if xkv is not None:
         if cache is not None:
             raise ValueError("cross-attention writes no KV cache")

@@ -185,46 +185,57 @@ class Softmax(torch.autograd.Function):
         return div_sum_grad(g, e, s) * e
 
 
+def _nll_value(logp, targets, count):
+    nll = -torch.gather(logp, -1, targets[..., None])
+    return torch.mean(nll) if count is None else torch.sum(nll) / count
+
+
 class MeanNLL(torch.autograd.Function):
     """mean(-log_softmax(logits)[targets]) over every token, f32.  The
     value is torch's; the gradient is the reference's, in its order:
     ((g / N) / S) e - (g / N) at the targets, e = exp(x - max) and S its
-    row sum, rounded once to the logits' dtype."""
+    row sum, rounded once to the logits' dtype.  ``count``: N where these
+    tokens are one rank's share of a larger batch (the sum of their nll
+    over ``count``), else the number of targets."""
 
     @staticmethod
-    def forward(ctx, logits, targets):
+    def forward(ctx, logits, targets, count=None):
         lf = logits.to(torch.float32)
         logp = torch.log_softmax(lf, dim=-1)
         ctx.save_for_backward(logits, targets)
-        return torch.mean(-torch.gather(logp, -1, targets[..., None]))
+        ctx.count = targets.numel() if count is None else count
+        return _nll_value(logp, targets, count)
 
     @staticmethod
     def backward(ctx, g):
         logits, targets = ctx.saved_tensors
         lf = logits.to(torch.float32)
         e = exp(lf - torch.amax(lf, dim=-1, keepdim=True))
-        gn = g / targets.numel()
+        gn = g / ctx.count
         d = (gn / row_sum(e)[..., None]) * e
         d.scatter_add_(-1, targets[..., None],
                        (-gn).expand(targets.shape + (1,)).contiguous())
-        return d.to(logits.dtype), None
+        return d.to(logits.dtype), None, None
 
 
-def torch_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def torch_nll(logits: torch.Tensor, targets: torch.Tensor,
+              count=None) -> torch.Tensor:
     """``mean_nll`` through torch's own log_softmax and its backward: the
     loss of the card, whose logit gradient is ``MeanNLL``'s within one ulp
     of the logits' dtype (tests/test_torch_moe.py, test_torch_archs.py)."""
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    return torch.mean(-torch.gather(logp, -1, targets[..., None]))
+    return _nll_value(logp, targets, count)
 
 
-def mean_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """The mean next-token nll of ``logits`` (..., V) at ``targets``.  On
-    the CPU, where the tests hold the port to the reference, its gradient
-    is the reference's (``MeanNLL``); on CUDA it is ``torch_nll``: the
-    exact-order one is f64 work over every logit, ~40 ms of a 4-layer
-    llama2-7b train step on an H100 (a declared divergence of the card, as
-    the embedding's backward)."""
+def mean_nll(logits: torch.Tensor, targets: torch.Tensor,
+             count=None) -> torch.Tensor:
+    """The mean next-token nll of ``logits`` (..., V) at ``targets`` (with
+    ``count``: their summed nll over ``count``, one rank's share of a
+    larger batch's mean).  On the CPU, where the tests hold the port to
+    the reference, its gradient is the reference's (``MeanNLL``); on CUDA
+    it is ``torch_nll``: the exact-order one is f64 work over every logit,
+    ~40 ms of a 4-layer llama2-7b train step on an H100 (a declared
+    divergence of the card, as the embedding's backward)."""
     if logits.is_cuda:
-        return torch_nll(logits, targets)
-    return MeanNLL.apply(logits, targets)
+        return torch_nll(logits, targets, count)
+    return MeanNLL.apply(logits, targets, count)

@@ -21,10 +21,11 @@ reference's ``lax.scan``).  The continuous-batching entries serve dense and
 moe, and ``prefill_slot`` the whisper decoder too; every other family
 raises, with the reference's reasons.
 
-Under a serving mesh of more than one rank (``mesh=``, this rank's view:
-``distributed/mesh.py``) the serving entries run the dense family on this
-rank's shards (``check_mesh``); the other families raise
-``NotImplementedError`` naming the module still to port.
+Under a mesh of more than one rank (``mesh=``, this rank's view:
+``distributed/mesh.py``) the serving entries and ``loss_fn`` (the training
+mesh) run the dense family on this rank's shards (``check_mesh``); the
+other families raise ``NotImplementedError`` naming the module still to
+port.
 """
 from __future__ import annotations
 
@@ -55,7 +56,8 @@ def _module(cfg: ModelConfig):
     return transformer
 
 
-# the module each family still needs before it serves on a multi-rank mesh
+# the module each family still needs before it serves or trains on a
+# multi-rank mesh
 _MESH_TODO = {
     "moe": "models/moe.py under a mesh (expert-parallel dispatch)",
     "vlm": "the vlm prefix under a mesh (models/transformer.py "
@@ -67,16 +69,19 @@ _MESH_TODO = {
 }
 
 
-def check_mesh(cfg: ModelConfig, mesh) -> None:
-    """A multi-rank serving mesh serves the dense family, whose heads split
-    evenly over "model"; any other family raises ``NotImplementedError``."""
+def check_mesh(cfg: ModelConfig, mesh, training: bool = False) -> None:
+    """A multi-rank mesh serves and trains the dense family, whose heads
+    split evenly over "model"; any other family raises
+    ``NotImplementedError`` naming what is still to port (``training``:
+    the distributed training step's wording)."""
     if mesh is None or mesh.size == 1:
         return
     if cfg.family != "dense":
+        what = ("distributed training of" if training else "serving")
         raise NotImplementedError(
-            f"serving {cfg.family!r} on a mesh of {mesh.size} ranks needs "
-            f"{_MESH_TODO[cfg.family]}, not yet ported; the port serves the "
-            f"dense family on a mesh")
+            f"{what} {cfg.family!r} on a mesh of {mesh.size} ranks needs "
+            f"{_MESH_TODO[cfg.family]}, not yet ported; the port serves and "
+            f"trains the dense family on a mesh")
     transformer.local_heads(cfg, mesh)
 
 
@@ -112,8 +117,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 
 
 def loss_fn(params, cfg: ModelConfig, qcfg: QuantConfig, batch, *,
-            seed: int = 0, remat: bool = True):
-    """Next-token cross-entropy of ``batch["tokens"]``: (loss, aux)."""
+            seed: int = 0, remat: bool = True, mesh=None):
+    """Next-token cross-entropy of ``batch["tokens"]``: (loss, aux).
+    ``mesh``: the training mesh of the parameters' shards, the batch this
+    rank's rows (``transformer.loss_fn``; the dense family only)."""
+    if mesh is not None and mesh.size > 1:
+        check_mesh(cfg, mesh, training=True)
+        return transformer.loss_fn(params, cfg, qcfg, batch, seed=seed,
+                                   remat=remat, mesh=mesh)
     return _module(cfg).loss_fn(params, cfg, qcfg, batch, seed=seed,
                                 remat=remat)
 

@@ -26,7 +26,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (TRASH_PAGE, PagedKVCache, QCtx,
                                        attn_apply, attn_params, dense_init,
                                        dyn_rows, embed_init, embed_lookup,
-                                       make_kv_cache,
+                                       gather_from_tp, make_kv_cache,
                                        mlp_apply, mlp_params, rmsnorm)
 
 _SEED_STRIDE = 0x9E3779B9                   # per-layer SR seed stride
@@ -129,7 +129,7 @@ def apply_layers(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed=0, *,
     is recomputed in the backward; its QCtx is built inside the body, so
     the recompute draws the same SR streams.  ``slot``/``plen``/``pfx``/
     ``write_mask``: the paged-cache operands of ``layers.attn_apply``;
-    ``mesh``: the serving mesh of the weights' shards."""
+    ``mesh``: the mesh of the weights' shards (serving or training)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params["layers"]):
         s = (int(seed) + i * _SEED_STRIDE) & M32
@@ -137,7 +137,7 @@ def apply_layers(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed=0, *,
         if remat and cache is None and torch.is_grad_enabled():
             x, a = torch.utils.checkpoint.checkpoint(
                 lambda h, lp=lp, s=s: _layer_apply(
-                    cfg, lp, h, s, cache=None, qcfg=qcfg)[::2],
+                    cfg, lp, h, s, cache=None, qcfg=qcfg, mesh=mesh)[::2],
                 x, use_reentrant=False)
         else:
             x, _, a = _layer_apply(cfg, lp, x, s, qcfg=qcfg, cache=cache,
@@ -157,13 +157,12 @@ def head(cfg: ModelConfig, qcfg: QuantConfig, x, w, seed=0, mesh=None):
     """x @ w, the LM head, under ``qcfg`` where ``cfg.quantize_lm_head``
     (else bf16) with the head's SR seed; the padded vocabulary ids get
     -1e30.  Under a multi-rank ``mesh`` it is column-parallel over the
-    vocabulary, and the logits are all-gathered: every rank picks from the
-    same full logits."""
+    vocabulary, and the logits are all-gathered (``gather_from_tp``): every
+    rank picks from, and computes its loss on, the same full logits."""
     head_cfg = qcfg if cfg.quantize_lm_head else QuantConfig()
     logits = QCtx(head_cfg, (int(seed) + 0xABCDEF) & M32, mesh).dense(
         x, w, kind="d_vocab")
-    if mesh is not None:
-        logits = mesh.all_gather(logits, "model", dim=-1)
+    logits = gather_from_tp(logits, mesh, dim=-1)
     if cfg.padded_vocab != cfg.vocab_size:        # mask padded ids
         pad = torch.arange(cfg.padded_vocab, device=logits.device) \
             >= cfg.vocab_size
@@ -179,31 +178,46 @@ def _with_prefix(x, prefix_embeds):
 
 
 def forward(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, *,
-            seed: int = 0, prefix_embeds=None, remat: bool = True):
+            seed: int = 0, prefix_embeds=None, remat: bool = True,
+            mesh=None):
     """Full-sequence forward (training).  Returns (logits, aux_loss): the
     moe routers' load-balancing loss summed over layers (0 for dense).
     ``prefix_embeds`` (B, P, d): the vlm prefix, attended at positions
-    0..P-1; the logits are the S token rows'."""
-    x = _with_prefix(embed_lookup(params["embed"], tokens), prefix_embeds)
-    x, _, aux = apply_layers(params, cfg, qcfg, x, seed, remat=remat)
+    0..P-1; the logits are the S token rows'.  ``mesh``: the training
+    mesh of the parameters' shards (``tokens``: this rank's rows)."""
+    x = _with_prefix(embed_lookup(params["embed"], tokens, mesh),
+                     prefix_embeds)
+    x, _, aux = apply_layers(params, cfg, qcfg, x, seed, remat=remat,
+                             mesh=mesh)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     if prefix_embeds is not None:
         x = x[:, prefix_embeds.shape[1]:]
-    return _logits(params, cfg, qcfg, x, seed), aux
+    return _logits(params, cfg, qcfg, x, seed, mesh), aux
 
 
 def loss_fn(params, cfg: ModelConfig, qcfg: QuantConfig, batch, *,
-            seed: int = 0, remat: bool = True):
+            seed: int = 0, remat: bool = True, mesh=None):
     """Next-token cross-entropy.  batch: {"tokens": (B, S + 1) ints,
-    optional "prefix_embeds" (B, P, d)}.  Returns (loss, {"nll", "aux"})."""
+    optional "prefix_embeds" (B, P, d)}.  Returns (loss, {"nll", "aux"}).
+
+    Under a multi-rank training ``mesh`` the batch is this rank's rows and
+    the loss this rank's share of the mean: the sum of its tokens' nll
+    over the token count of the DP axes the backward sums over
+    (``sharding.grad_sum_axes``: the global batch's, or its pod's where the
+    pods' gradients are averaged after), so the sum of the ranks'
+    gradients over those axes is the mean gradient."""
     tokens = batch["tokens"].long()
     logits, aux = forward(params, cfg, qcfg, tokens[:, :-1], seed=seed,
                           prefix_embeds=batch.get("prefix_embeds"),
-                          remat=remat)
+                          remat=remat, mesh=mesh)
+    count = None
+    if mesh is not None and mesh.size > 1:
+        from repro_torch.distributed.sharding import grad_sum_axes
+        count = tokens[:, 1:].numel() * mesh.axes_size(grad_sum_axes(mesh))
     # on the CPU the reference's gradient of the mean nll: one logit
     # gradient a bf16 ulp off changes the tensor scale the lm_head's SR
     # update GEMM quantizes with (refnum.mean_nll)
-    loss = refnum.mean_nll(logits, tokens[:, 1:])
+    loss = refnum.mean_nll(logits, tokens[:, 1:], count=count)
     return loss + cfg.router_aux_weight * aux, {"nll": loss, "aux": aux}
 
 

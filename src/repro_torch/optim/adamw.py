@@ -10,6 +10,12 @@ Trees are the port's parameter layout (dicts, ``layers`` a list of per-layer
 dicts).  ``apply`` updates the master weights and moments IN PLACE, leaf by
 leaf: the state passed in is consumed, as the reference's donated train
 state is, and no second copy of the optimizer state is ever allocated.
+
+On a multi-rank training mesh (``mesh=``) the trees are this rank's shards
+(``distributed/sharding.place_train_state``): the global norm sums each
+leaf's squares over the ranks that hold distinct parts of it, a replicated
+leaf counted once (``sharding.mesh_sum``), and the update is elementwise on
+the shards.
 """
 from __future__ import annotations
 
@@ -68,30 +74,44 @@ def init(params, cfg: AdamWConfig) -> AdamWState:
                  params))
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of sum(g^2) in f32 (a device scalar)."""
+def global_norm(tree, mesh=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of sum(g^2) in f32 (a device scalar).
+    ``mesh``: the leaves are this rank's shards; the sum is the whole
+    tree's, the same bits on every rank."""
+    sqs = [torch.sum(torch.square(g.to(torch.float32)))
+           for g in tree_leaves(tree)]
+    if mesh is not None and mesh.size > 1:
+        from repro_torch.distributed import sharding
+        owners = [sharding.is_owner(sp, mesh) for sp in
+                  tree_leaves(sharding.tree_specs(tree, mesh))]
+        sqs = list(sharding.mesh_sum(torch.stack(sqs), owners, mesh))
     total = None
-    for g in tree_leaves(tree):
-        sq = torch.sum(torch.square(g.to(torch.float32)))
+    for sq in sqs:
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, mesh=None, norm=None):
+    """``grads`` scaled to a global norm of at most ``max_norm``, and the
+    norm (``norm``: the norm already computed for ``grads``)."""
+    norm = global_norm(grads, mesh) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
                     grads), norm
 
 
-def apply(grads, state: AdamWState, cfg: AdamWConfig, lr: torch.Tensor):
+def apply(grads, state: AdamWState, cfg: AdamWConfig, lr: torch.Tensor,
+          mesh=None, gnorm: Optional[torch.Tensor] = None):
     """One AdamW step.  Returns (new compute-dtype params, new state,
     metrics); ``state``'s master weights and moments are updated in place.
-    ``lr``: an f32 scalar tensor (``schedule.lr_at``)."""
+    ``lr``: an f32 scalar tensor (``schedule.lr_at``); ``mesh``: the trees
+    are this rank's shards (``global_norm``); ``gnorm``: ``grads``'s global
+    norm where the caller has it already (on a mesh, an all-reduce
+    saved)."""
+    if gnorm is None:
+        gnorm = global_norm(grads, mesh)
     if cfg.clip_norm is not None:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
-    else:
-        gnorm = global_norm(grads)
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, mesh, gnorm)
     step = state.step + 1
     b1, b2 = cfg.betas
     f32 = torch.float32

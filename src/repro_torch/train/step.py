@@ -1,6 +1,6 @@
 """The FQT train step: loss, grads, the paper's section 4 monitor, AdamW.
 
-Counterpart of ``repro.train.step`` without a mesh:
+Counterpart of ``repro.train.step``:
 
   1. loss and grads through ``registry.loss_fn`` -- every weight GEMM is
      ``fqt.fp4_matmul``, whose autograd Function runs the K1 kernel at the
@@ -15,18 +15,36 @@ Declared divergence: the reference's sigma_q probe draws its SR bits with
 threefry keys (``jax.random.fold_in(PRNGKey(step), leaf)``), which cannot be
 reproduced without jax.  The port draws them with ``counter_bits`` from a
 seed of (step, leaf index); the probe's draws differ, its RMS does not.
+
+On a multi-rank training mesh (``make_train_step(..., mesh=)``; every rank
+runs the same step on its shards, SPMD) the step computes the 1-device
+step, as the reference's GSPMD step does: the batch is this rank's rows
+over the DP axes, the model runs the Megatron decomposition
+(``core/fqt._ShardedFP4Matmul``, ``models/layers``), the gradients are
+summed over the DP axes (the GEMM weights' and the table's in the
+backward, the other leaves' after it), and the norm, the sigma_q probe
+(K2 on each shard with the leaf's global tensor scale and its global SR
+indices) and every metric are reduced over the mesh, so every rank holds
+the same host values.
+Where ``TrainConfig.compression`` is set and the mesh has pods, each pod
+takes the mean of its own tokens and the pods' gradients are averaged by
+the compressed all-reduce (``compression.pod_mean_grads``), the
+reference's per-pod local means.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+import math
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.checkpoint.ckpt import reference_leaves
 from repro_torch.core import fqt, threshold
-from repro_torch.core.formats import M32
-from repro_torch.core.quantize import NVFP4, block_quantize
+from repro_torch.core.formats import M32, counter_at
+from repro_torch.core.quantize import NVFP4, _tensor_scale, block_quantize
+from repro_torch.distributed import compression as comp
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw, schedule
@@ -51,6 +69,8 @@ class TrainConfig:
     sigma_spec: Any = None       # spec of the sigma_q probe (NVFP4-SR)
     layer_stats: bool = False    # per-leaf ||g|| in metrics (telemetry:
                                  # the trainer's per-layer sqrt(3) series)
+    # inter-pod gradient compression (distributed/compression.py)
+    compression: Optional[comp.CompressionConfig] = None
 
 
 def init_state(cfg: ModelConfig, tcfg: TrainConfig, *, seed: int = 0,
@@ -69,8 +89,14 @@ def state_from_params(params, tcfg: TrainConfig) -> TrainState:
                       threshold.init(dev))
 
 
-def n_params(params) -> int:
-    return sum(x.numel() for x in tree_leaves(params))
+def n_params(params, mesh=None) -> int:
+    """The parameter count (on a mesh, of the whole tree, not the
+    shards)."""
+    if mesh is None or mesh.size == 1:
+        return sum(x.numel() for x in tree_leaves(params))
+    return sum(math.prod(shd.shard_offsets(sp, x.shape, mesh)[0])
+               for x, sp in zip(tree_leaves(params),
+                                tree_leaves(shd.tree_specs(params, mesh))))
 
 
 def step_seed(step: int) -> int:
@@ -127,16 +153,111 @@ def _estimate_sigma_q(grads, step: int, spec=None) -> torch.Tensor:
     return torch.sqrt(num / max(den, 1.0) + 1e-30)
 
 
+def _leaf_key(name: str) -> str:
+    """The last key of a reference leaf name (``['layers']['attn']['wq']``
+    -> ``wq``): all the rule table reads (its patterns end in the name)."""
+    return name.rstrip("]").rsplit("[", 1)[-1].strip("'")
+
+
+def _probe_parts(group, stacked: bool, spec, mesh):
+    """K2 calls of the sigma_q probe on this rank's shards of one reference
+    leaf: [(2-D f32 operand, global flat offset, global row stride)].  A
+    stacked leaf whose layers split only their last dim (or nothing) is
+    one call on the stacked shard, as one device makes it; where a layer
+    splits another dim the stacked shard's rows are no arithmetic
+    progression of the whole leaf's, and each layer is a call of its own
+    at its layer's offset."""
+    part = group[0]
+    full, off = shd.shard_offsets(spec, part.shape, mesh)
+    C, Cf = part.shape[-1], full[-1]
+    first = sum(o * math.prod(full[d + 1:]) for d, o in enumerate(off))
+    if not stacked or not any(off[:-1]) and full[:-1] == part.shape[:-1]:
+        g = torch.stack(group) if stacked else part
+        return [(g.to(torch.float32).reshape(-1, C), first, Cf)]
+    n = math.prod(full)
+    return [(p.to(torch.float32).reshape(-1, C), l * n + first, Cf)
+            for l, p in enumerate(group)]
+
+
+def _estimate_sigma_q_mesh(grads, step: int, spec, mesh) -> torch.Tensor:
+    """``_estimate_sigma_q`` of the whole gradient from this rank's shards:
+    each reference leaf's residual through K2 (its plain version on the
+    CPU) with the leaf's GLOBAL tensor scale (|max| all-reduced over the
+    axes that shard it) and the 1-device SR bits (the leaf's global flat
+    indices, ``formats.counter_at``), so every code and block scale is
+    the 1-device probe's; the residual sums are added over the mesh, each
+    leaf's by its owners only (``sharding.mesh_sum``)."""
+    from repro_torch.kernels.nvfp4_quant import block_quantize as k2
+    sums, owners, den = [], [], 0.0
+    for i, (name, group, stacked) in enumerate(reference_leaves(grads)):
+        part = group[0]
+        pspec = shd.placed_spec(_leaf_key(name), part.ndim, mesh)
+        full = shd.shard_offsets(pspec, part.shape, mesh)[0]
+        if part.ndim + int(stacked) < 2 or full[-1] % spec.block:
+            continue
+        if part.shape[-1] % spec.block:
+            raise ValueError(f"{name}: the shard's last dim {part.shape[-1]}"
+                             f" splits a block of {spec.block}")
+        amax = torch.amax(torch.stack([torch.amax(torch.abs(
+            p.to(torch.float32))) for p in group])).reshape(1)
+        mesh.all_reduce(amax, shd.spec_axes(pspec), op="max")
+        ts = _tensor_scale(amax, spec).reshape(1)
+        seed = probe_seed(step, i)
+        sq = None
+        for x2, first, rs in _probe_parts(group, stacked, pspec, mesh):
+            codes, scales = k2(x2.contiguous(), spec, tscale=ts, counter=(
+                counter_at(seed, first), rs, 1) if spec.stochastic else None)
+            nb = x2.shape[1] // spec.block
+            q = codes.view(-1, nb, spec.block).mul_(
+                scales.reshape(-1, nb, 1)).mul_(ts).view(x2.shape)
+            r = torch.sum(q.sub_(x2).square_())
+            sq = r if sq is None else sq + r
+        sums.append(sq)
+        owners.append(shd.is_owner(pspec, mesh))
+        den += float(math.prod(full) * (len(group) if stacked else 1))
+    if not sums:
+        return torch.zeros((), dtype=torch.float32)
+    num = torch.sum(shd.mesh_sum(torch.stack(sums), owners, mesh))
+    return torch.sqrt(num / max(den, 1.0) + 1e-30)
+
+
+# the rules whose 2-D leaves the backward already summed over the DP axes:
+# the GEMM weights (fqt._ShardedFP4Matmul) and the embedding table
+# (layers.embed_lookup)
+_SUMMED_IN_BACKWARD = ("io", "oi", "d_vocab", "vocab_d")
+
+
+def _sync_dp_grads(grads, mesh, per_pod: bool = False):
+    """Sum over the DP axes the backward sums (``sharding.grad_sum_axes``;
+    ``per_pod``: "data" only) the gradients of the leaves no collective of
+    the backward summed: norms, biases, smoothing factors (each DP rank
+    holds its tokens' part)."""
+    with shd.per_pod_gradients(per_pod):
+        axes = shd.grad_sum_axes(mesh)
+    if not axes:
+        return grads
+
+    def one(path, g):
+        if shd.param_kind(path) in _SUMMED_IN_BACKWARD and g.ndim == 2:
+            return g
+        return mesh.all_reduce(g.to(torch.float32, copy=True),
+                               axes).to(g.dtype)
+
+    return shd.map_paths(grads, one)
+
+
 def loss_and_grads(params, cfg: ModelConfig, qcfg: fqt.QuantConfig, batch,
-                   *, seed: int, remat: bool
+                   *, seed: int, remat: bool, mesh=None
                    ) -> Tuple[torch.Tensor, Dict, Any]:
-    """(loss, aux, grads): grads a tree like params, in their dtype."""
+    """(loss, aux, grads): grads a tree like params, in their dtype.
+    ``mesh``: the training mesh of the parameters' shards, the batch this
+    rank's rows (the loss this rank's share, ``transformer.loss_fn``)."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     try:
         loss, aux = registry.loss_fn(params, cfg, qcfg, batch, seed=seed,
-                                     remat=remat)
+                                     remat=remat, mesh=mesh)
         flat = torch.autograd.grad(loss, leaves)
     finally:
         for p in leaves:
@@ -146,33 +267,87 @@ def loss_and_grads(params, cfg: ModelConfig, qcfg: fqt.QuantConfig, batch,
     return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
 
 
+def local_batch(batch, mesh):
+    """This rank's rows of a global batch (``sharding.batch_spec``: the
+    leading dim over the DP axes); the batch itself on one rank.  A batch
+    the DP axes do not divide raises ``ValueError`` (the reference would
+    replicate it, and every DP rank count its rows)."""
+    if mesh is None or mesh.size == 1:
+        return batch
+    dp = shd.dp_axes(mesh)
+    n, idx = mesh.axes_size(dp), mesh.axes_index(dp)
+
+    def one(x):
+        if x.shape[0] % n:
+            raise ValueError(f"global batch of {x.shape[0]} rows does not "
+                             f"split over the DP axes {dp} ({n} ranks)")
+        b = x.shape[0] // n
+        return x[idx * b:(idx + 1) * b]
+
+    return {k: one(v) for k, v in batch.items()}
+
+
 def make_train_step(cfg: ModelConfig, qcfg: fqt.QuantConfig,
-                    tcfg: TrainConfig):
+                    tcfg: TrainConfig, mesh=None):
     """Returns train_step(state, batch) -> (state, metrics).  ``batch``:
     {"tokens": (B, S + 1) integer tensor on the parameters' device}.  The
-    step consumes ``state`` (its optimizer state is updated in place)."""
+    step consumes ``state`` (its optimizer state is updated in place).
+
+    ``mesh``: a multi-rank training mesh (``distributed/mesh.make_mesh``);
+    ``state`` is this rank's (``sharding.place_train_state``) and ``batch``
+    this rank's rows (``local_batch``); the metrics are the whole step's,
+    the same on every rank."""
+    multi = mesh is not None and mesh.size > 1
+    if multi:
+        registry.check_mesh(cfg, mesh, training=True)
+    m = mesh if multi else None
+    # the pods' gradients averaged after the backward, compressed; else
+    # "pod" is summed in the backward as every DP axis (the global mean)
+    per_pod = (multi and mesh.axis_size("pod") > 1
+               and tcfg.compression is not None
+               and tcfg.compression.enabled)
 
     def train_step(state: TrainState, batch):
         step = state.step
-        loss, aux, grads = loss_and_grads(state.params, cfg, qcfg, batch,
-                                          seed=step_seed(step),
-                                          remat=tcfg.remat)
+        seed = step_seed(step)
+        with shd.per_pod_gradients(per_pod):
+            loss, aux, grads = loss_and_grads(state.params, cfg, qcfg, batch,
+                                              seed=seed, remat=tcfg.remat,
+                                              mesh=m)
         with torch.no_grad():
+            if multi:
+                grads = _sync_dp_grads(grads, mesh, per_pod)
+                if per_pod:
+                    grads = comp.pod_mean_grads(grads, seed, mesh,
+                                                tcfg.compression)
+                # this rank's share of the (its pod's) mean -> the mean
+                lossv = torch.stack([loss, aux["nll"]]).to(torch.float32)
+                lossv = mesh.all_reduce(lossv, ("data", "pod"))
+                if per_pod:
+                    lossv = lossv / mesh.axis_size("pod")
+                loss, nll = lossv[0], lossv[1]
+            else:
+                nll = aux["nll"]
             # section 4 monitor: ||grad L|| / (sigma_q sqrt(d)) vs sqrt(3)
-            gnorm = adamw.global_norm(grads)
+            gnorm = adamw.global_norm(grads, m)
             if tcfg.probe_sigma:
-                sigma_q = _estimate_sigma_q(grads, step, tcfg.sigma_spec
-                                            ).to(gnorm.device)
+                spec = tcfg.sigma_spec if tcfg.sigma_spec is not None \
+                    else NVFP4.with_rounding(stochastic=True)
+                sigma_q = (_estimate_sigma_q_mesh(grads, step, spec, mesh)
+                           if multi else _estimate_sigma_q(
+                               grads, step, tcfg.sigma_spec)
+                           ).to(gnorm.device)
             else:
                 sigma_q = state.thr.sigma_q
-            thr_state = threshold.update(state.thr, gnorm, n_params(grads),
-                                         sigma_q, tcfg.thr)
+            thr_state = threshold.update(state.thr, gnorm,
+                                         n_params(grads, m), sigma_q,
+                                         tcfg.thr)
             lr = schedule.lr_at(step, tcfg.sched)
             params, opt, opt_metrics = adamw.apply(grads, state.opt,
-                                                   tcfg.opt, lr)
+                                                   tcfg.opt, lr, m, gnorm)
         metrics = {
             "loss": loss.to(torch.float32),
-            "nll": aux["nll"].to(torch.float32),
+            "nll": nll.to(torch.float32),
             "grad_norm": opt_metrics["grad_norm"],
             "lr": lr,
             "sigma_q": sigma_q,
@@ -183,10 +358,34 @@ def make_train_step(cfg: ModelConfig, qcfg: fqt.QuantConfig,
             # one f32 norm per reference leaf (a stacked group's over all
             # its layers), in reference order, left on the device: the
             # trainer reads it with the other metrics in one transfer
-            metrics["layer_gnorms"] = torch.stack([
-                torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                               for g in group))
-                for group, _ in _reference_leaves(grads)])
+            metrics["layer_gnorms"] = _layer_gnorms(grads, m)
         return TrainState(step + 1, params, opt, thr_state), metrics
 
     return train_step
+
+
+def _layer_gnorms(grads, mesh=None) -> torch.Tensor:
+    """||g|| of each reference leaf, in reference order (on a mesh, of the
+    whole leaf: squares summed over the ranks holding its parts)."""
+    leaves = reference_leaves(grads)
+    sqs = torch.stack([sum(torch.sum(torch.square(g.to(torch.float32)))
+                           for g in group) for _, group, _ in leaves])
+    if mesh is not None:
+        owners = [shd.is_owner(shd.placed_spec(_leaf_key(name),
+                                               group[0].ndim, mesh), mesh)
+                  for name, group, _ in leaves]
+        sqs = shd.mesh_sum(sqs, owners, mesh)
+    return torch.sqrt(sqs)
+
+
+def state_shardings(state: TrainState, mesh):
+    """The spec tree of a full ``TrainState`` (the reference's
+    ``state_shardings``; ``sharding.place_train_state`` places by it):
+    params FSDP x TP, AdamW's master / m / v following them, the step
+    counters and the threshold state replicated."""
+    pspecs = shd.params_shardings(state.params, mesh)
+    thr = dataclasses.replace(state.thr, **{
+        f.name: () for f in dataclasses.fields(state.thr)})
+    return TrainState(step=(), params=pspecs,
+                      opt=shd.opt_state_shardings(state.opt, pspecs, mesh),
+                      thr=thr)

@@ -25,6 +25,19 @@
     backward) and a re-warmed LR.  As in the reference, ``in_qaf`` is not
     checkpointed: a run restored after the switch takes its first step
     with the pre-switch config, then switches again.
+
+``Trainer(mesh=)`` trains on a multi-rank training mesh
+(``distributed/mesh.make_mesh``: "pod", "data", "model"), SPMD: every rank
+builds the same Trainer and runs the same loop on its shards of the state
+(``sharding.place_train_state``) and its rows of the step-indexed global
+batch (``step.local_batch``).  Every host decision comes from values the
+ranks agree on: the QAF switch reads the all-reduced gradient-to-noise
+ratio, the SIGTERM flag and the step time are all-reduced (MAX) together
+after each step, so every rank stops, and flags a straggler, at the same
+step.  Checkpoints gather the state and rank 0 writes them (a checkpoint
+restores on any mesh); rank 0 alone writes the telemetry and the packed
+export, which it packs from the gathered final parameters.  The dense
+family only (``registry.check_mesh``).
 """
 from __future__ import annotations
 
@@ -36,19 +49,17 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed
 
 from repro_torch._device import resolve_device
 from repro_torch.checkpoint import ckpt
 from repro_torch.core import fqt, qaf, quantize, threshold
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.distributed import sharding as shd
+from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.train import step as step_mod
-
-_MESH = ("training on a mesh needs distributed/compression.pod_mean_grads "
-         "(the compressed gradient all-reduce), distributed/pipeline.py and "
-         "Trainer(mesh=), not yet ported; the port trains on one device "
-         "(it serves on a mesh: ServeConfig.mesh)")
 
 
 @dataclasses.dataclass
@@ -70,15 +81,22 @@ class Trainer:
     def __init__(self, cfg: ModelConfig, qcfg: fqt.QuantConfig,
                  tcfg: step_mod.TrainConfig, run_cfg: TrainerConfig,
                  data_cfg: DataConfig, mesh=None, tracer=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
-        # a live tracer turns on the step's per-leaf gradient norms
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None:
+            registry.check_mesh(cfg, self.mesh, training=True)
         self.tracer = tracer if tracer is not None else NULL_TRACER
-        if self.tracer.enabled and not tcfg.layer_stats:
+        # on a mesh every rank computes the telemetry (its reductions are
+        # collectives) and rank 0 writes it
+        self._telemetry = bool(self._agree(float(self.tracer.enabled))[0])
+        if self.mesh is not None and self.mesh.rank != 0:
+            self.tracer = NULL_TRACER
+        # live telemetry turns on the step's per-leaf gradient norms
+        if self._telemetry and not tcfg.layer_stats:
             tcfg = dataclasses.replace(tcfg, layer_stats=True)
         self.cfg, self.qcfg, self.tcfg = cfg, qcfg, tcfg
         self.run_cfg, self.data_cfg = run_cfg, data_cfg
-        self.device = resolve_device(device)
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(device))
         self.data = SyntheticLM(data_cfg)
         self.history: List[Dict[str, float]] = []
         self.events: List[Dict[str, Any]] = []
@@ -88,6 +106,18 @@ class Trainer:
         self._leaf_info = None          # [(name, size)] of reference leaves
 
     # ---- lifecycle -------------------------------------------------------
+
+    def _agree(self, *values: float) -> tuple:
+        """Each value's maximum over the mesh's ranks, in one all-reduce
+        (the values themselves on one rank): host decisions every rank
+        takes alike."""
+        if self.mesh is None:
+            return values
+        t = torch.tensor([float(v) for v in values], dtype=torch.float64)
+        if self.mesh.backend != "gloo":
+            t = t.to(self.mesh.device)
+        return tuple(self.mesh.all_reduce(t, self.mesh.axis_names,
+                                          op="max").tolist())
 
     def _install_sigterm(self):
         """Returns the handler it replaced (None off the main thread)."""
@@ -105,19 +135,30 @@ class Trainer:
                 tcfg, sched=qaf.qaf_lr_schedule(self.tcfg.sched,
                                                 self.run_cfg.qaf,
                                                 start_step))
-        self._step_fn = step_mod.make_train_step(self.cfg, qcfg, tcfg)
+        self._step_fn = step_mod.make_train_step(self.cfg, qcfg, tcfg,
+                                                 self.mesh)
 
     def init_or_restore(self, state: Optional[step_mod.TrainState] = None
                         ) -> step_mod.TrainState:
         """``state`` (default: fresh parameters from ``run_cfg.seed``), or
         the latest checkpoint in ``ckpt_dir`` restored into its structure
-        and device."""
+        and device.  On a mesh the state is placed: this rank's shards (a
+        given full state is placed, a placed one taken as it is; fresh
+        parameters are drawn whole and cut, and AdamW's state is made on
+        the shards)."""
+        mesh = self.mesh
         if state is None:
-            state = step_mod.init_state(self.cfg, self.tcfg,
-                                        seed=self.run_cfg.seed,
-                                        device=self.device)
+            params = registry.init_params(self.cfg, seed=self.run_cfg.seed,
+                                          device=self.device)
+            if mesh is not None:
+                params = shd.place_train_params(params, mesh)
+            state = step_mod.state_from_params(params, self.tcfg)
+        elif mesh is not None and not shd.is_placed(state.params, self.cfg,
+                                                    mesh):
+            state = shd.place_train_state(state, mesh)
         if self.run_cfg.ckpt_dir:
-            step, restored = ckpt.restore_latest(self.run_cfg.ckpt_dir, state)
+            step, restored = ckpt.restore_latest(self.run_cfg.ckpt_dir, state,
+                                                 mesh=mesh)
             if restored is not None:
                 self.events.append({"kind": "restore", "step": int(step)})
                 return restored
@@ -140,18 +181,22 @@ class Trainer:
         rc = self.run_cfg
         self._build_step()
         durations: List[float] = []
+        # one rank reads its SIGTERM flag at each step boundary; a mesh
+        # reads the flag agreed with the last step's time
+        agreed_stop = self._agree(float(self._stop))[0]
         for step in range(state.step, rc.total_steps):
-            if self._stop:
+            if self._stop if self.mesh is None else agreed_stop:
                 self.events.append({"kind": "preempt", "step": step})
                 break
-            batch = {"tokens": torch.from_numpy(
-                self.data.batch(step)["tokens"]).to(self.device)}
+            batch = step_mod.local_batch({"tokens": torch.from_numpy(
+                self.data.batch(step)["tokens"]).to(self.device)}, self.mesh)
             t0 = time.perf_counter()
             state, metrics = self._step_fn(state, batch)
             metrics, layer_gnorms = _read_metrics(metrics)   # host sync
-            dt = time.perf_counter() - t0
+            agreed_stop, dt = self._agree(float(self._stop),
+                                          time.perf_counter() - t0)
 
-            if self.tracer.enabled and step % rc.log_every == 0:
+            if self._telemetry and step % rc.log_every == 0:
                 self._emit_telemetry(step, metrics, layer_gnorms, state)
 
             # straggler accounting (skip the first steps of a phase)
@@ -175,10 +220,12 @@ class Trainer:
                 self._build_step(start_step=step + 1)
 
             if rc.ckpt_dir and (step + 1) % rc.ckpt_every == 0:
-                ckpt.save(rc.ckpt_dir, step + 1, state, keep=rc.keep_ckpts)
+                ckpt.save(rc.ckpt_dir, step + 1, state, keep=rc.keep_ckpts,
+                          mesh=self.mesh)
 
         if rc.ckpt_dir:
-            ckpt.save(rc.ckpt_dir, state.step, state, keep=rc.keep_ckpts)
+            ckpt.save(rc.ckpt_dir, state.step, state, keep=rc.keep_ckpts,
+                      mesh=self.mesh)
             if rc.export_packed:
                 self.export_serving_artifact(state)
         return state
@@ -216,7 +263,8 @@ class Trainer:
         leaves = ckpt.reference_leaves(state.params)
         if layer_gnorms is not None:
             if self._leaf_info is None:
-                self._leaf_info = [(name, sum(p.numel() for p in parts))
+                self._leaf_info = [(name, sum(self._numel(name, p)
+                                              for p in parts))
                                    for name, parts, _ in leaves]
             below = 0
             for (name, size), g in zip(self._leaf_info, layer_gnorms):
@@ -230,19 +278,50 @@ class Trainer:
         spec = qcfg.fwd_w
         if spec is not None:
             probe, size = None, 0
-            for _, parts, stacked in leaves:
+            for name, parts, stacked in leaves:
                 ndim = parts[0].ndim + int(stacked)
-                n = sum(p.numel() for p in parts)
-                if ndim >= 2 and parts[0].shape[-1] % spec.block == 0 \
-                        and (probe is None or n > size):
-                    probe, size = (parts, stacked), n
+                n = sum(self._numel(name, p) for p in parts)
+                if ndim >= 2 and self._full_shape(name, parts[0])[-1] \
+                        % spec.block == 0 and (probe is None or n > size):
+                    probe, size = (name, parts, stacked), n
             if probe is not None:
-                parts, stacked = probe
-                h = quantize.scale_health(
-                    torch.stack(parts) if stacked else parts[0], spec)
+                h = self._scale_health(*probe, spec)
                 trc.counter("scale_blocks", h["blocks"])
                 trc.counter("scale_saturated", h["saturated"])
                 trc.counter("scale_underflow", h["underflow"])
+
+    def _full_shape(self, name: str, part) -> tuple:
+        """The logical shape of a (per-layer) part of reference leaf
+        ``name``: its own shape on one rank."""
+        if self.mesh is None:
+            return tuple(part.shape)
+        spec = shd.placed_spec(step_mod._leaf_key(name), part.ndim,
+                               self.mesh)
+        return shd.shard_offsets(spec, part.shape, self.mesh)[0]
+
+    def _numel(self, name: str, part) -> int:
+        return int(np.prod(self._full_shape(name, part)))
+
+    def _scale_health(self, name, parts, stacked, spec) -> Dict[str, int]:
+        """``quantize.scale_health`` of the whole leaf: on a mesh, each
+        rank's shard under the leaf's global |max|, the tallies summed
+        over the ranks holding distinct parts."""
+        x = torch.stack(parts) if stacked else parts[0]
+        if self.mesh is None:
+            return quantize.scale_health(x, spec)
+        pspec = shd.placed_spec(step_mod._leaf_key(name), parts[0].ndim,
+                                self.mesh)
+        if x.shape[-1] % spec.block:
+            raise ValueError(f"{name}: the shard's last dim {x.shape[-1]} "
+                             f"splits a block of {spec.block}")
+        amax = torch.amax(torch.abs(x.to(torch.float32))).reshape(1)
+        self.mesh.all_reduce(amax, shd.spec_axes(pspec), op="max")
+        c = quantize.scale_health(x, spec, amax=amax, counts=True)
+        c = shd.mesh_sum(c.to(torch.float32), [shd.is_owner(pspec,
+                                                           self.mesh)] * 3,
+                         self.mesh)
+        blocks, sat, under = (int(v) for v in c.tolist())
+        return {"blocks": blocks, "saturated": sat, "underflow": under}
 
     def export_serving_artifact(self, state) -> Optional[str]:
         """Quantize-once export: every GEMM weight packed with this run's QAF
@@ -256,11 +335,20 @@ class Trainer:
         if spec is None:
             return None
         from repro_torch.serve.packing import pack_model_params
-        packed = pack_model_params(self.cfg, state.params, spec)
-        path = ckpt.save(os.path.join(self.run_cfg.ckpt_dir, "serve_packed"),
-                         state.step, packed, keep=self.run_cfg.keep_ckpts)
+        base = os.path.join(self.run_cfg.ckpt_dir, "serve_packed")
+        params = state.params
+        if self.mesh is not None:
+            # every rank gathers; rank 0 packs the whole parameters
+            params = shd.gather_tree(params, self.mesh,
+                                     keep=self.mesh.rank == 0)
+        if self.mesh is None or self.mesh.rank == 0:
+            ckpt.save(base, state.step, pack_model_params(
+                self.cfg, params, spec), keep=self.run_cfg.keep_ckpts)
+        del params
+        if self.mesh is not None:
+            torch.distributed.barrier()
         self.events.append({"kind": "export_packed", "step": state.step})
-        return path
+        return os.path.join(base, f"step_{state.step:08d}")
 
     # ---- reporting -------------------------------------------------------
 

@@ -117,3 +117,303 @@ def tp_matmul(rank, spec, x_np, w_np, fwd_a_sr):
                  v.tscale.numpy()))
             if not isinstance(v, torch.Tensor) else v.numpy()
             for k, v in out.items()}
+
+
+# ---- the training mesh (tests/test_torch_train_mesh.py) ---------------------
+
+
+def _coords(mesh):
+    return {a: mesh.axis_index(a) for a in ("pod", "data", "model")}
+
+
+def _record_k1(calls):
+    """Wrap K1's wrapper so every call records its quantized operands:
+    (code x block scale of A, of B, tsA, tsB) as K1's plain version forms
+    them (``fp4_matmul._quantized_operand``), from the call's own counters
+    and given maxima.  Returns the function that undoes the wrap."""
+    from repro_torch.kernels import fp4_matmul as fm
+    from repro_torch.kernels.nvfp4_quant import counter_rbits
+    orig = fm.fused_quant_matmul
+
+    def rec(a, b, spec_a, spec_b, **kw):
+        def deq(x, spec, ctr, amax, rows):
+            bits = (counter_rbits(x.shape, ctr, x.device)
+                    if spec.stochastic else None)
+            d, ts = fm._quantized_operand(x, spec, bits, along_rows=rows,
+                                          amax=amax)
+            return d.numpy(), float(ts)
+        da, ta = deq(a, spec_a, kw.get("a_counter"), kw.get("a_amax"), False)
+        db, tb = deq(b, spec_b, kw.get("b_counter"), kw.get("b_amax"), True)
+        calls.append((da, db, ta, tb))
+        return orig(a, b, spec_a, spec_b, **kw)
+
+    fm.fused_quant_matmul = rec
+    return lambda: setattr(fm, "fused_quant_matmul", orig)
+
+
+def sharded_matmul(rank, shape, names, kinds, x_np, w_np, g_np, seed):
+    """``fqt.fp4_matmul`` on this rank's shards under the training mesh
+    ``shape`` x ``names``, for each weight rule in ``kinds``: x's rows over
+    the DP axes (and its K columns over "model" for a row-parallel rule),
+    w placed by the rule table; forward, then dX and dW from the cotangent
+    g's local block.  Returns per kind the local y, dx, dw, the rank's
+    coordinates and every K1 call's quantized operands."""
+    import torch
+    from repro_torch.core import fqt
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.mesh import make_mesh
+    mesh = make_mesh(shape, names, device="cpu")
+    out = {"coords": _coords(mesh)}
+    x_full, w_full, g_full = (torch.from_numpy(a).to(torch.bfloat16)
+                              for a in (x_np, w_np, g_np))
+    dp = sharding.dp_axes(mesh)
+    n, idx = mesh.axes_size(dp), mesh.axes_index(dp)
+    b = x_full.shape[0] // n
+    tp, r = mesh.axis_size("model"), mesh.axis_index("model")
+    for kind in kinds:
+        path = {"io": "wq", "oi": "wo", "d_vocab": "lm_head"}[kind]
+        w = sharding.place_train_params({path: w_full}, mesh)[path]
+        x = x_full[idx * b:(idx + 1) * b]
+        g = g_full[idx * b:(idx + 1) * b]
+        if kind == "oi":
+            kl = x.shape[-1] // tp
+            x = x[..., r * kl:(r + 1) * kl]
+        else:
+            nl = g.shape[-1] // tp
+            g = g[..., r * nl:(r + 1) * nl]
+        x = x.contiguous().requires_grad_(True)
+        w = w.contiguous().requires_grad_(True)
+        calls = []
+        mesh.reset_stats()
+        undo = _record_k1(calls)
+        try:
+            y = fqt.fp4_matmul(x, w, cfg=fqt.nvfp4_paper_config(),
+                               seed=seed, mesh=mesh, kind=kind)
+            dx, dw = torch.autograd.grad(y, (x, w), g.contiguous())
+        finally:
+            undo()
+        out[kind] = {"y": y.detach().float().numpy(),
+                     "dx": dx.float().numpy(), "dw": dw.float().numpy(),
+                     "calls": calls, "stats": dict(mesh.stats["ops"])}
+    return out
+
+
+def mesh_session(rank, shape, names, kinds, mm, state_np, batches):
+    """One rank session of tests/test_torch_train_mesh.py on the training
+    mesh ``shape`` x ``names``: ``sharded_matmul`` at the operands ``mm``
+    (x, w, g, seed), then ``train_steps`` (probe on, uncompressed)."""
+    return {"matmul": sharded_matmul(rank, shape, names, kinds, *mm),
+            "steps": train_steps(rank, shape, names, state_np, batches, True,
+                                 False)}
+
+
+def _flat_tree(tree, prefix=""):
+    """{slash path: f32 numpy} of a port tree's tensors."""
+    import torch
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flat_tree(v, f"{prefix}/{k}"))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            out.update(_flat_tree(v, f"{prefix}/{i}"))
+    elif isinstance(tree, torch.Tensor):
+        out[prefix] = tree.detach().float().numpy()
+    return out
+
+
+def train_steps(rank, shape, names, state_np, batches, probe, compression,
+                qcfg_name="nvfp4_paper_config"):
+    """From a JAX ``TrainState`` (numpy leaves) carried over with
+    ``convert.train_state_from_jax_numpy`` and placed on the training mesh
+    ``shape`` x ``names``: the first step's gathered gradients (after the
+    DP sum and the pod mean, as the step takes them), then one step per
+    global batch in ``batches`` through ``make_train_step(mesh=)``.
+    Returns the metrics of every step, the gathered gradients and the
+    gathered parameters after each step, the launches and collectives."""
+    import torch
+    from repro_torch.convert import train_state_from_jax_numpy
+    from repro_torch.core import fqt
+    from repro_torch.distributed import compression as comp
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.mesh import make_mesh
+    from repro_torch.optim import schedule
+    from repro_torch.train import step as st
+    cfg = smoke_cfg()
+    mesh = make_mesh(shape, names, device="cpu")
+    qcfg = getattr(fqt, qcfg_name)()
+    tcfg = st.TrainConfig(
+        sched=schedule.ScheduleConfig(warmup_steps=2, total_steps=10),
+        remat=True, probe_sigma=probe,
+        compression=(comp.CompressionConfig(spec=comp.GRAD_FP8)
+                     if compression else None))
+    state = sharding.place_train_state(
+        train_state_from_jax_numpy(state_np, cfg, device="cpu"), mesh)
+    batch0 = st.local_batch({"tokens": torch.from_numpy(batches[0])}, mesh)
+    per_pod = compression and mesh.axis_size("pod") > 1
+    with sharding.per_pod_gradients(per_pod):
+        _, _, grads = st.loss_and_grads(state.params, cfg, qcfg, batch0,
+                                        seed=st.step_seed(0), remat=True,
+                                        mesh=mesh)
+    grads = st._sync_dp_grads(grads, mesh, per_pod)
+    if per_pod:
+        grads = comp.pod_mean_grads(grads, st.step_seed(0), mesh,
+                                    tcfg.compression)
+    out = {"coords": _coords(mesh), "grads": _flat_tree(
+        sharding.gather_tree(grads, mesh)), "metrics": [], "params": []}
+    fn = st.make_train_step(cfg, qcfg, tcfg, mesh)
+    mesh.reset_stats()
+    for tokens in batches:
+        state, m = fn(state, st.local_batch(
+            {"tokens": torch.from_numpy(tokens)}, mesh))
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        out["params"].append(_flat_tree(sharding.gather_tree(state.params,
+                                                             mesh)))
+    out["stats"] = dict(mesh.stats)
+    out["local_params"] = _flat_tree(state.params)
+    return out
+
+
+def trainer_run(rank, shape, names, ckpt_dir, total_steps, ckpt_every):
+    """``Trainer(mesh=)`` on llama2-60m smoke (nvfp4_paper_config, the
+    sigma_q probe, a step-clock tracer on every rank: rank 0 writes it),
+    resuming from ``ckpt_dir``'s latest checkpoint.  Returns the events,
+    the history, the trace's entries and this rank's coordinates."""
+    from repro_torch.core import fqt
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.distributed.mesh import make_mesh
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.optim import schedule
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train import step as st
+    cfg = smoke_cfg()
+    mesh = make_mesh(shape, names, device="cpu")
+    tracer = Tracer(clock="step")
+    tr = Trainer(cfg, fqt.nvfp4_paper_config(), st.TrainConfig(
+        sched=schedule.ScheduleConfig(warmup_steps=2, total_steps=10)),
+        TrainerConfig(total_steps=total_steps, ckpt_every=ckpt_every,
+                      ckpt_dir=ckpt_dir, log_every=1),
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4),
+        mesh=mesh, tracer=tracer, device="cpu")
+    tr.run()
+    return {"coords": _coords(mesh), "events": tr.events,
+            "history": [{k: v for k, v in h.items() if k != "dt"}
+                        for h in tr.history],
+            "trace": tracer.n_events}
+
+
+# ---- compression and the pipeline (tests/test_torch_compression.py,
+# ---- tests/test_torch_pipeline.py) -------------------------------------------
+
+
+def pod_mean(rank, shape, names, per_pod, seed, configs):
+    """``pod_mean_grads`` on this rank's shards of its pod's gradient tree
+    (``per_pod[pod]``: full numpy leaves, placed by the rule table), under
+    each of ``configs`` (None, "off", "fp8", "fp4").  Returns the gathered
+    results, this rank's coordinates and the collectives."""
+    import torch
+    from repro_torch.distributed import compression as comp
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.mesh import make_mesh
+    mesh = make_mesh(shape, names, device="cpu")
+    full = {k: torch.from_numpy(v) for k, v in
+            per_pod[mesh.axis_index("pod")].items()}
+    grads = sharding.place_train_params(full, mesh)
+    cfgs = {None: None, "off": comp.CompressionConfig(enabled=False),
+            "fp8": comp.CompressionConfig(spec=comp.GRAD_FP8),
+            "fp4": comp.CompressionConfig(spec=comp.GRAD_FP4)}
+    out = {"coords": _coords(mesh)}
+    for name in configs:
+        got = comp.pod_mean_grads(grads, seed, mesh, cfgs[name])
+        out[str(name)] = {k: v.float().numpy() for k, v in
+                          sharding.gather_tree(got, mesh).items()}
+    out["stats"] = dict(mesh.stats["ops"])
+    return out
+
+
+def pipeline_case(rank, S, M, case):
+    """``pipeline_apply`` over ("pipe", "data") = (S, 1): ``case`` "tanh"
+    (the reference's test layer, f32) or "llama" (llama2-60m smoke's dense
+    block under nvfp4_paper_config, bf16), forward and backward of
+    sum(out^2); and the same layers applied in order on this one rank to
+    each microbatch (the GPipe unit of work).  Returns this rank's
+    outputs, its stage's parameter gradients, x's gradient and the
+    collectives."""
+    import torch
+    from repro_torch.distributed import pipeline as pp
+    torch.set_num_threads(1)
+    mesh = pp.make_pipeline_mesh(S, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    if case == "tanh":
+        L, B, D = 8, 8, 16
+        params = {"w": torch.randn(L, D, D, generator=g) * 0.3}
+        x = torch.randn(B, D, generator=g)
+
+        def fn(p, h):
+            return torch.tanh(h @ p["w"])
+    else:
+        from repro_torch.core import fqt
+        from repro_torch.models import registry, transformer
+        cfg = smoke_cfg()
+        layers = registry.init_params(cfg, device="cpu")["layers"]
+        params = {k: v for k, v in _stack(layers).items()}
+        L, B = cfg.n_layers, 2 * M
+        x = (torch.randn(B, 32, cfg.d_model, generator=g)
+             ).to(torch.bfloat16)
+
+        def fn(p, h):
+            return transformer._layer_apply(
+                cfg, p, h, 0x1234, cache=None,
+                qcfg=fqt.nvfp4_paper_config())[0]
+    leaves = _leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    out = pp.pipeline_apply(fn, params, xg, mesh,
+                            pp.PipelineConfig(n_stages=S, n_microbatches=M))
+    torch.sum(out.float() ** 2).backward()
+    mesh.wait_sends()
+    s, per = mesh.axis_index("pipe"), L // S
+    res = {"out": out.detach().float().numpy(),
+           "grads": [t.grad[s * per:(s + 1) * per].float().numpy()
+                     for t in leaves],
+           "dx": (xg.grad if xg.grad is not None
+                  else torch.zeros_like(xg)).float().numpy(), "stage": s,
+           "stats": dict(mesh.stats["ops"])}
+    # the sequential reference on this rank: each microbatch through the
+    # L layers in order
+    for t in leaves:
+        t.grad = None
+    xs = x.clone().requires_grad_(True)
+    outs = []
+    for mb in xs.chunk(M):
+        h = mb
+        for i in range(L):
+            h = fn(_index_tree(params, i), h)
+        outs.append(h)
+    seq = torch.cat(outs)
+    torch.sum(seq.float() ** 2).backward()
+    res["seq_out"] = seq.detach().float().numpy()
+    res["seq_grads"] = [t.grad[s * per:(s + 1) * per].float().numpy()
+                        for t in leaves]
+    res["seq_dx"] = xs.grad.float().numpy()
+    return res
+
+
+def _stack(layers):
+    import torch
+    if isinstance(layers[0], dict):
+        return {k: _stack([lp[k] for lp in layers]) for k in layers[0]}
+    return torch.stack(layers)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _leaves(tree[k])]
+    return [tree]
+
+
+def _index_tree(tree, i):
+    if isinstance(tree, dict):
+        return {k: _index_tree(v, i) for k, v in tree.items()}
+    return tree[i]

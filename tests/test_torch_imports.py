@@ -62,7 +62,7 @@ def test_scan_sees_the_whole_port():
             "configs/llama3_405b.py", "configs/mixtral_8x7b.py",
             "configs/qwen3_moe_235b_a22b.py", "distributed/specs.py",
             "distributed/mesh.py", "distributed/sharding.py",
-            "distributed/compression.py"} <= names
+            "distributed/compression.py", "distributed/pipeline.py"} <= names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
     assert _forbidden("ml_dtypes")
     assert not _forbidden("repro_torch.core")
@@ -72,7 +72,8 @@ def test_launcher_import_pulls_in_no_jax_or_repro():
     code = ("import sys, repro_torch.launch.serve, "
             "repro_torch.launch.train, repro_torch.checkpoint, "
             "repro_torch.models.moe, repro_torch.distributed.sharding, "
-            "repro_torch.distributed.compression\n"
+            "repro_torch.distributed.compression, "
+            "repro_torch.distributed.pipeline, repro_torch.train.step\n"
             "from repro_torch.configs import ARCH_IDS, get_config\n"
             "[get_config(a) for a in ARCH_IDS]\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -472,9 +472,13 @@ def test_mesh_shapes_and_describe():
 def test_mesh_refusals(models, monkeypatch):
     cfg, _, _, _, params = models
     from repro_torch.core import fqt
-    with pytest.raises(NotImplementedError, match="packed weights"):
-        fqt.dense(torch.ones(2, 128), params["layers"][0]["attn"]["wq"],
-                  cfg=fqt.qaf_config(), kind="io", mesh=Mesh(
+    # an unpacked weight on a mesh is trained through the sharded FQT
+    # matmul (tests/test_torch_train_mesh.py); a shard that would split a
+    # block between two ranks is refused before any collective
+    with pytest.raises(ValueError, match="straddle"):
+        fqt.dense(torch.ones(2, 128),
+                  params["layers"][0]["attn"]["wq"][:, :24],
+                  cfg=fqt.nvfp4_paper_config(), kind="io", mesh=Mesh(
                       (2,), ("model",), device=torch.device("cpu")))
     with pytest.raises(ValueError, match="needs 2 ranks"):
         make_serve_mesh("tp=2", device="cpu")

@@ -457,12 +457,16 @@ def test_trainer_qaf_switch_matches_jax():
 
 
 def test_unported_trainer_options_raise():
-    cfg = get_config(ARCH).smoke()
+    """Trainer(mesh=) trains the dense family (tests/test_torch_train_mesh
+    .py); the families still to port refuse a multi-rank mesh."""
+    from repro_torch.distributed.mesh import Mesh
+    cfg = get_config("mixtral-8x7b").smoke()
     data = pipeline.DataConfig(vocab_size=cfg.vocab_size, seq_len=8,
                                global_batch=2)
     with pytest.raises(NotImplementedError, match="distributed"):
         Trainer(cfg, fqt.nvfp4_paper_config(), _tcfg_port(),
-                TrainerConfig(), data, device="cpu", mesh=object())
+                TrainerConfig(), data, device="cpu",
+                mesh=Mesh((2,), ("model",), device=torch.device("cpu")))
 
 
 def test_train_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
