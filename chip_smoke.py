@@ -3,9 +3,11 @@
 (lockstep and continuous batching), train, the pipeline from training
 through checkpoint/restart and the packed export to serving, the dense
 and moe archs at full width, the recurrent families at full width and
-depth, and the encdec and vlm families at full width.
+depth, the encdec and vlm families at full width, and the serving and
+training meshes (the dense, moe and vlm families) on gloo ranks sharing
+the card.
 
-    python3 chip_smoke.py                    # every phase, one CUDA card
+    python3 chip_smoke.py                    # every phase but times_full
     python3 chip_smoke.py --phases env,kernels
 
 Phases, each printing JSON lines; any failure exits non-zero:
@@ -71,8 +73,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
            the ContinuousEngine: (a) at smoke size on the card held to the
            same engine on the CPU's plain versions (prefix cache + chunked
            prefill, and speculative verify-k); (b) llama2-7b at full
-           width, depth cut 32 -> CONT_LAYERS = 16 (since phase train_mesh
-           joined the script, to keep it inside its time limit), from
+           width, depth cut 32 -> CONT_LAYERS = 8 (16 since phase train_mesh
+           joined the script, 8 since phase mesh_families, to keep it
+           inside its time limit), from
            random packed NVFP4 weights over a paged nvfp4 KV pool, as two
            runs of 16 requests (2 arriving per tick, 32 new tokens each,
            greedy, no EOS): run A with the shared-prefix cache and
@@ -128,13 +131,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
            on the card against the CPU's plain versions (lockstep for
            codeqwen1.5-7b, qwen2.5-32b, Mixtral with a prompt past its
            window, Qwen3-MoE; continuous for the moe pair; the CPU side in
-           a child process started with phase serve_continuous), streams
+           a child process started once the kernels are built), streams
            equal.  Run a: codeqwen1.5-7b at full depth, lockstep batch 4 x
            prompt 64, 32 new, then ContinuousEngine on run A's traffic.
-           Run b: qwen2.5-32b at full width, depth cut 64 -> 16 layers,
+           Run b: qwen2.5-32b at full width, depth cut 64 -> 8 layers,
            batch 4 x 64, 16 new.  Run c: Mixtral-8x7B at full width, depth
-           cut 32 -> 8 layers (both cuts keep the whole script inside its
-           time limit), batch 4 x 64, 32 new; one
+           cut 32 -> 4 layers (both cuts keep the whole script inside its
+           time limit: halved again since phase mesh_families joined),
+           batch 4 x 64, 32 new; one
            request of 4160 prompt tokens and 64 new over its rolling
            4096-row buffer (K7 with the window, K6 with the rolling rule);
            8 requests through ContinuousEngine.  Run d: Qwen3-MoE at full
@@ -152,10 +156,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
            their capacity rows), K2 once per sigma_q probe leaf, loss and
            nll finite and loss > nll (the router's aux term).
   recurrent
-           the hybrid (zamba2-1.2b: 38 Mamba2 layers and one shared
-           attention + SwiGLU block after every 6, MHA, D 64) and ssm
-           (xlstm-125m: 12 blocks, every 4th sLSTM) families at full width
-           and depth, weights from the streaming packer, nvfp4 KV, greedy,
+           the hybrid (zamba2-1.2b: Mamba2 layers and one shared attention
+           + SwiGLU block after every 6, MHA, D 64) and ssm (xlstm-125m:
+           blocks, every 4th sLSTM) families at full width, depth cut 38 ->
+           19 and 12 -> 6 (RECURRENT_LAYERS, since phase mesh_families
+           joined the script), weights from the streaming packer, nvfp4 KV,
+           greedy,
            no EOS.  Their smoke configs first run through a graphed Engine
            on the card against the CPU's plain versions (two generates),
            streams equal.  Each family serves batch 4 x prompt 64, 32 new,
@@ -166,7 +172,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
            lm_head, K6 at each application of zamba2's shared block, every
            step of prefill and decode), prefill and decode-step ms, the
            prefill's capture seconds, tokens/s and a profiled generate's
-           idle share.  Then each trains through ``Trainer`` at full depth
+           idle share.  Then each trains through ``Trainer`` at that depth
            (zamba2 batch 4 x seq 1024, xlstm 4 x 256; nvfp4_paper_config,
            remat, AdamW, the sigma_q probe; 3 steps): K1 launches per step
            as ``k1_step_gemms`` derives them (``recurrent_gemms``), K2 once
@@ -192,7 +198,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
            for the decoder's reads), each request's stream equal to its
            solo graphed lockstep run or first apart at a near-tie, compile
            counts equal to the smoke-size CPU engine's on the same trace.
-           Run c: internvl2-26b at full depth, lockstep batch 4 x (256
+           Run c: internvl2-26b at 24 of 48 layers (VLM_SERVE_LAYERS, since
+           phase mesh_families joined), lockstep batch 4 x (256
            prefix + 64 prompt tokens), 32 new, max_len 384, as run a.  Run
            d: whisper through ``Trainer`` at full depth (batch 4 x 256,
            nvfp4_paper_config, remat, 3 steps; K1 from ``k1_step_gemms``
@@ -212,7 +219,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
            tp=2 on run A's traffic cut to 4 requests (128-token shared
            prefix + 64, prefix cache, 64-token chunks, 32 new); run c: the
            lockstep Engine at tp=2, batch 4 x 64, 32 new; both llama2-7b at
-           full width and depth, weights packed layer by layer into each
+           full width, depth cut 32 -> MESH_LAYERS = 4 (since phase
+           mesh_families joined), weights packed layer by layer into each
            rank's shards.  Run d: dp=2,tp=2 (4 ranks), depth cut 32 -> 4,
            lockstep, 16 new, every weight gathered over "data" in its
            packed wire format before its GEMMs.  Each run is served again
@@ -255,6 +263,28 @@ Phases, each printing JSON lines; any failure exits non-zero:
            speed.  Phase kernels holds K1 with ``a_amax`` / ``b_amax`` at
            the tp=2 shard shapes (``k1_tp_checks``) and K2 at GRAD_FP8 and
            on the probe's shards (``k2_mesh_checks``).
+  mesh_families
+           the moe and vlm families on a mesh (``models/moe.py``'s routes,
+           the batched expert collectives), gloo ranks sharing the card,
+           each run against one process on the same seeded weights
+           (MF_SERVE, MF_TRAIN): a, Mixtral-8x7B at 4 of 32 layers, the
+           lockstep Engine at tp=2 (``launch.serve --mesh``), batch 4 x 64,
+           32 new; b, Qwen3-MoE at 2 of 94 layers, ContinuousEngine at
+           tp=2 (8 slots, prefix cache, 64-token chunks); c, InternVL2-26B
+           at 4 of 48 layers, lockstep tp=2, batch 4 x (256 prefix + 64),
+           16 new -- held as phase mesh holds its runs, plus the moe
+           layers' collectives a layer and program call (2, for E 8 as for
+           E 128); d, Mixtral at 2 layers through ``Trainer`` at tp=2, 1 x
+           1024, 3 steps, against one process and its SR spread (a run
+           with re-drawn SR streams), as phase train_mesh; e, Qwen3-MoE at
+           1 layer, fsdp=2 (the "local" route), 2 x 512, one step: step-0
+           loss and every rank's routing against one process; d and e
+           hold grad_norm and sigma_q at every step as train_mesh does
+           (e, with no re-drawn run, within TM_NORM_RTOL).  Launches
+           as derived on every rank, peak memory a rank beside one
+           process's, collectives a step -- gloo ranks sharing one card:
+           not a DP/TP speed.  Phase kernels holds K4 and K1 at the
+           experts' shard shapes (``k4_tp_checks``, ``k1_tp_checks``).
   ops      the kernel-level public API (``kernels/ops.py``) as a user calls
            it: the unfused FQT GEMM at each forward GEMM shape of the
            train phase's llama2-7b (M = 4096 tokens; (K, N) = (4096, 4096),
@@ -267,26 +297,28 @@ Phases, each printing JSON lines; any failure exits non-zero:
            bit, K3 its plain version under the tensor-core rule of phase
            kernels, and the chain K2 -> K2 -> K3 must equal K1 within 1e-5
            of max |out|.
-  times    median CUDA-event time of each kernel at the main paths' shapes
-           (L2 flushed before every launch, as a step finds its operands
-           cold), beside its bound, its plain version and one PyTorch call
-           computing the same function (a yardstick the port never calls);
-           K1 at every train GEMM with its SR operands in counter mode, as
-           the train step runs it, and at the recurrent families' new
-           shapes (zamba2's N = 8384 in_proj and its K = 8384 dX, xlstm's
-           N = 50432 lm_head, whisper's tied head and encoder w_in,
-           internvl2's head); K4 at every main-path shape with its
-           route, and both routes at M 1-64 (the crossover); K5 at run A's
-           decode, the verify and the chunk shapes; K6 at every K6_CASES row
-           with the split plan it takes and on run c's rolling caches
-           (K6_ROLL_TIMES); K7 at every K7_CASES, K7_MAIN and K7_ENCDEC
-           row; GELU (whisper's MLP) in the reference's order and as
-           torch's tanh GELU; K2 at 4096^2 f32 (computed and given tensor scale), bf16,
-           and at the sigma_q probe's largest leaf in counter mode; and the
-           device time of each launch inside one call of K1, K2 (its absmax
-           pre-pass and quantizer), K3, K4 (each route), K5, K6 and K7, each
-           taken in a fresh child process (a profiler late in a long
-           process drops device events).
+  times    median CUDA-event time of each kernel at its case in the
+           kernels line (SUMMARY; L2 flushed before every launch, as a step
+           finds its operands cold), beside its bound, its plain version
+           and one PyTorch call computing the same function (a yardstick
+           the port never calls).
+  times_full (not run by default: ``--phases times_full``) the same at
+           every other main-path shape: K1 at every train GEMM with its SR
+           operands in counter mode, as the train step runs it, and at the
+           recurrent families' new shapes (zamba2's N = 8384 in_proj and
+           its K = 8384 dX, xlstm's N = 50432 lm_head, whisper's tied head
+           and encoder w_in, internvl2's head); K4 at every main-path shape
+           with its route, and both routes at M 1-64 (the crossover); K5 at
+           run A's decode, the verify and the chunk shapes; K6 at every
+           K6_CASES row with the split plan it takes and on run c's rolling
+           caches (K6_ROLL_TIMES); K7 at every K7_CASES, K7_MAIN and
+           K7_ENCDEC row; GELU (whisper's MLP) in the reference's order and
+           as torch's tanh GELU; K2 at 4096^2 f32 (computed and given
+           tensor scale), bf16, and at the sigma_q probe's largest leaf in
+           counter mode; and the device time of each launch inside one call
+           of K1, K2 (its absmax pre-pass and quantizer), K3, K4 (each
+           route), K5, K6 and K7, each taken in a fresh child process (a
+           profiler late in a long process drops device events).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -296,6 +328,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -309,7 +342,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("env", "kernels", "serve", "serve_continuous", "train",
           "pipeline", "archs", "recurrent", "encdec_vlm", "mesh",
-          "train_mesh", "ops", "times")
+          "train_mesh", "mesh_families", "ops", "times", "times_full")
+DEFAULT_PHASES = PHASES[:-1]       # times_full only when asked for
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core peak
 SEED = 0
@@ -351,8 +385,9 @@ K4_ENCDEC = ((4, 512, 512), (4, 512, 2048), (4, 2048, 512),
 # with the full N's GEMV plan (plan_n), row shards (K / 2, N) of wo and
 # w_down with the global |A| max (a_amax); at M 4 (GEMV), 256 (core) and,
 # E3M4 A, 64 (the f32 route)
-K4_TP_COL = ((4096, 2048), (4096, 5504), (4096, 16000))
-K4_TP_ROW = ((2048, 4096), (5504, 4096))
+K4_TP_COL = ((4096, 2048), (4096, 5504), (4096, 16000),
+             (4096, 7168), (4096, 768))         # Mixtral's, Qwen3's experts
+K4_TP_ROW = ((2048, 4096), (5504, 4096), (7168, 4096), (768, 4096))
 K4_TP_M = (4, 256)
 K6_CASES = (  # (B, H, KVH, D, Sk, kv_len): llama2-7b, then tinyllama (G = 8),
     # then zamba2-1.2b's shared block (MHA, D 64), whisper-base's decoder
@@ -1048,7 +1083,8 @@ def phase_kernels(dev) -> dict:
 
 def k4_tp_checks(dev, check, e3m4_a) -> dict:
     """K4's tensor-parallel forms (``fp4_matmul.tp_fp4_matmul``) at the
-    tp=2 shard shapes of llama2-7b, the shards cut by
+    tp=2 shard shapes of llama2-7b and of one expert of Mixtral-8x7B and
+    of Qwen3-MoE (phase mesh_families), the shards cut by
     ``sharding.place_serve_params`` for each of the 2 ranks, in every
     route: a column shard with ``plan_n`` (the full N's GEMV plan) against
     its plain version under the tensor-core rule AND bit for bit against
@@ -1531,7 +1567,9 @@ def compiles(eng) -> dict:
 
 # CPU-only references run in child processes beside the card's work (the
 # smoke checks' plain-version sides and the continuous runs' compile
-# counts): the same code and seeds as in this process, on other cores
+# counts): the same code and seeds as in this process, on other cores;
+# ``main`` starts every selected phase's children once the kernels are
+# built
 _CPU_CHILDREN = {}
 
 
@@ -1572,9 +1610,10 @@ def stop_cpu_children() -> None:
         child.proc.wait()
 
 
-# serve_continuous's llama2-7b depth: cut 32 -> 16 (the draft of run B is
-# then 8 layers) since phase train_mesh joined the script
-CONT_LAYERS = 16
+# serve_continuous's llama2-7b depth: cut 32 -> 16 since phase train_mesh
+# joined the script, -> 8 since phase mesh_families did (the draft of run B
+# is then 4 layers)
+CONT_LAYERS = 8
 
 
 def continuous_configs() -> dict:
@@ -2514,11 +2553,11 @@ ARCH_SMOKE = ("codeqwen1.5-7b", "qwen2.5-32b", "mixtral-8x7b",
 QWEN3_LAYERS = 4          # qwen3-moe-235b-a22b: depth cut 94 -> 4 (run d)
 MOE_TRAIN_LAYERS = 2      # Mixtral training: depth cut 32 -> 2 (run e)
 # serving depth cuts that keep the whole script inside its time limit since
-# phase recurrent joined it: qwen2.5-32b 64 -> 16 layers (run b), Mixtral
-# 32 -> 8 (runs c, c long, c continuous); the rest of the archs at full
-# depth
-QWEN25_LAYERS = 16
-MIXTRAL_LAYERS = 8
+# phase recurrent joined it (16 and 8), halved again since phase
+# mesh_families joined: qwen2.5-32b 64 -> 8 layers (run b), Mixtral 32 -> 4
+# (runs c, c long, c continuous); the rest of the archs at full depth
+QWEN25_LAYERS = 8
+MIXTRAL_LAYERS = 4
 
 
 def packed_init(cfg, dev, phase="archs") -> tuple:
@@ -2943,6 +2982,19 @@ RECURRENT_ARCHS = ("zamba2-1.2b", "xlstm-125m")
 # sLSTM blocks run a Python loop over the tokens (forward, remat recompute
 # and backward), so its sequence sets its step time
 RECURRENT_TRAIN = {"zamba2-1.2b": (4, 1024), "xlstm-125m": (4, 256)}
+# depth cut since phase mesh_families joined the script, to keep it inside
+# its time limit (full width; every block kind stays: zamba2's shared block
+# after every 6 Mamba2 layers, xLSTM's sLSTM every 4th block)
+RECURRENT_LAYERS = {"zamba2-1.2b": 19, "xlstm-125m": 6}
+
+
+def recurrent_cfg(arch):
+    """``arch``'s config, a recurrent arch's depth cut to RECURRENT_LAYERS."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch in RECURRENT_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=RECURRENT_LAYERS[arch])
+    return cfg
 
 
 def recurrent_smoke(dev) -> list:
@@ -2997,7 +3049,7 @@ def trainer_run(dev, arch, steps=3, phase="recurrent",
     from repro_torch.kernels import counters
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.train import TrainConfig, Trainer, TrainerConfig
-    cfg = get_config(arch)
+    cfg = recurrent_cfg(arch)
     batch, seq = shape or RECURRENT_TRAIN[arch]
     qcfg, tcfg = fqt.nvfp4_paper_config(), TrainConfig(remat=True)
     per_step = sum(k1_step_gemms(cfg, qcfg, batch * seq,
@@ -3092,7 +3144,7 @@ def phase_recurrent(dev) -> dict:
         torch.cuda.empty_cache()
 
     for arch in RECURRENT_ARCHS:
-        cfg = get_config(arch)
+        cfg = recurrent_cfg(arch)
         params, build = packed_init(cfg, dev, phase="recurrent")
         out[arch] = {"build": build, "lockstep": archs_lockstep(
             arch, cfg, params, dev, 4, 64, 32, 256, phase="recurrent")}
@@ -3117,6 +3169,8 @@ def phase_recurrent(dev) -> dict:
 
 
 ENCDEC_ARCHS = ("whisper-base", "internvl2-26b")
+# run c's depth: cut 48 -> 24 since phase mesh_families joined the script
+VLM_SERVE_LAYERS = 24
 # whisper's continuous engine (run b): 4 slots over a 128-token slot buffer
 ENCDEC_CONT = dict(max_slots=4, max_len=128, page_size=16,
                    kv_cache_format="nvfp4", decode_chunk=8, eos_id=-1)
@@ -3464,8 +3518,10 @@ def phase_encdec_vlm(dev) -> dict:
     add(out["b"]["launches"])
     del params
     free()
-    # c: internvl2-26b, full width and depth: 256 vision tokens + 64
-    cfg = get_config("internvl2-26b")
+    # c: internvl2-26b, full width, depth cut to VLM_SERVE_LAYERS: 256
+    # vision tokens + 64
+    cfg = dataclasses.replace(get_config("internvl2-26b"),
+                              n_layers=VLM_SERVE_LAYERS)
     params, build = packed_init(cfg, dev, phase="encdec_vlm")
     out["c"] = {"build": build, "lockstep": archs_lockstep(
         "c", cfg, params, dev, 4, 64, 32, 384, phase="encdec_vlm",
@@ -3496,17 +3552,20 @@ def phase_encdec_vlm(dev) -> dict:
 # -> (mesh spec, the launcher's arguments).  b: ContinuousEngine at tp=2 on
 # run A's traffic cut to 4 requests (shared 128-token prefix, prefix cache,
 # 64-token chunks, 32 new); c: the lockstep Engine at tp=2 (serve's batch 4
-# x 64, 32 new); both llama2-7b at full width and depth.  d: dp=2,tp=2 (4
+# x 64, 32 new); both llama2-7b at full width, depth cut 32 -> MESH_LAYERS
+# = 4 (since phase mesh_families joined the script, to keep it inside its
+# time limit: the layers all repeat, on gloo eager).  d: dp=2,tp=2 (4
 # ranks), depth cut 32 -> 4, lockstep, 16 new: every GEMM weight gathered
 # over "data" (allgather_packed) before use.  Each run is also served by
 # one process (no --mesh, its programs graphed), the comparison.
+MESH_LAYERS = 4
 MESH_RUNS = {
     "b": ("tp=2", ["--queue", "4", "--max-slots", "4", "--batch", "4",
                    "--shared-prefix", "128", "--prompt-len", "64",
                    "--prefix-cache", "--prefill-chunk", "64", "--max-new",
-                   "32", "--max-len", "512"]),
+                   "32", "--max-len", "512", "--layers", str(MESH_LAYERS)]),
     "c": ("tp=2", ["--batch", "4", "--prompt-len", "64", "--max-new", "32",
-                   "--max-len", "256"]),
+                   "--max-len", "256", "--layers", str(MESH_LAYERS)]),
     "d": ("dp=2,tp=2", ["--batch", "4", "--prompt-len", "64", "--max-new",
                         "16", "--max-len", "256", "--layers", "4"]),
 }
@@ -3752,9 +3811,10 @@ def tm_setup():
 def tm_probe_launches(cfg, shape, names) -> int:
     """K2 launches of one step's sigma_q probe on a rank of the mesh, from
     the rule table: one per reference leaf of 2+ dims (the per-layer
-    leaves stacked) whose last dim takes whole blocks, and L for a stacked
-    leaf whose layers are split on another dim than the last (its rows
-    are then no progression of the whole leaf's)."""
+    leaves stacked) whose last dim takes whole blocks, and L (L x E for a
+    moe layer's stacked experts) for a stacked leaf whose layers are split
+    on another dim than the last (its rows are then no progression of the
+    whole leaf's: ``train/step._probe_parts``)."""
     import torch
     from repro_torch.distributed import sharding
     from repro_torch.distributed.mesh import Mesh
@@ -3762,16 +3822,26 @@ def tm_probe_launches(cfg, shape, names) -> int:
     d, f, V = cfg.d_model, cfg.d_ff, cfg.padded_vocab
     qd = cfg.n_heads * cfg.hd
     kv = cfg.n_kv_heads * cfg.hd
+    E = cfg.n_experts
+    lead = (E,) if E else ()
     stacked = {"wq": (d, qd), "wk": (d, kv), "wv": (d, kv), "wo": (qd, d),
-               "w_gate": (d, f), "w_up": (d, f), "w_down": (f, d),
-               "ln1": (d,), "ln2": (d,)}
+               "w_gate": lead + (d, f), "w_up": lead + (d, f),
+               "w_down": lead + (f, d), "ln1": (d,), "ln2": (d,)}
     if cfg.act == "smooth_swiglu":
-        stacked["smooth"] = (f,)
+        stacked["smooth"] = lead + (f,)
+    if cfg.use_qk_norm:
+        stacked.update(q_norm=(cfg.hd,), k_norm=(cfg.hd,))
+    if E:
+        stacked["router"] = (d, E)
     n = 2                                # embed, lm_head (2-D, unstacked)
     for name, shp in stacked.items():
+        if shp[-1] % 16:                 # a ragged last axis: skipped
+            continue
         spec = sharding.placed_spec(name, len(shp), mesh)
-        n += cfg.n_layers if any(ax is not None for ax in
-                                 spec[:len(shp) - 1]) else 1
+        # a layer split on another dim than its last: one call a layer and
+        # index of its leading dims (a moe layer's experts)
+        n += cfg.n_layers * math.prod(shp[:-2]) if any(
+            ax is not None for ax in spec[:len(shp) - 1]) else 1
     return n
 
 
@@ -4040,6 +4110,26 @@ def tm_reports(root: Path, label: str, n: int) -> list:
             for r in range(n)]
 
 
+def tm_norm_check(label, got, want, redrawn, failures) -> dict:
+    """grad_norm and sigma_q at every step of history ``got`` against one
+    process's ``want``: within max(TM_NOISE_X x their SR spread (the
+    distance of the ``redrawn`` history, where there is one),
+    TM_NORM_RTOL) relative; a miss is appended to ``failures``.  Returns
+    {key: [[relative deviation, relative limit] per step]}."""
+    out = {}
+    for k in ("grad_norm", "sigma_q"):
+        out[k] = []
+        for i, (g, w) in enumerate(zip(got, want)):
+            dev_i, lim = abs(g[k] - w[k]), TM_NORM_RTOL * abs(w[k])
+            if redrawn is not None:
+                lim = max(TM_NOISE_X * abs(redrawn[i][k] - w[k]), lim)
+            out[k].append([dev_i / abs(w[k]), lim / abs(w[k])])
+            if not dev_i <= lim:
+                failures.append((label, f"step-{i} {k} {g[k]} vs {w[k]} "
+                                 f"(limit {lim})"))
+    return out
+
+
 def tm_compare_updates(label, shape, names, init, one_final, root) -> dict:
     """Each leaf's update (final - initial) of the mesh run against one
     process's, as a relative L2 over the whole leaf from every rank's
@@ -4190,17 +4280,7 @@ def phase_train_mesh(dev) -> dict:
         over = {p: (v, bound[p]) for p, v in upd.items() if v > bound[p]}
         if over:
             failures.append((label, f"update rel L2 over its bound {over}"))
-        norm_dev = {}
-        for k in ("grad_norm", "sigma_q"):
-            norm_dev[k] = []
-            for i in range(TM_STEPS):
-                dev_i = abs(h[i][k] - o[i][k])
-                lim = max(TM_NOISE_X * abs(red_hist[i][k] - o[i][k]),
-                          TM_NORM_RTOL * abs(o[i][k]))
-                norm_dev[k].append([dev_i / abs(o[i][k]), lim / abs(o[i][k])])
-                if dev_i > lim:
-                    failures.append((label, f"step-{i} {k} {h[i][k]} vs "
-                                     f"{o[i][k]} (limit {lim})"))
+        norm_dev = tm_norm_check(label, h, o, red_hist, failures)
         peaks = [r["peak_allocated"] for r in reps]
         if label == "b" and peaks[0] > max(peaks[1:]) + leaf_bytes:
             failures.append((label, f"rank 0 peak {peaks[0]} over the "
@@ -4273,10 +4353,428 @@ def phase_train_mesh(dev) -> dict:
     return {"launches": launches, "runs": out, "e": e_row}
 
 
+# ---- phase mesh_families: the moe and vlm families on gloo ranks ------------
+#
+# Full width, cut depth, each run against one process on the same seeded
+# weights.  Serving (``launch.serve`` children, ranks sharing the card,
+# programs eager; the one-process runs graphed): a, Mixtral-8x7B at 4 of 32
+# layers, lockstep tp=2, batch 4 x 64, 32 new, nvfp4 KV; b, Qwen3-MoE at 2
+# of 94 layers, ContinuousEngine tp=2, 8 slots, a 128-token shared prefix,
+# prefix cache, 64-token chunks; c, InternVL2-26B at 4 of 48 layers,
+# lockstep tp=2, batch 4 x (256 prefix + 64), 16 new.  Training (``Trainer``
+# on spawned ranks, then one process in this one: the memory does not hold
+# both): d, Mixtral at 2 layers, 1 x 1024, 3 steps at tp=2 (plus one
+# process with re-drawn SR streams, for the spread rule); e, Qwen3-MoE at 1
+# layer, 2 x 512, one step at fsdp=2 (the "local" route: 8 of 16 groups and
+# 64 capacity rows an expert a rank).
+MF_SERVE = {
+    "a": ("mixtral-8x7b", "tp=2", ["--batch", "4", "--prompt-len", "64",
+                                   "--max-new", "32", "--max-len", "256",
+                                   "--layers", "4"]),
+    "b": ("qwen3-moe-235b-a22b", "tp=2", [
+        "--queue", "8", "--max-slots", "8", "--batch", "4",
+        "--shared-prefix", "128", "--prompt-len", "64", "--prefix-cache",
+        "--prefill-chunk", "64", "--max-new", "32", "--max-len", "512",
+        "--layers", "2"]),
+    "c": ("internvl2-26b", "tp=2", ["--batch", "4", "--prompt-len", "64",
+                                    "--max-new", "16", "--max-len", "384",
+                                    "--layers", "4"]),
+}
+# the serving runs started together: the packers' build peaks (a whole
+# bf16 layer and its packing temporaries in every process: ~13 GB a
+# process for a Qwen3-MoE layer of 128 experts) do not fit the card at once
+MF_SERVE_WAVES = (("a", "c"), ("b",))
+# label: (arch, mesh shape, axes, layers, (batch, seq), steps)
+MF_TRAIN = {"d": ("mixtral-8x7b", (2,), ("model",), 2, (1, 1024), 3),
+            "e": ("qwen3-moe-235b-a22b", (2,), ("data",), 1, (2, 512), 1)}
+# The rules, written in PERF.md before the first card run: a-c as phase
+# mesh's (MESH_MARGIN, MESH_LOGITS_RTOL); d as train_mesh's for a run that
+# splits a contraction over "model" (TM_LOSS0_RTOL, TM_LOSS_RTOL, each
+# leaf's update within max(TM_UPDATE_REL_L2, its SR spread)); e: the step-0
+# loss within TM_LOSS0_RTOL and every rank's routing (expert ids, slots,
+# sorted tokens, kept entries of each of its groups; G and C) equal to one
+# process's; the moe layer's collectives a program call the same for E 8
+# and E 128 (two: ``moe_amax``, ``moe_partials``).  Added after the first
+# runs: d and e hold grad_norm and sigma_q at every step within
+# max(TM_NOISE_X x their SR spread, TM_NORM_RTOL) of one process's
+# (``tm_norm_check``; e has no re-drawn run: TM_NORM_RTOL), so a gradient
+# counted twice or not at all on either dispatch route fails on the card.
+MF_MOE_COLLECTIVES = 2
+
+
+def routing_digests(log, n_layers) -> list:
+    """The forward's routing records (``moe.recording``; a remat recompute
+    records them again: dropped) as {route, G, C, first, groups: a sha1
+    of each group's expert ids, slots, sorted tokens and kept entries}."""
+    import hashlib
+    out = []
+    for r in log[:n_layers]:
+        groups = []
+        for g in r["groups"]:
+            h = hashlib.sha1()
+            for t in g:
+                h.update(t.detach().contiguous().cpu().numpy().tobytes())
+            groups.append(h.hexdigest())
+        out.append({"route": r["route"], "G": r["G"], "C": r["C"],
+                    "first": r["first"], "groups": groups})
+    return out
+
+
+def routing_equal(got, want) -> bool:
+    """A rank's routing digests against one process's: per layer G, C and
+    each of its groups' digest at the group's place among the G."""
+    return len(got) == len(want) and all(
+        (g["G"], g["C"]) == (w["G"], w["C"])
+        and g["groups"] == w["groups"][g["first"]:g["first"]
+                                      + len(g["groups"])]
+        for g, w in zip(got, want))
+
+
+def mf_setup(label):
+    """(cfg, qcfg, TrainConfig, DataConfig) of training run ``label``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import fqt
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train import TrainConfig
+    arch, _, _, layers, (batch, seq), _ = MF_TRAIN[label]
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    # e's one layer needs no remat: its recompute would gather every
+    # expert's FSDP shard a third time over gloo
+    return (cfg, fqt.nvfp4_paper_config(), TrainConfig(remat=label != "e"),
+            DataConfig(cfg.vocab_size, seq, batch))
+
+
+def mf_train(label, mesh=None, redrawn=False) -> tuple:
+    """Run ``label`` through ``Trainer`` (on ``mesh``, or one process;
+    ``redrawn``: every SR stream re-drawn, ``tm_redrawn``'s rule):
+    (report, final flat params)."""
+    import torch
+    from repro_torch.kernels import counters
+    from repro_torch.models import moe
+    from repro_torch.train import step as step_mod
+    cfg, qcfg, tcfg, data = mf_setup(label)
+    steps = MF_TRAIN[label][5]
+    dev = torch.device("cuda", 0)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    seed_of = step_mod.step_seed
+    if redrawn:
+        step_mod.step_seed = lambda s: seed_of(s) ^ TM_REDRAW
+    try:
+        tr = tm_trainer(cfg, qcfg, tcfg, data, steps, mesh)
+        marks = count_steps(tr)
+        if mesh is not None:
+            mesh.reset_stats()
+        counters.reset()
+        t0 = time.perf_counter()
+        with moe.recording() as log:
+            state = tr.run()
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        marks.append(counters.snapshot())
+    finally:
+        step_mod.step_seed = seed_of
+    rep = {"label": label, "seconds": seconds,
+           "launches": step_launches(marks), "history": tm_history([tr]),
+           "aux": [h["aux"] for h in tr.history],
+           "routing": routing_digests(log, cfg.n_layers),
+           "peak_allocated": torch.cuda.max_memory_allocated(dev)}
+    if mesh is not None:
+        rep.update(rank=mesh.rank, coords=dict(mesh.coords),
+                   stats=mesh.stats)
+    final = _flat_params(state.params)
+    del state, tr
+    return rep, final
+
+
+def mf_train_child(rank, root, label) -> None:
+    """A rank of training run ``label``: its report and final parameter
+    shards under ``root``."""
+    import torch
+    from repro_torch.distributed.mesh import make_mesh
+    _, shape, names, _, _, _ = MF_TRAIN[label]
+    mesh = make_mesh(shape, names, device=torch.device("cuda", 0),
+                     backend="gloo")
+    rep, final = mf_train(label, mesh)
+    torch.save({k: v.cpu() for k, v in final.items()},
+               Path(root) / f"{label}_rank{rank}.pt")
+    (Path(root) / f"{label}_rank{rank}.json").write_text(json.dumps(rep))
+
+
+def mf_start(root: Path, label):
+    """Start run ``label``'s ranks (spawned, gloo over a file rendezvous;
+    the kernels built already), not waiting for them."""
+    import os
+    import torch.multiprocessing as mp
+    from repro_torch.distributed.mesh import _rank_main
+    n = math.prod(MF_TRAIN[label][1])
+    # two ranks' training states fill most of the card: let the ranks'
+    # allocators grow their segments in place instead of fragmenting
+    key, old = "PYTORCH_CUDA_ALLOC_CONF", os.environ.get(
+        "PYTORCH_CUDA_ALLOC_CONF")
+    os.environ[key] = "expandable_segments:True"
+    try:
+        return mp.start_processes(
+            _rank_main, args=(mf_train_child, n, "gloo", "cuda:0",
+                              f"file://{root}/rendezvous_{label}",
+                              (str(root), label)),
+            nprocs=n, join=False, start_method="spawn")
+    finally:
+        if old is None:
+            del os.environ[key]
+        else:
+            os.environ[key] = old
+
+
+def mf_moe_collectives(rep):
+    """The moe layers' batched collectives a layer and program call of a
+    serving run's rank (``Mesh.stats``: "moe_amax" + "moe_partials" over
+    the calls of every program that runs the layers); None without
+    them."""
+    ops = rep["collectives"]["ops"]
+    if "moe_amax" not in ops:
+        return None
+    calls = sum(rep["calls"].values())
+    return (ops["moe_amax"]["calls"] + ops["moe_partials"]["calls"]) / (
+        calls * rep["layers"])
+
+
+def phase_mesh_families(dev) -> dict:
+    """The moe and vlm families on gloo ranks sharing the card; see the
+    docstring at the top, MF_SERVE and MF_TRAIN."""
+    import gc
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, counters
+    from repro_torch.models import registry
+    _build.build_all()              # built once: the ranks load it
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = ROOT / "build" / "mesh_families_phase"
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    emit({"phase": "mesh_families", "card": card_line(), "label": TM_LABEL,
+          "card_used_mib": card_used_mib()})
+    t_phase = time.perf_counter()
+    failures, launches, out = [], {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # serving, runs a-c in MF_SERVE_WAVES: every mesh run beside its
+    # one-process run
+    logs = {}
+    for wave in MF_SERVE_WAVES:
+        procs = {}
+        for label in wave:
+            arch, mesh, args = MF_SERVE[label]
+            for side in ("mesh", "one"):
+                procs[(label, side)] = _launcher(
+                    arch, mesh if side == "mesh" else None, args,
+                    root / f"{label}_{side}")
+        for key, proc in procs.items():
+            try:
+                logs[key], _ = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                logs[key], _ = proc.communicate()
+                raise AssertionError(f"mesh_families run {key} timed out:"
+                                     f"\n{logs[key][-3000:]}")
+            if proc.returncode != 0:
+                raise AssertionError(f"mesh_families run {key} failed:\n"
+                                     f"{logs[key][-3000:]}")
+    serve_s = time.perf_counter() - t_phase
+    moe_coll = {}
+    for label, (arch, mesh, args) in MF_SERVE.items():
+        layers = int(args[args.index("--layers") + 1])
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        reps = _reports(root / f"{label}_mesh", 2)
+        one = _reports(root / f"{label}_one", 1)[0]
+        for rep in reps:
+            rep["layers"] = layers
+            if rep["streams"] != reps[0]["streams"]:
+                failures.append((label, f"rank {rep['rank']} streams"))
+            want = mesh_expected(cfg, rep)
+            if rep["launches"] != want:
+                failures.append((label, f"rank {rep['rank']} launches "
+                                 f"{rep['launches']} != {want}"))
+            add(rep["launches"])
+        if one["launches"] != mesh_expected(cfg, one):
+            failures.append((label, "one-process launches"))
+        cmp = mesh_compare(reps[0], one)
+        if not cmp["streams_ok"]:
+            failures.append((label, "stream parted at a decisive step"))
+        lg = np.load(root / f"{label}_mesh" / "prefill_logits.npy")
+        lw = np.load(root / f"{label}_one" / "prefill_logits.npy")
+        rel = float(np.linalg.norm(lg - lw) / np.linalg.norm(lw))
+        if not (np.isfinite(lg).all() and rel <= MESH_LOGITS_RTOL):
+            failures.append((label, f"prefill logits rel L2 {rel}"))
+        per_layer = [mf_moe_collectives(rep) for rep in reps]
+        if cfg.n_experts:
+            moe_coll[label] = per_layer[0]
+            if any(c != MF_MOE_COLLECTIVES for c in per_layer):
+                failures.append((label, f"moe collectives a layer and "
+                                 f"call {per_layer}"))
+        r0 = reps[0]
+        steps = max(1, r0["calls"].get("decode", r0["calls"].get(
+            "_decode", 1)))
+        row = {"phase": "mesh_families", "run": label, "arch": arch,
+               "mesh": mesh, "ranks": 2, "layers": layers,
+               "cut": {"n_layers": [get_config(arch).n_layers, layers]},
+               "label": TM_LABEL, **cmp, "prefill_logits_rel_l2": rel,
+               "tokens": r0["tokens"], "seconds": r0["seconds"],
+               "tokens_per_s": r0["tokens"] / r0["seconds"],
+               "one_process_tokens_per_s": one["tokens"] / one["seconds"],
+               "program_calls": r0["calls"],
+               "collectives": [rep["collectives"] for rep in reps],
+               "collectives_per_decode_call": r0["collectives"]["calls"]
+               / steps,
+               "moe_collectives_per_layer_and_call": per_layer,
+               "peak_allocated_bytes": [rep["peak_allocated"]
+                                        for rep in reps],
+               "one_process_peak_allocated": one["peak_allocated"],
+               "weight_store_bytes": [rep["weight_store_bytes"]
+                                      for rep in reps],
+               "launches_rank0": r0["launches"]}
+        emit(row)
+        out[label] = row
+    if len(set(moe_coll.values())) != 1:
+        failures.append(("a/b", f"moe collectives differ with E: "
+                         f"{moe_coll}"))
+
+    # training, runs d and e: the ranks, then one process (and d's
+    # re-drawn one) in this process
+    train_s = {}
+    for label in MF_TRAIN:
+        t0 = time.perf_counter()
+        ctx = mf_start(root, label)
+        tm_join(ctx, timeout=900)
+        train_s[label] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    for label, (arch, shape, names, layers, (batch, seq),
+                steps) in MF_TRAIN.items():
+        cfg, qcfg, tcfg, _ = mf_setup(label)
+        reps = tm_reports(root, label, 2)
+        one, one_final = mf_train(label)
+        spread, red = None, None
+        if label == "d":
+            red, red_final = mf_train(label, redrawn=True)
+        init = _flat_params(registry.init_params(cfg, seed=SEED,
+                                                 device=dev))
+        if label == "d":
+            spread = tm_update_rel_l2(init, one_final, red_final)
+            del red_final
+        gc.collect()
+        torch.cuda.empty_cache()
+        want = {k: 0 for k in counters.COUNTS}
+        want.update(fused_quant_matmul=sum(k1_step_gemms(
+            cfg, qcfg, batch * seq, remat=tcfg.remat).values()),
+            block_quantize=tm_probe_launches(cfg, shape, names))
+        want1 = dict(want, block_quantize=tm_probe_launches(cfg, (1,),
+                                                            ("model",)))
+        if any(c != want1 for c in one["launches"]):
+            failures.append((label, f"one-process launches "
+                             f"{one['launches']} != {want1}"))
+        for rep in reps:
+            if rep["history"] != reps[0]["history"]:
+                failures.append((label, f"rank {rep['rank']} metrics"))
+            if any(c != want for c in rep["launches"]):
+                failures.append((label, f"rank {rep['rank']} launches "
+                                 f"{rep['launches']} != {want}"))
+            for c in rep["launches"]:
+                add(c)
+            if not routing_equal(rep["routing"], one["routing"]):
+                failures.append((label, f"rank {rep['rank']} routing"))
+        h, o = reps[0]["history"], one["history"]
+        if abs(h[0]["loss"] - o[0]["loss"]) > TM_LOSS0_RTOL * abs(
+                o[0]["loss"]):
+            failures.append((label, "step-0 loss"))
+        for i in range(1, steps):
+            if abs(h[i]["loss"] - o[i]["loss"]) > TM_LOSS_RTOL * abs(
+                    o[i]["loss"]):
+                failures.append((label, f"step-{i} loss"))
+        norm_dev = tm_norm_check(label, h, o, red and red["history"],
+                                 failures)
+        upd = tm_compare_updates(label, shape, names, init, one_final, root)
+        del init, one_final
+        row = {"phase": "mesh_families", "run": label, "arch": arch,
+               "mesh": dict(zip(names, shape)), "ranks": 2,
+               "cut": {"n_layers": [get_config(arch).n_layers, layers],
+                       "batch": batch, "seq": seq}, "steps": steps,
+               "label": TM_LABEL,
+               "routes": [r["route"] for r in reps[0]["routing"]],
+               "G_C": [(r["G"], r["C"]) for r in reps[0]["routing"]],
+               "rank_first_groups": [[r["first"] for r in rep["routing"]]
+                                     for rep in reps],
+               "routing_equal": [routing_equal(rep["routing"],
+                                               one["routing"])
+                                 for rep in reps],
+               "loss0_bit_equal": h[0]["loss"] == o[0]["loss"],
+               "losses": [x["loss"] for x in h],
+               "one_process_losses": [x["loss"] for x in o],
+               "aux": reps[0]["aux"], "one_process_aux": one["aux"],
+               "grad_norm": [x["grad_norm"] for x in h],
+               "one_process_grad_norm": [x["grad_norm"] for x in o],
+               "sigma_q": [x["sigma_q"] for x in h],
+               "one_process_sigma_q": [x["sigma_q"] for x in o],
+               "norm_rel_dev_and_limit": norm_dev,
+               "worst_update_rel_l2": max(upd.values()),
+               "worst_update_leaf": max(upd, key=upd.get),
+               "update_rel_l2": upd,
+               "seconds": [rep["seconds"] for rep in reps],
+               "rank_wall_s": train_s[label],
+               "one_process_seconds": one["seconds"],
+               "launches_per_step": want,
+               "collectives_per_step": {
+                   k: {"calls": v["calls"] / steps,
+                       "bytes": v["bytes"] / steps,
+                       "host_ms": v["seconds"] * 1e3 / steps}
+                   for k, v in reps[0]["stats"]["ops"].items()},
+               "peak_allocated_bytes": [rep["peak_allocated"]
+                                        for rep in reps],
+               "one_process_peak_allocated": one["peak_allocated"]}
+        if spread is not None:
+            bound = {p: max(TM_UPDATE_REL_L2, spread[p]) for p in upd}
+            over = {p: (v, bound[p]) for p, v in upd.items()
+                    if v > bound[p]}
+            if over:
+                failures.append((label, f"update rel L2 over its bound "
+                                 f"{over}"))
+            row.update(redrawn_losses=[x["loss"] for x in red["history"]],
+                       redrawn_grad_norm=[x["grad_norm"]
+                                          for x in red["history"]],
+                       redrawn_sigma_q=[x["sigma_q"]
+                                        for x in red["history"]],
+                       sr_spread_of_worst_leaf=spread[max(upd,
+                                                          key=upd.get)],
+                       worst_update_over_bound=max(upd[p] / bound[p]
+                                                   for p in upd))
+        row["update_rel_l2"] = {p: upd[p] for p in sorted(
+            upd, key=upd.get, reverse=True)[:8]}
+        emit(row)
+        out[label] = row
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "mesh_families", "wall_s": time.perf_counter() - t_phase,
+          "serve_wall_s": serve_s, "train_rank_wall_s": train_s,
+          "card": card_line()})
+    shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        raise AssertionError(f"mesh_families phase: {failures}")
+    return {"launches": launches, "runs": out}
+
+
 def k1_tp_checks(dev, check) -> dict:
     """K1 with given global maxima (``a_amax`` / ``b_amax``) at llama2-7b's
-    tp=2 shard shapes of the train_mesh phase (M = 1024 tokens): for each
-    of wq and w_gate (column: N split) and wo and w_down (row: K split),
+    tp=2 shard shapes of the train_mesh phase (M = 1024 tokens) and at a
+    Mixtral expert's of phase mesh_families (M = 320 capacity rows): for
+    each of wq and w_gate (column: N split) and wo and w_down (row: K
+    split),
     every rank's forward, dX and dW as ``core/fqt._ShardedFP4Matmul``
     launches them (the global maxima, the counters offset into the whole
     operand's bits: ``formats.counter_at``) against the plain version
@@ -4292,7 +4790,7 @@ def k1_tp_checks(dev, check) -> dict:
     from repro_torch.core.quantize import BlockQuantSpec
     from repro_torch.kernels import fp4_matmul as fm
     qc = fqt.nvfp4_paper_config()
-    M, seed = 1024, 0x9E3779B1
+    seed = 0x9E3779B1
     out = {"cases": 0, "bitwise": 0, "pair_max_abs_err": 0.0,
            "amax_max_abs_err": 0.0}
 
@@ -4315,9 +4813,14 @@ def k1_tp_checks(dev, check) -> dict:
             a_counter=ca, b_counter=cb, a_amax=aa, b_amax=ab)
         return got, want
 
-    for name, K, N in (("wq", 4096, 4096), ("w_gate", 4096, 11008),
-                       ("wo", 4096, 4096), ("w_down", 11008, 4096)):
-        row = name in ("wo", "w_down")
+    for name, K, N, M in (("wq", 4096, 4096, 1024),
+                          ("w_gate", 4096, 11008, 1024),
+                          ("wo", 4096, 4096, 1024),
+                          ("w_down", 11008, 4096, 1024),
+                          # a Mixtral expert's at its 320 capacity rows
+                          ("expert w_gate", 4096, 14336, 320),
+                          ("expert w_down", 14336, 4096, 320)):
+        row = name.endswith(("wo", "w_down"))
         g_ = gen(dev, SEED + K + N)
         x = (torch.randn((M, K), generator=g_, device=dev) * 2
              ).to(torch.bfloat16)
@@ -4868,7 +5371,9 @@ def breakdown_in_child(case, lock: Path, first=None, children=2) -> dict:
 K4_CROSS_M = (1, 4, 8, 16, 32, 64)
 
 
-def phase_times(dev) -> dict:
+def phase_times(dev, full=False) -> dict:
+    """Phase times (SUMMARY's cases), or times_full (``full``: every case,
+    K4's crossover, GELU and the per-launch breakdowns)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.quantize import NVFP4, _tensor_scale, kv_dequant
@@ -4877,9 +5382,12 @@ def phase_times(dev) -> dict:
     from repro_torch.kernels import nvfp4_quant as nq
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)  # 256 MB
     rows = {}
+    summary = {(n, c[0]) for n, c in SUMMARY.items()}
 
     def record(name, case, kernel, plain, library, nbytes, ops, reps=20,
                **extra):
+        if not full and (name, case) not in summary:
+            return None
         b, by = bound_ms(nbytes, ops)
         r = {"ms": time_ms(kernel, flush, reps),
              "host_us": host_us(kernel),
@@ -4905,7 +5413,7 @@ def phase_times(dev) -> dict:
             del a, w, wd
         # both of K4's routes at M 1-64 on each weight: the crossover
         cross = {}
-        for K, N, _ in K4_WEIGHTS:
+        for K, N, _ in (K4_WEIGHTS if full else ()):
             for M in K4_CROSS_M:
                 a, w = k4_inputs(M, K, N, dev)
                 cross[f"{M} {K} {N}"] = {route: time_ms(
@@ -4914,8 +5422,9 @@ def phase_times(dev) -> dict:
                                           torch.bfloat16, route), flush)
                     for route in ("gemv", "core")}
                 del a, w
-        emit({"phase": "times", "kernel": fm.NAME, "route_ms": cross,
-              "gemv_max_m": fm.K4_GEMV_MAX_M})
+        if full:
+            emit({"phase": "times", "kernel": fm.NAME, "route_ms": cross,
+                  "gemv_max_m": fm.K4_GEMV_MAX_M})
         for B, H, KVH, D, Sk, kv_len in K6_CASES:
             q, kc, ks, vc, vs, pos = k6_inputs(B, H, KVH, D, Sk, kv_len,
                                                torch.bfloat16, dev)
@@ -5029,23 +5538,25 @@ def phase_times(dev) -> dict:
         # every device runs, against torch's tanh GELU, forward on a decode
         # step's 4 rows and the encoder's 4 x 1500, and forward + backward
         # on the encoder's rows (training)
-        from repro_torch.models import refnum
-        gelus = {"reference order": refnum.Gelu.apply,
-                 "torch tanh": lambda t: F.gelu(t, approximate="tanh")}
-        gelu_ms = {}
-        for n in (4, 6000):
-            x = torch.randn((n, 2048), generator=gen(dev, SEED), device=dev)
-            gelu_ms[f"fwd {n}x2048"] = {
-                name: time_ms(lambda: fn(x), flush)
-                for name, fn in gelus.items()}
-        with torch.enable_grad():
-            xg = x.clone().requires_grad_()
-            gelu_ms["fwd+bwd 6000x2048"] = {
-                name: time_ms(lambda: torch.autograd.grad(
-                    fn(xg), xg, torch.ones_like(xg)), flush)
-                for name, fn in gelus.items()}
-        emit({"phase": "times", "op": "gelu", "ms": gelu_ms})
-        del x, xg
+        if full:
+            from repro_torch.models import refnum
+            gelus = {"reference order": refnum.Gelu.apply,
+                     "torch tanh": lambda t: F.gelu(t, approximate="tanh")}
+            gelu_ms = {}
+            for n in (4, 6000):
+                x = torch.randn((n, 2048), generator=gen(dev, SEED),
+                                device=dev)
+                gelu_ms[f"fwd {n}x2048"] = {
+                    name: time_ms(lambda: fn(x), flush)
+                    for name, fn in gelus.items()}
+            with torch.enable_grad():
+                xg = x.clone().requires_grad_()
+                gelu_ms["fwd+bwd 6000x2048"] = {
+                    name: time_ms(lambda: torch.autograd.grad(
+                        fn(xg), xg, torch.ones_like(xg)), flush)
+                    for name, fn in gelus.items()}
+            emit({"phase": "times", "op": "gelu", "ms": gelu_ms})
+            del x, xg
         # K1 at every GEMM of the llama2-7b train step (M = 4096 tokens)
         from repro_torch.configs import get_config
         from repro_torch.core import fqt
@@ -5068,10 +5579,12 @@ def phase_times(dev) -> dict:
                            out_dtype=torch.bfloat16),
                        lambda: torch.matmul(a, b), nbytes, 2 * M * N * K,
                        reps=5, launches_per_step=n)
-            step_ms += n * r["ms"]
+            if r is not None:
+                step_ms += n * r["ms"]
             del a, b, ra, rb
-        emit({"phase": "times", "kernel": fm.FUSED_NAME,
-              "train_step_k1_ms": step_ms})
+        if full:
+            emit({"phase": "times", "kernel": fm.FUSED_NAME,
+                  "train_step_k1_ms": step_ms})
         # K1 at the later slices' shapes (K1_CASES): zamba2's in_proj (N =
         # 8384) and its dX (K = 8384), xlstm's lm_head, whisper's tied head
         # at a decode step and its encoder's w_in in training, and
@@ -5146,6 +5659,8 @@ def phase_times(dev) -> dict:
                2 * M * K * K, reps=5)
         del ac, asc, bc, bsc, ad, bd
     torch.cuda.empty_cache()
+    if not full:
+        return rows
     # what one call spends in each of its launches, each call in a fresh
     # process; the children start together and measure one at a time
     lock = ROOT / "build" / "breakdown.lock"
@@ -5198,7 +5713,7 @@ SUMMARY = {
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(PHASES),
+    ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help=f"comma-separated subset of {PHASES}")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
@@ -5214,8 +5729,19 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     results = {}
+    # the CPU children the selected phases read (each computes on the CPU
+    # what its phase holds the card to), started once the kernels are
+    # built so that their minutes overlap the card's phases before theirs
+    children = {"serve_continuous": [("cpu_compile_counts",)],
+                "archs": [("archs_smoke_reference",)],
+                "encdec_vlm": [("encdec_smoke_reference",),
+                               ("encdec_cpu_compiles", ENCDEC_REQUESTS)]}
     try:
-        for p in phases:
+        for i, p in enumerate(phases):
+            if p != "env" and "env" not in phases[i:]:
+                for q in phases[i:]:
+                    for child in children.get(q, ()):
+                        cpu_child(*child)
             t0 = time.perf_counter()
             results[p] = {"env": phase_env, "kernels": phase_kernels,
                           "serve": phase_serve,
@@ -5226,14 +5752,17 @@ def main(argv=None) -> int:
                           "encdec_vlm": phase_encdec_vlm,
                           "mesh": phase_mesh,
                           "train_mesh": phase_train_mesh,
+                          "mesh_families": phase_mesh_families,
                           "ops": phase_ops,
-                          "times": phase_times}[p](dev)
+                          "times": phase_times,
+                          "times_full": functools.partial(
+                              phase_times, full=True)}[p](dev)
             emit({"phase": p, "done": True,
                   "seconds": round(time.perf_counter() - t0, 3)})
     finally:
         stop_cpu_children()
     print(card_line(), flush=True)
-    if set(PHASES) - {"env"} <= set(phases):
+    if set(DEFAULT_PHASES) - {"env"} <= set(phases):
         # each kernel's launches on the main path that runs it: K4, K6, K7
         # in the lockstep serve, K5 over runs A and B of the continuous
         # engine, K1 and K2 (the sigma_q probe) in training, K3 in the
@@ -5247,7 +5776,8 @@ def main(argv=None) -> int:
         # and each kernel's launches on the archs' paths (runs a-e), the
         # recurrent families' (serve and train) and the encdec and vlm
         # families' (runs a-d)
-        for ph in ("archs", "recurrent", "encdec_vlm", "mesh", "train_mesh"):
+        for ph in ("archs", "recurrent", "encdec_vlm", "mesh", "train_mesh",
+                   "mesh_families"):
             for name, n in results[ph]["launches"].items():
                 launches[name] = launches.get(name, 0) + n
         line = []

@@ -311,18 +311,26 @@ def _sharded_forward(x: torch.Tensor, w, seed: int, cfg: QuantConfig,
 
 class _ShardLayout:
     """The static facts of one sharded GEMM: the weight's split axes (from
-    ``sharding.weight_kind``), this rank's coordinates, the DP axes."""
+    ``sharding.weight_kind``), this rank's coordinates, the DP axes.
 
-    def __init__(self, mesh, k_ax, n_ax):
+    ``rows_whole``: x's rows are the whole operand's on every rank (the
+    moe layer's "replicated" dispatch route, or a serving mesh), not this
+    rank's share of them: no DP axis in the row maxima, ``row0`` 0, and
+    dW, computed whole on every rank, is neither summed over the DP axes
+    nor reduce-scattered but cut to this rank's FSDP shard."""
+
+    def __init__(self, mesh, k_ax, n_ax, rows_whole: bool = False):
         self.mesh = mesh
         self.row = k_ax == "model"           # K split over "model"
         self.fsdp_dim = 0 if k_ax == "data" else 1 if n_ax == "data" \
             else None
         self.tp = mesh.axis_size("model")
         self.r = mesh.axis_index("model")
-        self.dp = tuple(a for a in ("pod", "data") if mesh.axis_size(a) > 1)
+        self.rows_whole = rows_whole
+        self.dp = () if rows_whole else tuple(
+            a for a in ("pod", "data") if mesh.axis_size(a) > 1)
         from repro_torch.distributed.sharding import grad_sum_axes
-        self.sum_axes = grad_sum_axes(mesh)
+        self.sum_axes = () if rows_whole else grad_sum_axes(mesh)
         self.dp_size = mesh.axes_size(self.dp)
         self.dp_index = mesh.axes_index(self.dp)
         self.model = ("model",) if self.tp > 1 else ()
@@ -332,6 +340,14 @@ class _ShardLayout:
             return w
         return self.mesh.all_gather(w, "data", dim=self.fsdp_dim,
                                     op="fsdp_gather")
+
+    def fsdp_slice(self, dw: torch.Tensor) -> torch.Tensor:
+        """This rank's FSDP shard of a whole dW (``rows_whole``)."""
+        if self.fsdp_dim is None:
+            return dw
+        n = dw.shape[self.fsdp_dim] // self.mesh.axis_size("data")
+        return dw.narrow(self.fsdp_dim, self.mesh.axis_index("data") * n,
+                         n).contiguous()
 
     def amax(self, t: torch.Tensor, spec, axes) -> Optional[torch.Tensor]:
         """The global |max| of ``t`` over ``axes`` (K1's a_amax/b_amax),
@@ -473,12 +489,15 @@ class _ShardedFP4Matmul(torch.autograd.Function):
                     sp["fwd_a"] is None or not sp["fwd_a"].two_level):
                 amax_x = lay.amax(x2, ua,
                                   lay.dp + (lay.model if lay.row else ()))
-            summed = bool(lay.sum_axes) or lay.fsdp_dim is not None
+            summed = not lay.rows_whole and (bool(lay.sum_axes)
+                                             or lay.fsdp_dim is not None)
             dw = _shard_gemm(lay, x2.T, g2, ua, ug, seed, (4, 5),
                              (row0 * K + kx0, 1, K), (row0 * N + ng0, N, 1),
                              amax_x if ua is not None else None, g_amax(ug),
                              torch.float32 if summed else w.dtype, M)
-            if lay.fsdp_dim is not None:
+            if lay.rows_whole:
+                dw = lay.fsdp_slice(dw)
+            elif lay.fsdp_dim is not None:
                 dw = lay.mesh.reduce_scatter(dw, "data", dim=lay.fsdp_dim)
             elif "data" in lay.sum_axes:
                 dw = lay.mesh.all_reduce(dw, "data")

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 from typing import Optional
 
 import torch
@@ -97,28 +98,39 @@ def _leaf_compress_psum(g: torch.Tensor, path: str, leaf: int, seed: int,
     B = spec.block
     seed32 = leaf_seed(seed, leaf, mesh.axis_index(axis))
     if shard_axes:
-        if g.ndim > 2 or g.shape[-1] % B:
+        if g.shape[-1] % B:
             raise ValueError(
                 f"{path}: a shard {tuple(g.shape)} is blocked along the "
                 f"flattened leaf only where its last dim is a whole number "
-                f"of blocks of {B} (2-D at most)")
+                f"of blocks of {B}")
         full, off = sharding.shard_offsets(lspec, g.shape, mesh)
         C = g.shape[-1]
-        x2 = g32.reshape(-1, C)
-        first = (off[0] * full[1] if g.ndim == 2 else 0) + off[-1]
-        counter = (counter_at(seed32, first), full[-1], 1)
+        # one (rows, C) block per index of the dims before the last two (a
+        # moe layer's stacked experts): each block's rows are a
+        # progression of the whole leaf's flat indices
+        parts = []
+        for idx in itertools.product(*(range(k) for k in g.shape[:-2])):
+            pos = tuple(o + i for o, i in zip(off, idx)) + tuple(off[-2:])
+            first = sum(o * math.prod(full[d + 1:])
+                        for d, o in enumerate(pos))
+            parts.append((g32[idx].reshape(-1, C), first))
     else:
         flat = g32.reshape(-1)
         pad = (-flat.numel()) % B
         if pad:
             flat = torch.cat([flat, flat.new_zeros(pad)])
         x2 = flat[None]
-        counter = (seed32, x2.shape[1], 1)
     amax = torch.amax(torch.abs(g32)).reshape(1)
     mesh.all_reduce(amax, shard_axes, op="max")
     ts = _tensor_scale(amax, spec).reshape(1)
-    q = _fake_quant_rows(x2.contiguous(), spec, ts,
-                         counter if spec.stochastic else None)
+    if shard_axes:
+        q = torch.cat([_fake_quant_rows(
+            x2.contiguous(), spec, ts, (counter_at(seed32, first), full[-1],
+                                        1) if spec.stochastic else None)
+            for x2, first in parts])
+    else:
+        q = _fake_quant_rows(x2.contiguous(), spec, ts, (
+            seed32, x2.shape[1], 1) if spec.stochastic else None)
     q = mesh.all_reduce(q, axis)
     out = (q / npods).reshape(-1)[:g.numel()] if not shard_axes \
         else q / npods

@@ -21,10 +21,11 @@ max), ``all_gather``, ``reduce_scatter`` and the point-to-point ``send`` /
 ``recv`` (the pipeline's transfers).  Each skips an axis of size 1 and counts its
 calls, the bytes this rank contributes and their host seconds, in total and
 per operation (``Mesh.stats``).  Where the backend lacks an operation for
-the tensor's device (gloo has no reduce-scatter, and no point-to-point
-transfer of CUDA tensors) the explicit equivalent runs -- an all-reduce,
-then this rank's slice; a transfer staged through host memory -- and is
-counted as the operation it implements.
+the tensor's device (gloo has no reduce-scatter of CUDA tensors, and no
+point-to-point transfer of them) the explicit equivalent runs -- an
+all-to-all of the shards through host memory, summed in rank order; a
+transfer staged through host memory -- and is counted as the operation it
+implements.
 """
 from __future__ import annotations
 
@@ -131,16 +132,19 @@ class Mesh:
     def reset_stats(self) -> None:
         self.stats = {"calls": 0, "bytes": 0, "seconds": 0.0, "ops": {}}
 
-    def all_reduce(self, t: torch.Tensor, axis, op: str = "sum"
-                   ) -> torch.Tensor:
+    def all_reduce(self, t: torch.Tensor, axis, op: str = "sum",
+                   label: Optional[str] = None) -> torch.Tensor:
         """``t`` reduced over ``axis`` (a name, or a sequence of names
         reduced one after the other) IN PLACE, op "sum" or "max"; every
-        rank of the axes holds the same bits after it."""
+        rank of the axes holds the same bits after it.  ``label`` names
+        the purpose in ``stats`` (default "all_reduce_<op>"; the moe
+        layer's batched reductions count as "moe_amax" and
+        "moe_partials")."""
         for a in ((axis,) if isinstance(axis, str) else tuple(axis)):
             if self.axis_size(a) == 1:
                 continue
             rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-            self._timed(f"all_reduce_{op}",
+            self._timed(label or f"all_reduce_{op}",
                         lambda: dist.all_reduce(t, rop, group=self.groups[a]),
                         t.numel() * t.element_size())
         return t
@@ -165,9 +169,11 @@ class Mesh:
                        ) -> torch.Tensor:
         """The sum of ``t`` over ``axis``, cut along ``dim`` into the
         axis' shards: this rank's shard (a tensor of its own).  ``t``'s
-        ``dim`` must divide by the axis size.  gloo has no reduce-scatter:
-        there it is an all-reduce and a slice, counted as
-        "reduce_scatter" with the bytes of the whole tensor."""
+        ``dim`` must divide by the axis size.  On gloo it is an all-to-all
+        of the shards staged through host memory (each rank sends the
+        others their shards: half an all-reduce's traffic at two ranks),
+        summed in rank order; counted as "reduce_scatter" with the bytes of
+        the whole tensor."""
         n = self.axis_size(axis)
         if n == 1:
             return t
@@ -177,11 +183,17 @@ class Mesh:
         size = t.shape[dim] // n
         idx = self.axis_index(axis)
         if self.backend == "gloo":
-            full = t.contiguous().clone()
-            self._timed("reduce_scatter", lambda: dist.all_reduce(
-                full, dist.ReduceOp.SUM, group=self.groups[axis]),
-                full.numel() * full.element_size())
-            return full.narrow(dim, idx * size, size).contiguous()
+            src = t.movedim(dim, 0).to("cpu", copy=True).contiguous()
+            got = torch.empty_like(src)
+            self._timed("reduce_scatter", lambda: dist.all_to_all_single(
+                got, src, group=self.groups[axis]),
+                src.numel() * src.element_size())
+            del src
+            parts = got.split(size)
+            out = parts[0].clone()
+            for part in parts[1:]:
+                out += part
+            return out.movedim(0, dim).to(t.device).contiguous()
         parts = [p.contiguous() for p in t.split(size, dim=dim)]
         out = torch.empty_like(parts[idx])
         self._timed("reduce_scatter", lambda: dist.reduce_scatter(

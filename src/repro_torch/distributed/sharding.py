@@ -19,6 +19,12 @@ runs the Megatron decomposition on those shards (``core/fqt.py``,
 placement raises ``ValueError`` naming the leaf; the reference replicates
 the leaf and carries on (a declared divergence).
 
+Rules are name+rank based, so a moe layer's stacked experts need no rule
+of their own: ``w_gate`` / ``w_up`` (E, d, f) take ("data", "model") on
+their last two dims and ``w_down`` the other way, the expert axis
+replicated (the reference has no expert parallelism); the router (d, E) is
+"d_rep", a smoothing factor (E, f) "vec_out".
+
 ``place_train_state`` is the training counterpart of
 ``place_serve_params``: this rank's shard of every parameter and of its
 master weights and moments, the step counters and the threshold state

@@ -308,7 +308,8 @@ def packed_matmul(a: torch.Tensor, w: PackedQuantizedTensor,
 def tp_fp4_matmul(x: torch.Tensor, w: PackedQuantizedTensor, *, cfg, mesh,
                   seed: Optional[int] = None, parallel: str = "column",
                   axis: str = "model", gather_axis: Optional[str] = None,
-                  gather_dim: int = 0) -> torch.Tensor:
+                  gather_dim: int = 0, a_amax: Optional[torch.Tensor] = None,
+                  reduce: bool = True) -> torch.Tensor:
     """Tensor-parallel packed FQT matmul on this rank's shards.
 
     column: x (..., K) full, w this rank's (K, N/tp) -> (..., N/tp).
@@ -317,7 +318,14 @@ def tp_fp4_matmul(x: torch.Tensor, w: PackedQuantizedTensor, *, cfg, mesh,
     ``PackedQuantizedTensor`` (blocked along K); with ``gather_axis`` it is
     also split on its ``gather_dim`` over that axis and gathered first.
     ``seed``: the call's SR seed; an SR ``fwd_a`` draws the bits of the
-    full activation and takes this rank's columns (row)."""
+    full activation and takes this rank's columns (row).
+
+    The row form batched over many GEMMs (the moe layer's experts): with
+    ``a_amax`` (a one-value f32 tensor, the GLOBAL |x| max over ``axis``,
+    which the caller all-reduced together with the other GEMMs') no
+    all-reduce of the max is made, and with ``reduce=False`` the f32
+    partial product is returned for the caller to sum over ``axis`` (one
+    all-reduce of all the GEMMs' partials) and round."""
     from repro_torch.core import fqt
     from repro_torch.distributed.compression import allgather_packed
     if not isinstance(w, PackedQuantizedTensor) or w.ndim != 2:
@@ -353,8 +361,10 @@ def tp_fp4_matmul(x: torch.Tensor, w: PackedQuantizedTensor, *, cfg, mesh,
     if fwd_a is None:
         y = fqt._matmul_f32(x2, w.dequant())
     else:
-        amax = torch.amax(torch.abs(x2.to(torch.float32))).reshape(1)
-        mesh.all_reduce(amax, axis, op="max")
+        amax = a_amax
+        if amax is None:
+            amax = torch.amax(torch.abs(x2.to(torch.float32))).reshape(1)
+            mesh.all_reduce(amax, axis, op="max")
         rb = None
         if fwd_a.stochastic:
             r = mesh.axis_index(axis)
@@ -363,6 +373,8 @@ def tp_fp4_matmul(x: torch.Tensor, w: PackedQuantizedTensor, *, cfg, mesh,
                 .contiguous()
         y = packed_matmul(x2, w, fwd_a, a_rbits=rb, out_dtype=torch.float32,
                           a_amax=amax)
+    if not reduce:
+        return y.reshape(lead + (N_loc,))
     mesh.all_reduce(y, axis, op="sum")
     return y.to(x.dtype).reshape(lead + (N_loc,))
 

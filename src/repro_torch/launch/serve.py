@@ -25,6 +25,12 @@
   python -m repro_torch.launch.serve --arch llama2-7b --mesh tp=2 \\
       --dist-backend gloo --queue 8
   python -m repro_torch.launch.serve --smoke --mesh dp=2,tp=2 --device cpu
+  # the moe and vlm families too: the experts split as the rule table
+  # splits any stacked weight, routing replicated on every rank
+  python -m repro_torch.launch.serve --arch mixtral-8x7b --mesh tp=2 \
+      --dist-backend gloo --layers 4
+  python -m repro_torch.launch.serve --arch internvl2-26b --mesh tp=2 \
+      --dist-backend gloo --layers 4
 
 Initializes random parameters from a seeded ``torch.Generator``, packed to
 NVFP4 layer by layer as they are drawn (``packing.init_packed_params``), or
@@ -274,7 +280,7 @@ def _serve(args):
         say(f"seq {i}: {o[:16].tolist()} ...")
     if args.report:
         _report(args, eng, prompts, {i: o for i, o in enumerate(out)}, dt,
-                eng.steps)
+                eng.steps, extras=extras)
     return out
 
 
@@ -343,19 +349,21 @@ def _serve_queue(args, cfg, params, scfg, qcfg, dev, rng, mesh, graphs,
     return res
 
 
-def _report(args, eng, prompts, streams, seconds, steps, ticks=None):
+def _report(args, eng, prompts, streams, seconds, steps, ticks=None,
+            extras=None):
     """``--report``: this rank's streams and greedy margins, launch counts
     and program calls of the run, its collectives (calls, bytes sent, host
     seconds), the run's seconds, the weight bytes it stores and their wire
     bytes a GEMM parameter, and peak memory; then one sharded prefill of
-    ``prompts`` on a fresh lockstep cache, whose last-token logits rank 0
-    saves and whose seconds are reported (a forward as the engines run it,
-    left-padded as ``Engine`` pads)."""
+    ``prompts`` (after the run's ``extras``: a vlm's patch prefix) on a
+    fresh lockstep cache, whose last-token logits rank 0 saves and whose
+    seconds are reported (a forward as the engines run it, left-padded as
+    ``Engine`` pads)."""
     out = Path(args.report)
     out.mkdir(parents=True, exist_ok=True)
     dev, mesh, cfg = eng.device, eng.mesh, eng.cfg
     launches = counters.snapshot()
-    coll = dict(mesh.stats)
+    coll = json.loads(json.dumps(mesh.stats))     # the run's, not the prefill's
     calls = {n: p.calls for n, p in eng.programs.items()}
     margins = eng.margins if isinstance(eng.margins, dict) else dict(
         enumerate(eng.margins))
@@ -370,9 +378,10 @@ def _report(args, eng, prompts, streams, seconds, steps, ticks=None):
         kv_cache_format=eng.scfg.kv_cache_format, device=dev, mesh=mesh)
     with torch.no_grad():
         t0 = time.perf_counter()
-        logits, _ = registry.prefill(eng.params, cfg, eng.qcfg,
-                                     torch.from_numpy(toks).to(dev), carry,
-                                     mesh=mesh)
+        logits, _ = registry.prefill(
+            eng.params, cfg, eng.qcfg, torch.from_numpy(toks).to(dev), carry,
+            extras={k: v.to(dev) for k, v in (extras or {}).items()},
+            mesh=mesh)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         prefill_s = time.perf_counter() - t0

@@ -66,18 +66,40 @@ class QCtx:
         return QCtx(self.qcfg, (self.seed + int(idx) * 2654435761) & M32,
                     self.mesh)
 
-    def dense(self, x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
-              kind: Optional[str] = None):
+    def next_seed(self) -> int:
+        """The SR seed of the next ``dense`` call (which it consumes): for
+        a caller that runs that GEMM itself (the moe layer's batched
+        experts on a serving mesh)."""
         s = (self.seed + self._n * 40503) & M32
         self._n += 1
-        return fqt.dense(x, w, b, cfg=self.qcfg, seed=s, mesh=self.mesh,
-                         kind=kind)
+        return s
+
+    def dense(self, x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
+              kind: Optional[str] = None):
+        return fqt.dense(x, w, b, cfg=self.qcfg, seed=self.next_seed(),
+                         mesh=self.mesh, kind=kind)
 
     def dense_hp(self, x: torch.Tensor, w: torch.Tensor,
-                 b: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 b: Optional[torch.Tensor] = None,
+                 kind: Optional[str] = None) -> torch.Tensor:
         """High-precision dense (routers; never quantized): the f32 product
         of x and w (bf16 products are exact in f32), plus b, rounded to x's
-        dtype.  No call counter: it draws no SR stream."""
+        dtype.  No call counter: it draws no SR stream.
+
+        ``kind="d_rep"`` (the moe router) on a multi-rank mesh: ``w`` is
+        this rank's shard, its d axis split over "data" (FSDP), replicated
+        over "model".  It is gathered before the product and its gradient
+        reduce-scattered (``fsdp_gather``), and summed over "pod" where the
+        backward sums the pods (``sharding.grad_sum_axes``), as the
+        embedding table is; its input is the replicated residual, so its
+        "model" ranks' gradients are whole already and nothing sums them
+        over "model"."""
+        if kind == "d_rep" and _multi(self.mesh):
+            w = _dp_summed(w, self.mesh)
+            w = fsdp_gather(w, self.mesh, dim=w.ndim - 2)
+        elif kind not in (None, "d_rep"):
+            raise ValueError(f"dense_hp: rule {kind!r} (the router's is "
+                             f"'d_rep')")
         y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
         if b is not None:
             y = y + b
@@ -247,6 +269,18 @@ def fsdp_gather(w: torch.Tensor, mesh, dim: int) -> torch.Tensor:
     return _FSDPGather.apply(w, mesh, dim)
 
 
+def _dp_summed(w: torch.Tensor, mesh) -> torch.Tensor:
+    """``w`` with its gradient summed over "pod" where the backward sums
+    the pods (``sharding.grad_sum_axes``): a weight whose "data" sum is
+    its FSDP gather's reduce-scatter, and whose gradient no later step
+    sums (``train/step._SUMMED_IN_BACKWARD``)."""
+    from repro_torch.distributed.sharding import grad_sum_axes
+    pods = tuple(a for a in grad_sum_axes(mesh) if a == "pod")
+    if pods and w.requires_grad and torch.is_grad_enabled():
+        return _GradSum.apply(w, mesh, pods)
+    return w
+
+
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
                  mesh=None) -> torch.Tensor:
     """Rows of the embedding ``table`` (V, d) at ``tokens``; differentiable
@@ -262,11 +296,7 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
     backward, "pod" where the backward sums it
     (``sharding.grad_sum_axes``)."""
     if _multi(mesh):
-        from repro_torch.distributed.sharding import grad_sum_axes
-        pods = tuple(a for a in grad_sum_axes(mesh) if a == "pod")
-        if pods and table.requires_grad and torch.is_grad_enabled():
-            table = _GradSum.apply(table, mesh, pods)
-        table = fsdp_gather(table, mesh, dim=1)
+        table = fsdp_gather(_dp_summed(table, mesh), mesh, dim=1)
         v_loc = table.shape[0]
         local = tokens - mesh.axis_index("model") * v_loc
         mine = (local >= 0) & (local < v_loc)

@@ -23,9 +23,9 @@ raises, with the reference's reasons.
 
 Under a mesh of more than one rank (``mesh=``, this rank's view:
 ``distributed/mesh.py``) the serving entries and ``loss_fn`` (the training
-mesh) run the dense family on this rank's shards (``check_mesh``); the
-other families raise ``NotImplementedError`` naming the module still to
-port.
+mesh) run the transformer families -- dense, moe and vlm -- on this rank's
+shards (``check_mesh``); the other families raise ``NotImplementedError``
+naming the module still to port.
 """
 from __future__ import annotations
 
@@ -59,9 +59,6 @@ def _module(cfg: ModelConfig):
 # the module each family still needs before it serves or trains on a
 # multi-rank mesh
 _MESH_TODO = {
-    "moe": "models/moe.py under a mesh (expert-parallel dispatch)",
-    "vlm": "the vlm prefix under a mesh (models/transformer.py "
-           "prefix_embeds)",
     "hybrid": "models/mamba2.py under a mesh (SSM heads over 'model')",
     "ssm": "models/xlstm.py under a mesh",
     "encdec": "models/whisper.py under a mesh (encoder, cross-attention, "
@@ -70,18 +67,18 @@ _MESH_TODO = {
 
 
 def check_mesh(cfg: ModelConfig, mesh, training: bool = False) -> None:
-    """A multi-rank mesh serves and trains the dense family, whose heads
-    split evenly over "model"; any other family raises
-    ``NotImplementedError`` naming what is still to port (``training``:
-    the distributed training step's wording)."""
+    """A multi-rank mesh serves and trains the transformer families (dense,
+    moe, vlm), whose heads split evenly over "model"; any other family
+    raises ``NotImplementedError`` naming what is still to port
+    (``training``: the distributed training step's wording)."""
     if mesh is None or mesh.size == 1:
         return
-    if cfg.family != "dense":
+    if cfg.family in _MESH_TODO:
         what = ("distributed training of" if training else "serving")
         raise NotImplementedError(
             f"{what} {cfg.family!r} on a mesh of {mesh.size} ranks needs "
             f"{_MESH_TODO[cfg.family]}, not yet ported; the port serves and "
-            f"trains the dense family on a mesh")
+            f"trains the dense, moe and vlm families on a mesh")
     transformer.local_heads(cfg, mesh)
 
 
@@ -120,7 +117,7 @@ def loss_fn(params, cfg: ModelConfig, qcfg: QuantConfig, batch, *,
             seed: int = 0, remat: bool = True, mesh=None):
     """Next-token cross-entropy of ``batch["tokens"]``: (loss, aux).
     ``mesh``: the training mesh of the parameters' shards, the batch this
-    rank's rows (``transformer.loss_fn``; the dense family only)."""
+    rank's rows (``transformer.loss_fn``; the transformer families only)."""
     if mesh is not None and mesh.size > 1:
         check_mesh(cfg, mesh, training=True)
         return transformer.loss_fn(params, cfg, qcfg, batch, seed=seed,

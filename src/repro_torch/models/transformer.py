@@ -93,11 +93,14 @@ def local_heads(cfg: ModelConfig, mesh=None):
 
 def _layer_apply(cfg: ModelConfig, lp, x, seed: int, *, cache,
                  qcfg: QuantConfig, slot=None, plen=None, pfx=None,
-                 write_mask=None, mesh=None):
+                 write_mask=None, mesh=None, dp_rows: bool = False):
     """One layer: (x, cache, aux), aux the moe router's auxiliary loss (a
-    zero f32 scalar for the dense family).  Under a serving ``mesh`` the
-    layer's weights and cache are this rank's shards: its attention runs
-    on the local heads, norms and the residual stay replicated."""
+    zero f32 scalar for the dense family).  Under a ``mesh`` the layer's
+    weights and cache are this rank's shards: its attention runs on the
+    local heads, norms and the residual stay replicated over "model", and
+    a moe layer routes as ``moe.moe_apply`` says (``dp_rows``: x holds this
+    rank's rows of a training batch split over the DP axes; aux is then
+    this rank's share)."""
     ctx = QCtx(qcfg, seed, mesh)
     n_heads, n_kv = local_heads(cfg, mesh)
     h, cache = attn_apply(
@@ -111,7 +114,7 @@ def _layer_apply(cfg: ModelConfig, lp, x, seed: int, *, cache,
     if cfg.n_experts:
         B, S, d = hin.shape
         y, aux = moe_mod.moe_apply(lp["moe"], hin.reshape(B * S, d), ctx,
-                                   cfg)
+                                   cfg, dp_rows=dp_rows)
         y = y.reshape(B, S, d)
     else:
         y = mlp_apply(lp["mlp"], hin, ctx, cfg.act)
@@ -121,7 +124,8 @@ def _layer_apply(cfg: ModelConfig, lp, x, seed: int, *, cache,
 
 def apply_layers(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed=0, *,
                  caches=None, remat: bool = False, slot=None, plen=None,
-                 pfx=None, write_mask=None, mesh=None):
+                 pfx=None, write_mask=None, mesh=None,
+                 dp_rows: bool = False):
     """Run the layers in order; caches (one per layer) update in place.
     Returns (x, caches, the sum of the layers' aux losses).
 
@@ -129,7 +133,8 @@ def apply_layers(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed=0, *,
     is recomputed in the backward; its QCtx is built inside the body, so
     the recompute draws the same SR streams.  ``slot``/``plen``/``pfx``/
     ``write_mask``: the paged-cache operands of ``layers.attn_apply``;
-    ``mesh``: the mesh of the weights' shards (serving or training)."""
+    ``mesh``: the mesh of the weights' shards (serving or training);
+    ``dp_rows``: x holds this rank's rows of a training batch."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params["layers"]):
         s = (int(seed) + i * _SEED_STRIDE) & M32
@@ -137,12 +142,14 @@ def apply_layers(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed=0, *,
         if remat and cache is None and torch.is_grad_enabled():
             x, a = torch.utils.checkpoint.checkpoint(
                 lambda h, lp=lp, s=s: _layer_apply(
-                    cfg, lp, h, s, cache=None, qcfg=qcfg, mesh=mesh)[::2],
+                    cfg, lp, h, s, cache=None, qcfg=qcfg, mesh=mesh,
+                    dp_rows=dp_rows)[::2],
                 x, use_reentrant=False)
         else:
             x, _, a = _layer_apply(cfg, lp, x, s, qcfg=qcfg, cache=cache,
                                    slot=slot, plen=plen, pfx=pfx,
-                                   write_mask=write_mask, mesh=mesh)
+                                   write_mask=write_mask, mesh=mesh,
+                                   dp_rows=dp_rows)
         aux = aux + a
     return x, caches, aux
 
@@ -184,11 +191,12 @@ def forward(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, *,
     moe routers' load-balancing loss summed over layers (0 for dense).
     ``prefix_embeds`` (B, P, d): the vlm prefix, attended at positions
     0..P-1; the logits are the S token rows'.  ``mesh``: the training
-    mesh of the parameters' shards (``tokens``: this rank's rows)."""
+    mesh of the parameters' shards (``tokens`` and ``prefix_embeds``: this
+    rank's rows; aux: this rank's share, ``moe.moe_apply``)."""
     x = _with_prefix(embed_lookup(params["embed"], tokens, mesh),
                      prefix_embeds)
     x, _, aux = apply_layers(params, cfg, qcfg, x, seed, remat=remat,
-                             mesh=mesh)
+                             mesh=mesh, dp_rows=mesh is not None)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     if prefix_embeds is not None:
         x = x[:, prefix_embeds.shape[1]:]
@@ -205,7 +213,9 @@ def loss_fn(params, cfg: ModelConfig, qcfg: QuantConfig, batch, *,
     over the token count of the DP axes the backward sums over
     (``sharding.grad_sum_axes``: the global batch's, or its pod's where the
     pods' gradients are averaged after), so the sum of the ranks'
-    gradients over those axes is the mean gradient."""
+    gradients over those axes is the mean gradient; the moe aux is this
+    rank's share in the same sense (``moe.moe_apply``), so the ranks'
+    losses and auxes sum over those axes to the 1-device ones."""
     tokens = batch["tokens"].long()
     logits, aux = forward(params, cfg, qcfg, tokens[:, :-1], seed=seed,
                           prefix_embeds=batch.get("prefix_embeds"),

@@ -91,13 +91,25 @@ def global_norm(tree, mesh=None) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
+def _clipped(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """g scaled in f32 and cast back to its dtype, as the reference clips."""
+    return (g.to(torch.float32) * scale).to(g.dtype)
+
+
 def clip_by_global_norm(grads, max_norm: float, mesh=None, norm=None):
     """``grads`` scaled to a global norm of at most ``max_norm``, and the
     norm (``norm``: the norm already computed for ``grads``)."""
     norm = global_norm(grads, mesh) if norm is None else norm
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
-                    grads), norm
+    scale = _clip_scale(norm, max_norm)
+    return tree_map(lambda g: _clipped(g, scale), grads), norm
+
+
+# elements of a leaf updated at once (f32 temporaries of ~256 MB each)
+_UPDATE_CHUNK = 1 << 26
 
 
 def apply(grads, state: AdamWState, cfg: AdamWConfig, lr: torch.Tensor,
@@ -107,11 +119,18 @@ def apply(grads, state: AdamWState, cfg: AdamWConfig, lr: torch.Tensor,
     ``lr``: an f32 scalar tensor (``schedule.lr_at``); ``mesh``: the trees
     are this rank's shards (``global_norm``); ``gnorm``: ``grads``'s global
     norm where the caller has it already (on a mesh, an all-reduce
-    saved)."""
+    saved).
+
+    Each leaf is clipped (``clip_by_global_norm``'s bits) as it is
+    updated, a run of its leading dim at a time (``_UPDATE_CHUNK``
+    elements; one run for most leaves, several for a moe layer's stacked
+    experts or a large vocabulary's rows): no second gradient tree, and
+    f32 temporaries of one run, not of the whole leaf, elementwise the
+    same bits."""
     if gnorm is None:
         gnorm = global_norm(grads, mesh)
-    if cfg.clip_norm is not None:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, mesh, gnorm)
+    scale = (None if cfg.clip_norm is None
+             else _clip_scale(gnorm, cfg.clip_norm))
     step = state.step + 1
     b1, b2 = cfg.betas
     f32 = torch.float32
@@ -119,7 +138,9 @@ def apply(grads, state: AdamWState, cfg: AdamWConfig, lr: torch.Tensor,
     c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=f32), stepf)
     c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=f32), stepf)
 
-    def upd(g, master, m, v):
+    def upd_part(g, master, m, v):
+        if scale is not None:
+            g = _clipped(g, scale)
         g32 = g.to(f32)
         m32 = m.to(f32) * b1 + (1 - b1) * g32
         v32 = v.to(f32) * b2 + (1 - b2) * g32 * g32
@@ -130,6 +151,16 @@ def apply(grads, state: AdamWState, cfg: AdamWConfig, lr: torch.Tensor,
         v.copy_(v32)
         # compute weights follow the gradient's (= the parameter's) dtype
         return master.to(g.dtype)
+
+    def upd(g, master, m, v):
+        if g.ndim == 0:
+            return upd(g[None], master[None], m[None], v[None])[0]
+        out = torch.empty_like(g)
+        n = max(1, _UPDATE_CHUNK // max(1, g[0].numel()))
+        for i in range(0, g.shape[0], n):
+            s = slice(i, i + n)
+            out[s] = upd_part(g[s], master[s], m[s], v[s])
+        return out
 
     new_params = tree_map(upd, grads, state.master, state.m, state.v)
     state.step = step

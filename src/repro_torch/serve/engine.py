@@ -28,7 +28,8 @@ Both engines serve on an explicit serving mesh (``ServeConfig.mesh``, or
 a ``distributed.mesh.Mesh`` passed in), the reference's one mesh-native
 path: the default is the 1-rank mesh, whose placement is the identity.  On
 a mesh of more than one rank every rank is a process running the same
-engine on its shards (the dense family: ``registry.check_mesh``); every
+engine on its shards (the dense, moe and vlm families:
+``registry.check_mesh``); every
 collective gives each rank the same bits, so the host state (scheduler,
 page tables, prefix cache) evolves alike everywhere.
 

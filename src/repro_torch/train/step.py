@@ -34,6 +34,7 @@ reference's per-pod local means.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -162,21 +163,29 @@ def _leaf_key(name: str) -> str:
 def _probe_parts(group, stacked: bool, spec, mesh):
     """K2 calls of the sigma_q probe on this rank's shards of one reference
     leaf: [(2-D f32 operand, global flat offset, global row stride)].  A
-    stacked leaf whose layers split only their last dim (or nothing) is
-    one call on the stacked shard, as one device makes it; where a layer
-    splits another dim the stacked shard's rows are no arithmetic
-    progression of the whole leaf's, and each layer is a call of its own
-    at its layer's offset."""
+    leaf whose shard splits only its last dim (or nothing) is one call on
+    the (stacked) shard, as one device makes it; where it splits another
+    dim the shard's rows are no arithmetic progression of the whole
+    leaf's, and each layer -- and in a layer of more than 2 dims (a moe
+    layer's stacked experts) each index of its leading dims -- is a call
+    of its own at its offset."""
     part = group[0]
     full, off = shd.shard_offsets(spec, part.shape, mesh)
     C, Cf = part.shape[-1], full[-1]
-    first = sum(o * math.prod(full[d + 1:]) for d, o in enumerate(off))
-    if not stacked or not any(off[:-1]) and full[:-1] == part.shape[:-1]:
+    if not any(off[:-1]) and full[:-1] == part.shape[:-1]:
         g = torch.stack(group) if stacked else part
-        return [(g.to(torch.float32).reshape(-1, C), first, Cf)]
+        return [(g.to(torch.float32).reshape(-1, C), off[-1], Cf)]
+    # per layer, and per index of the dims before the last two (a moe
+    # leaf's experts): each (rows, C) block is a progression
     n = math.prod(full)
-    return [(p.to(torch.float32).reshape(-1, C), l * n + first, Cf)
-            for l, p in enumerate(group)]
+    out = []
+    for l, p in enumerate(group):
+        for idx in itertools.product(*(range(k) for k in p.shape[:-2])):
+            pos = tuple(o + i for o, i in zip(off, idx)) + tuple(off[-2:])
+            first = l * n + sum(o * math.prod(full[d + 1:])
+                                for d, o in enumerate(pos))
+            out.append((p[idx].to(torch.float32).reshape(-1, C), first, Cf))
+    return out
 
 
 def _estimate_sigma_q_mesh(grads, step: int, spec, mesh) -> torch.Tensor:
@@ -221,10 +230,12 @@ def _estimate_sigma_q_mesh(grads, step: int, spec, mesh) -> torch.Tensor:
     return torch.sqrt(num / max(den, 1.0) + 1e-30)
 
 
-# the rules whose 2-D leaves the backward already summed over the DP axes:
-# the GEMM weights (fqt._ShardedFP4Matmul) and the embedding table
-# (layers.embed_lookup)
-_SUMMED_IN_BACKWARD = ("io", "oi", "d_vocab", "vocab_d")
+# the rules whose leaves (of 2+ dims) the backward already summed over the
+# DP axes: the GEMM weights (fqt._ShardedFP4Matmul; a moe layer's stacked
+# experts too, whose gradients its "replicated" route computes whole on
+# every rank), the embedding table (layers.embed_lookup) and the moe
+# router (layers.QCtx.dense_hp)
+_SUMMED_IN_BACKWARD = ("io", "oi", "d_vocab", "vocab_d", "d_rep")
 
 
 def _sync_dp_grads(grads, mesh, per_pod: bool = False):
@@ -238,7 +249,7 @@ def _sync_dp_grads(grads, mesh, per_pod: bool = False):
         return grads
 
     def one(path, g):
-        if shd.param_kind(path) in _SUMMED_IN_BACKWARD and g.ndim == 2:
+        if shd.param_kind(path) in _SUMMED_IN_BACKWARD and g.ndim >= 2:
             return g
         return mesh.all_reduce(g.to(torch.float32, copy=True),
                                axes).to(g.dtype)
@@ -321,13 +332,14 @@ def make_train_step(cfg: ModelConfig, qcfg: fqt.QuantConfig,
                     grads = comp.pod_mean_grads(grads, seed, mesh,
                                                 tcfg.compression)
                 # this rank's share of the (its pod's) mean -> the mean
-                lossv = torch.stack([loss, aux["nll"]]).to(torch.float32)
+                lossv = torch.stack([loss, aux["nll"], aux["aux"]]).to(
+                    torch.float32)
                 lossv = mesh.all_reduce(lossv, ("data", "pod"))
                 if per_pod:
                     lossv = lossv / mesh.axis_size("pod")
-                loss, nll = lossv[0], lossv[1]
+                loss, nll, aux_loss = lossv[0], lossv[1], lossv[2]
             else:
-                nll = aux["nll"]
+                nll, aux_loss = aux["nll"], aux["aux"]
             # section 4 monitor: ||grad L|| / (sigma_q sqrt(d)) vs sqrt(3)
             gnorm = adamw.global_norm(grads, m)
             if tcfg.probe_sigma:
@@ -348,6 +360,7 @@ def make_train_step(cfg: ModelConfig, qcfg: fqt.QuantConfig,
         metrics = {
             "loss": loss.to(torch.float32),
             "nll": nll.to(torch.float32),
+            "aux": aux_loss.to(torch.float32),   # the moe routers' (0 dense)
             "grad_norm": opt_metrics["grad_norm"],
             "lr": lr,
             "sigma_q": sigma_q,

@@ -36,8 +36,8 @@ ratio, the SIGTERM flag and the step time are all-reduced (MAX) together
 after each step, so every rank stops, and flags a straggler, at the same
 step.  Checkpoints gather the state and rank 0 writes them (a checkpoint
 restores on any mesh); rank 0 alone writes the telemetry and the packed
-export, which it packs from the gathered final parameters.  The dense
-family only (``registry.check_mesh``).
+export, which it packs from the gathered final parameters.  The dense,
+moe and vlm families (``registry.check_mesh``).
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """Gloo ranks on the CPU for the mesh tests (tests/test_torch_mesh.py,
-tests/test_torch_tp.py).
+tests/test_torch_tp.py, tests/test_torch_train_mesh.py,
+tests/test_torch_mesh_families.py).
 
 ``run_ranks(fn, world, tmp_path, *args)`` starts ``world`` processes with
 ``repro_torch.distributed.mesh.spawn`` (a ``file://`` rendezvous of its own
@@ -306,6 +307,23 @@ def trainer_run(rank, shape, names, ckpt_dir, total_steps, ckpt_every):
 # ---- tests/test_torch_pipeline.py) -------------------------------------------
 
 
+def reduce_scatter_case(rank, shape, names, seed):
+    """``Mesh.reduce_scatter`` over "data" of an (8, 12, 4) f32 tensor
+    drawn from ``seed + rank``, along dims 0 and 1: each output and the
+    call's ``stats`` entry."""
+    import torch
+    from repro_torch.distributed.mesh import make_mesh
+    mesh = make_mesh(shape, names, device="cpu")
+    t = torch.randn((8, 12, 4),
+                    generator=torch.Generator().manual_seed(seed + rank))
+    out = {"coords": _coords(mesh)}
+    for dim in (0, 1):
+        mesh.reset_stats()
+        out[dim] = mesh.reduce_scatter(t, "data", dim=dim)
+        out[f"stats{dim}"] = mesh.stats["ops"]["reduce_scatter"]
+    return out
+
+
 def pod_mean(rank, shape, names, per_pod, seed, configs):
     """``pod_mean_grads`` on this rank's shards of its pod's gradient tree
     (``per_pod[pod]``: full numpy leaves, placed by the rule table), under
@@ -417,3 +435,154 @@ def _index_tree(tree, i):
     if isinstance(tree, dict):
         return {k: _index_tree(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+# ---- the moe and vlm families on a mesh (tests/test_torch_mesh_families.py) --
+
+
+def family_cfg(arch: str, n_kv_heads: int = 2):
+    """The smoke config of ``arch`` with ``n_kv_heads`` KV heads (the
+    smoke configs' one head does not split over "model")."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch).smoke(),
+                               n_kv_heads=n_kv_heads)
+
+
+def _routing(log):
+    """The forward's routing records (``moe.recording``) as numpy: one per
+    moe layer (a remat's recompute records them again: dropped)."""
+    return [{"route": r["route"], "G": r["G"], "C": r["C"],
+             "first": r["first"],
+             "groups": [tuple(t.numpy() for t in g) for g in r["groups"]]}
+            for r in log]
+
+
+def family_train(mesh, arch, state_np, batches, compression=False,
+                 ckpt_dir=None, **overrides):
+    """``make_train_step(mesh=)`` on ``arch``'s smoke config from a JAX
+    ``TrainState`` (numpy leaves), one step per global batch of
+    ``batches`` (dicts of numpy arrays: tokens, and a vlm's
+    prefix_embeds), as ``train_steps``: metrics and gathered parameters
+    after each step, the collectives, and of the first step its routing
+    (``moe.recording``), this rank's aux share and the gradients its
+    backward gave, after the DP sum (and the pod mean), gathered.
+    ``ckpt_dir``: the final state is saved there (``ckpt.save(mesh=)``)
+    and restored into this rank's shards, which must equal it bit for
+    bit ("ckpt_equal").  ``overrides``: fields of the config to replace
+    (the dispatch groups of a 1-rank comparison)."""
+    import dataclasses
+    import torch
+    from repro_torch.convert import (tensor_from_numpy,
+                                     train_state_from_jax_numpy)
+    from repro_torch.core import fqt
+    from repro_torch.distributed import compression as comp
+    from repro_torch.distributed import sharding
+    from repro_torch.models import moe
+    from repro_torch.optim import schedule
+    from repro_torch.train import step as st
+    cfg = dataclasses.replace(family_cfg(arch), **overrides)
+    qcfg = fqt.nvfp4_paper_config()
+    tcfg = st.TrainConfig(
+        sched=schedule.ScheduleConfig(warmup_steps=2, total_steps=10),
+        remat=True, compression=(comp.CompressionConfig(spec=comp.GRAD_FP8)
+                                 if compression else None))
+    state = sharding.place_train_state(
+        train_state_from_jax_numpy(state_np, cfg, device="cpu"), mesh)
+
+    def batch(b):
+        return st.local_batch({k: tensor_from_numpy(v, "cpu")
+                               for k, v in b.items()}, mesh)
+
+    per_pod = compression and mesh.axis_size("pod") > 1
+    fn = st.make_train_step(cfg, qcfg, tcfg, mesh)
+    # the first step's own gradients and aux, as its backward left them
+    seen = []
+    take = st.loss_and_grads
+    st.loss_and_grads = lambda *a, **k: seen.append(take(*a, **k)) or \
+        seen[-1]
+    mesh.reset_stats()
+    out = {"coords": _coords(mesh), "metrics": [], "params": []}
+    try:
+        for i, b in enumerate(batches):
+            with moe.recording() as log:
+                state, m = fn(state, batch(b))
+            if i == 0:
+                out["routing"] = _routing(log[:cfg.n_layers])
+            out["metrics"].append({k: float(v) for k, v in m.items()})
+            out["params"].append(_flat_tree(sharding.gather_tree(
+                state.params, mesh)))
+    finally:
+        st.loss_and_grads = take
+    stats = {k: v["calls"] for k, v in mesh.stats["ops"].items()}
+    _, aux, grads = seen[0]
+    grads = st._sync_dp_grads(grads, mesh, per_pod)
+    if per_pod:
+        grads = comp.pod_mean_grads(grads, st.step_seed(0), mesh,
+                                    tcfg.compression)
+    out.update(aux_share=float(aux["aux"]), stats=stats,
+               grads=_flat_tree(sharding.gather_tree(grads, mesh)))
+    if ckpt_dir is not None:
+        from repro_torch.checkpoint import ckpt
+        ckpt.save(ckpt_dir, state.step, state, mesh=mesh)
+        back = ckpt.restore(ckpt_dir, state.step, state, mesh=mesh)
+        pairs = []
+        sharding.map_paths(state, lambda p, x: pairs.append(x) or x)
+        sharding.map_paths(back, lambda p, x: pairs.append(x) or x)
+        n = len(pairs) // 2
+        out["ckpt_equal"] = all(
+            torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+            for a, b in zip(pairs[:n], pairs[n:]))
+    return out
+
+
+def family_serve(arch, spec, params_np, prompts, max_new, fields,
+                 extras=None):
+    """Both engines (the lockstep ``Engine`` only for vlm, as on one card)
+    on the serving mesh ``spec`` from the JAX-initialised params (numpy):
+    streams, and the collectives of the lockstep run by operation."""
+    import numpy as np
+    from repro_torch.convert import params_from_jax_numpy, tensor_from_numpy
+    from repro_torch.distributed.mesh import make_serve_mesh
+    from repro_torch.kernels import counters
+    from repro_torch.serve import ContinuousEngine, Engine, ServeConfig
+    cfg = family_cfg(arch)
+    params = params_from_jax_numpy(params_np, cfg, device="cpu")
+    scfg = ServeConfig(mesh=spec, **fields)
+    out = {}
+    if cfg.family == "moe":
+        cont = ContinuousEngine(cfg, params, scfg, device="cpu")
+        out["cont"] = [np.asarray(s) for s in
+                       cont.generate(prompts, max_new=max_new)]
+    mesh = make_serve_mesh(spec, device="cpu")
+    lock = Engine(cfg, params, scfg, device="cpu", mesh=mesh)
+    extras = {k: tensor_from_numpy(v, "cpu")
+              for k, v in (extras or {}).items()}
+    out["lock"] = [np.asarray(s) for s in
+                   lock.generate(prompts, max_new=max_new, extras=extras)]
+    out["ops"] = {k: v["calls"] for k, v in mesh.stats["ops"].items()}
+    out["decode_calls"] = lock.programs["decode"].calls
+    out["prefill_calls"] = lock.programs["prefill"].calls
+    out["launches"] = counters.snapshot()
+    return out
+
+
+def family_session(rank, shape, names, train, serve, pods, ckpt=None):
+    """One rank session of tests/test_torch_mesh_families.py on the mesh
+    ``shape`` x ``names``: ``train`` {arch: (state_np, batches)} through
+    ``family_train`` (``ckpt`` {arch: directory}: checkpointed there);
+    ``serve`` (spec, {arch: (params_np, prompts, max_new, fields,
+    extras)}) through ``family_serve``; ``pods`` {arch: (state_np,
+    batches)} compressed (``family_train(compression=True)``)."""
+    from repro_torch.distributed.mesh import make_mesh
+    mesh = make_mesh(shape, names, device="cpu")
+    ckpt = ckpt or {}
+    out = {"train": {a: family_train(mesh, a, *v, ckpt_dir=ckpt.get(a))
+                     for a, v in train.items()},
+           "pods": {a: family_train(mesh, a, *v, compression=True)
+                    for a, v in pods.items()}}
+    if serve:
+        spec, cases = serve
+        out["serve"] = {a: family_serve(a, spec, *v)
+                        for a, v in cases.items()}
+    return out

@@ -310,7 +310,8 @@ def test_dispatch_and_combine(jax_ref, name, arch, over):
     cfg = _cfg(get_config, arch, over)
     x, lg = _unit_inputs(cfg)
     C = _capacity(cfg)
-    xe, meta, aux = moe._dispatch(_t(x), torch.from_numpy(lg), cfg, C)
+    xe, meta, aux, _ = moe._dispatch_ids(_t(x), torch.from_numpy(lg),
+                                         cfg, C)
     np.testing.assert_array_equal(_tbits(xe), jax_ref[f"{name}/xe"])
     for k, v in zip(("slot", "st", "keep"), (meta[0], meta[1], meta[3])):
         np.testing.assert_array_equal(v.numpy(), jax_ref[f"{name}/{k}"],
@@ -325,7 +326,7 @@ def test_tied_router_row_takes_the_lower_experts(jax_ref):
     """Four tied probabilities: the port picks JAX's experts (1, 2)."""
     cfg = _cfg(get_config, QWEN3, dict(n_experts=8, top_k=2))
     x = torch.ones((1, cfg.d_model), dtype=torch.bfloat16)
-    _, (slot, st, _, keep), _ = moe._dispatch(
+    _, (slot, st, _, keep), _, _ = moe._dispatch_ids(
         x, torch.tensor([TIE_ROW]), cfg, _capacity(cfg))
     C = _capacity(cfg)
     assert sorted((slot[keep] // C).tolist()) == \

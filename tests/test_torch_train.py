@@ -457,10 +457,11 @@ def test_trainer_qaf_switch_matches_jax():
 
 
 def test_unported_trainer_options_raise():
-    """Trainer(mesh=) trains the dense family (tests/test_torch_train_mesh
-    .py); the families still to port refuse a multi-rank mesh."""
+    """Trainer(mesh=) trains the dense, moe and vlm families
+    (tests/test_torch_train_mesh.py, tests/test_torch_mesh_families.py);
+    the families still to port refuse a multi-rank mesh."""
     from repro_torch.distributed.mesh import Mesh
-    cfg = get_config("mixtral-8x7b").smoke()
+    cfg = get_config("zamba2-1.2b").smoke()
     data = pipeline.DataConfig(vocab_size=cfg.vocab_size, seq_len=8,
                                global_batch=2)
     with pytest.raises(NotImplementedError, match="distributed"):

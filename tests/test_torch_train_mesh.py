@@ -41,8 +41,9 @@ on gloo CPU ranks (tests/_dist.py).
     losses within rtol 1e-4 of an uninterrupted 1-rank run, the
     checkpoint is read by JAX's ``ckpt.restore``, the export equals the
     1-rank export of the same parameters bit for bit.
-  * Refusals: non-dense families, mode "sp", an undividable split, a block
-    that straddles a shard, a wrong rank count.
+  * Refusals: the families not yet ported to a mesh (hybrid, ssm, encdec;
+    moe and vlm: tests/test_torch_mesh_families.py), mode "sp", an
+    undividable split, a block that straddles a shard, a wrong rank count.
 
 JAX's reference jobs run in 3 subprocesses (``_jax_ref.Reference``; this
 file as a script with excess precision off and 4 forced host devices), and
@@ -66,7 +67,8 @@ import numpy as np
 import pytest
 import torch
 
-from _dist import mesh_session, run_ranks, smoke_cfg, trainer_run
+from _dist import (mesh_session, reduce_scatter_case, run_ranks, smoke_cfg,
+                   trainer_run)
 from _jax_ref import Reference, run_jobs
 from repro_torch.core import fqt
 from repro_torch.core import formats as tf
@@ -665,6 +667,31 @@ def test_trainer_mesh_restart_checkpoint_and_export(tmp_path, rank_jobs):
 # ---- refusals ----------------------------------------------------------------
 
 
+@pytest.mark.parametrize("shape,names", [((2,), ("data",)),
+                                         ((4,), ("data",))])
+def test_reduce_scatter_sums_in_rank_order(tmp_path, shape, names):
+    """gloo's reduce-scatter (an all-to-all of the shards through the
+    host): each rank's shard of the ranks' tensors summed in rank order,
+    bit for bit (at two ranks the bits of an all-reduce and a slice),
+    along dims 0 and 1, counted once with the whole tensor's bytes."""
+    n, seed = shape[0], 7
+    outs = run_ranks(reduce_scatter_case, n, tmp_path, shape, names, seed)
+    ts = [torch.randn((8, 12, 4),
+                      generator=torch.Generator().manual_seed(seed + r))
+          for r in range(n)]
+    total = ts[0].clone()
+    for t in ts[1:]:
+        total += t
+    for r, out in enumerate(outs):
+        i = out["coords"]["data"]
+        for dim in (0, 1):
+            size = total.shape[dim] // n
+            assert torch.equal(out[dim], total.narrow(dim, i * size, size))
+            assert out[dim].is_contiguous()
+            assert out[f"stats{dim}"]["calls"] == 1
+            assert out[f"stats{dim}"]["bytes"] == total.numel() * 4
+
+
 def test_training_mesh_refusals():
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig
@@ -673,8 +700,7 @@ def test_training_mesh_refusals():
     from repro_torch.models import registry
     cpu = torch.device("cpu")
     two = Mesh((2,), ("model",), device=cpu)
-    for arch in ("mixtral-8x7b", "zamba2-1.2b", "xlstm-125m",
-                 "whisper-base", "internvl2-26b"):
+    for arch in ("zamba2-1.2b", "xlstm-125m", "whisper-base"):
         cfg = get_config(arch).smoke()
         with pytest.raises(NotImplementedError, match="distributed training"):
             Trainer(cfg, fqt.nvfp4_paper_config(), st.TrainConfig(),
