@@ -4,8 +4,7 @@
 through checkpoint/restart and the packed export to serving, the dense
 and moe archs at full width, the recurrent families at full width and
 depth, the encdec and vlm families at full width, and the serving and
-training meshes (the dense, moe and vlm families) on gloo ranks sharing
-the card.
+training meshes (every family) on gloo ranks sharing the card.
 
     python3 chip_smoke.py                    # every phase but times_full
     python3 chip_smoke.py --phases env,kernels
@@ -219,9 +218,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
            tp=2 on run A's traffic cut to 4 requests (128-token shared
            prefix + 64, prefix cache, 64-token chunks, 32 new); run c: the
            lockstep Engine at tp=2, batch 4 x 64, 32 new; both llama2-7b at
-           full width, depth cut 32 -> MESH_LAYERS = 4 (since phase
-           mesh_families joined), weights packed layer by layer into each
-           rank's shards.  Run d: dp=2,tp=2 (4 ranks), depth cut 32 -> 4,
+           full width, depth cut 32 -> MESH_LAYERS = 2 (4 since phase
+           mesh_families joined, 2 since phase mesh_encdec_recurrent),
+           weights packed layer by layer into each rank's shards, all six
+           runs started together.  Run d: dp=2,tp=2 (4 ranks), depth cut
+           32 -> MESH_LAYERS,
            lockstep, 16 new, every weight gathered over "data" in its
            packed wire format before its GEMMs.  Each run is served again
            by one process (no mesh, graphed).  Checks: every rank's streams
@@ -238,10 +239,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
   train_mesh
            the training mesh (``Trainer(mesh=)``, ``distributed/``,
            ``fqt._ShardedFP4Matmul``): llama2-7b at full width, depth cut
-           32 -> 2, a global batch of 2 x 512, nvfp4_paper_config, remat,
+           32 -> TM_LAYERS = 1 (2 until phase mesh_encdec_recurrent
+           joined), a global batch of 2 x 512, nvfp4_paper_config, remat,
            the sigma_q probe, 3 steps from one seeded state on gloo ranks
            sharing the card (spawned from this process after the kernels
-           are built, in two waves), each run against one process
+           are built, in two waves started together), each run against
+           one process
            (``Trainer`` without a mesh).  Run b: tp=2, checkpointed after
            step 2; c: fsdp=2, then dp=2,tp=2 (4 ranks); d: (pod, data,
            model) = (2, 1, 1) with the GRAD_FP8 compressed pod mean; e:
@@ -253,9 +256,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
            metrics equal, K1 and K2 launches a step as derived
            (``k1_step_gemms``, ``tm_probe_launches``, the compressor's one
            a leaf), losses, updates, grad_norm and sigma_q within the TM_*
-           rules (scaled, where the run splits a contraction over "model",
-           by the SR spread of a one-process run with re-drawn SR
-           streams), run b's rank 0 (the checkpoint writer) peaking within
+           rules (scaled, where the run splits a contraction over "model"
+           or compresses, by the SR envelope of two one-process runs with
+           re-drawn SR streams: ``tm_envelope``, ``tm_loss_bound``), run
+           b's rank 0 (the checkpoint writer) peaking within
            one logical leaf of rank 1, the pipeline within PIPE_FWD_RTOL /
            PIPE_RTOL; reports step ms,
            collectives a step (FSDP gather and reduce-scatter bytes) and
@@ -267,17 +271,19 @@ Phases, each printing JSON lines; any failure exits non-zero:
            the moe and vlm families on a mesh (``models/moe.py``'s routes,
            the batched expert collectives), gloo ranks sharing the card,
            each run against one process on the same seeded weights
-           (MF_SERVE, MF_TRAIN): a, Mixtral-8x7B at 4 of 32 layers, the
-           lockstep Engine at tp=2 (``launch.serve --mesh``), batch 4 x 64,
-           32 new; b, Qwen3-MoE at 2 of 94 layers, ContinuousEngine at
-           tp=2 (8 slots, prefix cache, 64-token chunks); c, InternVL2-26B
-           at 4 of 48 layers, lockstep tp=2, batch 4 x (256 prefix + 64),
-           16 new -- held as phase mesh holds its runs, plus the moe
-           layers' collectives a layer and program call (2, for E 8 as for
-           E 128); d, Mixtral at 2 layers through ``Trainer`` at tp=2, 1 x
-           1024, 3 steps, against one process and its SR spread (a run
-           with re-drawn SR streams), as phase train_mesh; e, Qwen3-MoE at
-           1 layer, fsdp=2 (the "local" route), 2 x 512, one step: step-0
+           (MF_SERVE, MF_TRAIN; every run at one layer since phase
+           mesh_encdec_recurrent joined): a, Mixtral-8x7B at 1 of 32
+           layers, the lockstep Engine at tp=2 (``launch.serve --mesh``),
+           batch 4 x 64, 32 new; b, Qwen3-MoE at 1 of 94 layers,
+           ContinuousEngine at tp=2 (8 slots, prefix cache, 64-token
+           chunks); c, InternVL2-26B at 1 of 48 layers, lockstep tp=2,
+           batch 4 x (256 prefix + 64), 16 new -- held as phase mesh holds
+           its runs, plus the moe layers' collectives a layer and program
+           call (2, for E 8 as for E 128); d, Mixtral at 1 layer through
+           ``Trainer`` at tp=2, 1 x
+           1024, 3 steps, against one process and its SR envelope (two
+           runs with re-drawn SR streams), as phase train_mesh; e,
+           Qwen3-MoE at 1 layer, fsdp=2 (the "local" route), 2 x 512, one step: step-0
            loss and every rank's routing against one process; d and e
            hold grad_norm and sigma_q at every step as train_mesh does
            (e, with no re-drawn run, within TM_NORM_RTOL).  Launches
@@ -285,6 +291,34 @@ Phases, each printing JSON lines; any failure exits non-zero:
            process's, collectives a step -- gloo ranks sharing one card:
            not a DP/TP speed.  Phase kernels holds K4 and K1 at the
            experts' shard shapes (``k4_tp_checks``, ``k1_tp_checks``).
+  mesh_encdec_recurrent
+           the encdec, hybrid and ssm families on a mesh (``models/
+           whisper.py``, ``mamba2.py``, ``xlstm.py`` on this rank's heads,
+           the gathers of their concatenated projections), gloo ranks
+           sharing the card, each run against one process on the same
+           seeded weights (ER_SERVE, ER_TRAIN): a, whisper-base at full
+           depth, the lockstep Engine at tp=2 (``launch.serve --mesh``),
+           batch 4 x 32 with random frames, 16 new; b, whisper-base,
+           ContinuousEngine at tp=2 (4 slots, 8 requests two a tick,
+           random frames each, 16 new); c, zamba2-1.2b at 12 of 38 layers (two shared-attention
+           groups), lockstep 4 x 64, 32 new; d, xlstm-125m at full depth,
+           lockstep 4 x 64, 32 new -- held as phase mesh holds its runs;
+           e-g, ``Trainer`` at tp=2
+           on one spawned rank pair, family after family (whisper-base at
+           full depth, 4 x 256; zamba2-1.2b at 6 layers, 2 x 512;
+           xlstm-125m at 4 layers, its sLSTM the fourth, 2 x 256; 3 steps
+           each), while this process runs each one-process run and its
+           two runs with re-drawn SR streams, all runs started together:
+           train_mesh's rules (the later losses and each leaf's update
+           within the SR envelope), and each leaf's step-0 gradient
+           within its envelope but for the leaves that both redraws move
+           by their norm (noise: whisper's key biases).  Launches as
+           derived on every rank (``er_expected``, ``k1_step_gemms``,
+           ``er_probe_launches``), collectives a decode step and a train
+           step, peak memory a rank beside one process's -- gloo ranks
+           sharing one card: not a TP speed.  Phase kernels holds K4 and
+           K1 at the three families' shard shapes (``k4_tp_checks``,
+           ``k1_tp_checks``).
   ops      the kernel-level public API (``kernels/ops.py``) as a user calls
            it: the unfused FQT GEMM at each forward GEMM shape of the
            train phase's llama2-7b (M = 4096 tokens; (K, N) = (4096, 4096),
@@ -342,7 +376,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("env", "kernels", "serve", "serve_continuous", "train",
           "pipeline", "archs", "recurrent", "encdec_vlm", "mesh",
-          "train_mesh", "mesh_families", "ops", "times", "times_full")
+          "train_mesh", "mesh_families", "mesh_encdec_recurrent", "ops",
+          "times", "times_full")
 DEFAULT_PHASES = PHASES[:-1]       # times_full only when asked for
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core peak
@@ -384,10 +419,23 @@ K4_ENCDEC = ((4, 512, 512), (4, 512, 2048), (4, 2048, 512),
 # kernels): column shards (K, N / 2) of wq/wk/wv, w_gate/w_up and the lm_head
 # with the full N's GEMV plan (plan_n), row shards (K / 2, N) of wo and
 # w_down with the global |A| max (a_amax); at M 4 (GEMV), 256 (core) and,
-# E3M4 A, 64 (the f32 route)
+# E3M4 A, 64 (the f32 route).  Then the experts' (phase mesh_families) and
+# the encdec, hybrid and ssm families' (phase mesh_encdec_recurrent):
+# zamba2's in_proj (N 4192 of 8384), its shared block's wq/wk/wv and
+# w_gate/w_up and rows wo / w_down, out_proj (row K 2048 of 4096); xLSTM's
+# w_up / w_gates (N 1536 of 3072), w_q/w_k/w_v (N 768), w_ff_gate/w_ff_up
+# (N 768 of 1536), rows w_down and w_ff_down (K 768 of 1536); whisper's
+# wq/wk/wv (N 256), w_in (N 1024 of 2048), rows wo (K 256) and w_out (K
+# 1024 of 2048)
 K4_TP_COL = ((4096, 2048), (4096, 5504), (4096, 16000),
-             (4096, 7168), (4096, 768))         # Mixtral's, Qwen3's experts
-K4_TP_ROW = ((2048, 4096), (5504, 4096), (7168, 4096), (768, 4096))
+             (4096, 7168), (4096, 768),         # Mixtral's, Qwen3's experts
+             (2048, 4192), (2048, 1024), (2048, 4096),           # zamba2
+             (768, 1536), (1536, 768), (768, 768),               # xLSTM
+             (512, 256), (512, 1024))                            # whisper
+K4_TP_ROW = ((2048, 4096), (5504, 4096), (7168, 4096), (768, 4096),
+             (1024, 2048), (4096, 2048), (2048, 2048),           # zamba2
+             (768, 768),                                         # xLSTM
+             (256, 512), (1024, 512))                            # whisper
 K4_TP_M = (4, 256)
 K6_CASES = (  # (B, H, KVH, D, Sk, kv_len): llama2-7b, then tinyllama (G = 8),
     # then zamba2-1.2b's shared block (MHA, D 64), whisper-base's decoder
@@ -3553,12 +3601,13 @@ def phase_encdec_vlm(dev) -> dict:
 # run A's traffic cut to 4 requests (shared 128-token prefix, prefix cache,
 # 64-token chunks, 32 new); c: the lockstep Engine at tp=2 (serve's batch 4
 # x 64, 32 new); both llama2-7b at full width, depth cut 32 -> MESH_LAYERS
-# = 4 (since phase mesh_families joined the script, to keep it inside its
-# time limit: the layers all repeat, on gloo eager).  d: dp=2,tp=2 (4
-# ranks), depth cut 32 -> 4, lockstep, 16 new: every GEMM weight gathered
-# over "data" (allgather_packed) before use.  Each run is also served by
-# one process (no --mesh, its programs graphed), the comparison.
-MESH_LAYERS = 4
+# = 2 (4 since phase mesh_families joined the script, 2 since phase
+# mesh_encdec_recurrent, to keep it inside its time limit: the layers all
+# repeat, on gloo eager).  d: dp=2,tp=2 (4 ranks), depth cut 32 ->
+# MESH_LAYERS, lockstep, 16 new: every GEMM weight gathered over "data"
+# (allgather_packed) before use.  Each run is also served by one process
+# (no --mesh, its programs graphed), the comparison.
+MESH_LAYERS = 2
 MESH_RUNS = {
     "b": ("tp=2", ["--queue", "4", "--max-slots", "4", "--batch", "4",
                    "--shared-prefix", "128", "--prompt-len", "64",
@@ -3567,7 +3616,8 @@ MESH_RUNS = {
     "c": ("tp=2", ["--batch", "4", "--prompt-len", "64", "--max-new", "32",
                    "--max-len", "256", "--layers", str(MESH_LAYERS)]),
     "d": ("dp=2,tp=2", ["--batch", "4", "--prompt-len", "64", "--max-new",
-                        "16", "--max-len", "256", "--layers", "4"]),
+                        "16", "--max-len", "256", "--layers",
+                        str(MESH_LAYERS)]),
 }
 # The rules the mesh runs are held to against the one-process runs, written
 # in PERF.md before the first card run: a stream may first part from the
@@ -3579,10 +3629,11 @@ MESH_RUNS = {
 # activation quantization, a code.
 MESH_MARGIN = 0.05
 MESH_LOGITS_RTOL = 1e-2
-# the runs started together: the 2-rank runs first, then run d's 4 ranks
-# beside the one-process runs
-MESH_WAVES = ((("b", "mesh"), ("c", "mesh")),
-              (("d", "mesh"), ("b", "one"), ("c", "one"), ("d", "one")))
+# the runs started together: all of them at once since the cut to 2 layers
+# (their build peaks, whole bf16 layers packed in every process, were two
+# waves' worth at 4 layers)
+MESH_WAVES = ((("b", "mesh"), ("c", "mesh"), ("d", "mesh"), ("b", "one"),
+               ("c", "one"), ("d", "one")),)
 
 
 def card_used_mib() -> int:
@@ -3721,10 +3772,12 @@ def phase_mesh(dev) -> dict:
             "tokens_per_s": r0["tokens"] / r0["seconds"],
             "one_process_tokens_per_s": one["tokens"] / one["seconds"],
             "decode_calls": r0["calls"]["decode"],
-            "ms_per_decode_call": (r0["seconds"] - (
-                r0["prefill_s"] if "prefill_suffix" not in r0["calls"]
-                else 0.0)) * 1e3 / steps,
-            "sharded_prefill_ms": r0["prefill_s"] * 1e3,
+            # a lockstep run's seconds include its prefill (one program
+            # call of steps + 1): the report reads the run's own prefill
+            # logits and times no second prefill
+            "ms_per_decode_call": r0["seconds"] * 1e3 / steps,
+            "sharded_prefill_ms": (None if r0["prefill_s"] is None
+                                   else r0["prefill_s"] * 1e3),
             "collectives": [rep["collectives"] for rep in reps],
             "collective_ms_per_decode_call": [
                 rep["collectives"]["seconds"] * 1e3 / steps for rep in reps],
@@ -3744,8 +3797,9 @@ def phase_mesh(dev) -> dict:
 
 # ---- phase train_mesh: the training mesh on gloo ranks sharing the card ------
 #
-# llama2-7b at full width, depth cut 32 -> 2 (its training state is ~108 GB at
-# 32 layers; the ranks share one 80 GB card), a global batch of 2 x 512
+# llama2-7b at full width, depth cut 32 -> TM_LAYERS = 1 (its training state
+# is ~108 GB at 32 layers; the ranks share one 80 GB card; 2 layers until
+# phase mesh_encdec_recurrent joined the script), a global batch of 2 x 512
 # tokens (a cut of the train phase's 4 x 1024: gloo stages every activation
 # all-reduce through the host), nvfp4_paper_config, remat, the sigma_q probe,
 # 3 steps from one seeded initial state, each run against one process
@@ -3754,8 +3808,9 @@ def phase_mesh(dev) -> dict:
 # process and takes step 3); c, fsdp=2; d, (pod, data, model) = (2, 1, 1)
 # with the GRAD_FP8 compressed pod mean; f, ``pipeline_apply`` over (pipe,
 # data) = (2, 1) with the dense block as layer_fn, 4 layers, 4 microbatches
-# of 1 x 512.  Wave B (4 ranks): c, dp=2,tp=2.
-TM_LAYERS = 2
+# of 1 x 512.  Wave B (4 ranks): c, dp=2,tp=2, started with wave A (one
+# after the other until the cut to one layer).
+TM_LAYERS = 1
 TM_BATCH, TM_SEQ, TM_STEPS, TM_SPLIT = 2, 512, 3, 2
 TM_RUNS = {
     "b": ((2,), ("model",), False),
@@ -3770,14 +3825,18 @@ TM_PIPE_LAYERS, TM_PIPE_MB, TM_PIPE_SEQ = 4, 4, 512
 # (bit-equality reported), the later losses within TM_LOSS_RTOL; each
 # leaf's update after the 3 steps, as a relative L2 from one process's,
 # within TM_UPDATE_REL_L2 where no contraction is split over "model" and
-# nothing is compressed, else within max(TM_UPDATE_REL_L2, the SR spread)
-# (b, dp=2,tp=2: the ranks' f32 partial products are all-reduced, which
-# moves last bits that FP4 re-quantization amplifies; d: the pods' means
-# carry the compressor's SR noise): the SR spread is the same relative L2
-# of a second one-process run whose every SR stream is re-drawn (step
-# seeds XOR TM_REDRAW), under 1 for every leaf, so a run that applied no
-# update fails; the compressed pods' losses within TM_COMP_LOSS_RTOL of one
-# process's; in every run
+# nothing is compressed, else within max(TM_UPDATE_REL_L2, the SR
+# envelope) (b, dp=2,tp=2: the ranks' f32 partial products are
+# all-reduced, which moves last bits that FP4 re-quantization amplifies;
+# d: the pods' means carry the compressor's SR noise; such a run is one
+# more draw of the SR noise): the SR envelope (``tm_envelope``) is the
+# largest relative L2 between any two of one process and two one-process
+# runs whose every SR stream is re-drawn (step seeds XOR TM_REDRAWS), under
+# 1 for every leaf, so a run that applied no update fails; the later
+# losses of those runs within max(TM_LOSS_RTOL (TM_COMP_LOSS_RTOL
+# compressed), the same envelope of the losses, ``tm_loss_bound``), not 1
+# x one redraw's distance: a second pure redraw lies up to 1.68 x the
+# first's distance from one process, leaf by leaf (PERF.md).  In every run
 # grad_norm and sigma_q at every step within max(TM_NOISE_X x their SR
 # spread, TM_NORM_RTOL) relative of one process's (a gradient counted
 # twice, or summed and not averaged, moves its norm by 41-100%); run b's
@@ -3790,6 +3849,9 @@ TM_LOSS_RTOL = 1e-3
 TM_UPDATE_REL_L2 = 3e-2
 TM_COMP_LOSS_RTOL = 1e-2
 TM_REDRAW = 0x5A5A5A5A
+# the two re-drawn one-process runs whose distances from one process and
+# from each other bound a mesh run (``tm_envelope``, ``tm_loss_bound``)
+TM_REDRAWS = (TM_REDRAW, 0xC3C3C3C3)
 TM_NOISE_X = 2.0
 TM_NORM_RTOL = 1e-2
 PIPE_FWD_RTOL = 1e-6
@@ -3878,13 +3940,13 @@ def state_digests(state) -> dict:
 
 
 def tm_trainer(cfg, qcfg, tcfg, data, steps, mesh=None, ckpt_dir=None,
-               compression=False):
+               compression=False, seed=SEED):
     from repro_torch.distributed import compression as comp
     from repro_torch.train import Trainer, TrainerConfig
     if compression:
         tcfg = dataclasses.replace(tcfg, compression=comp.CompressionConfig(
             spec=comp.GRAD_FP8))
-    rc = TrainerConfig(total_steps=steps, seed=SEED, export_packed=False)
+    rc = TrainerConfig(total_steps=steps, seed=seed, export_packed=False)
     if ckpt_dir:
         rc = dataclasses.replace(rc, ckpt_dir=ckpt_dir, ckpt_every=TM_SPLIT,
                                  keep_ckpts=1)
@@ -3897,14 +3959,14 @@ def tm_history(trainers) -> list:
     return [{k: h[k] for k in keys} for tr in trainers for h in tr.history]
 
 
-def tm_redrawn(cfg, qcfg, tcfg, data):
+def tm_redrawn(cfg, qcfg, tcfg, data, redraw=TM_REDRAW):
     """The one-process run again with every SR stream re-drawn (each step's
-    seed XOR TM_REDRAW, the probe's with it): (history, final flat
+    seed XOR ``redraw``, the probe's with it): (history, final flat
     params).  Its distance from the one-process run is the SR noise that
     the rules scale by."""
     from repro_torch.train import step as step_mod
     seed_of = step_mod.step_seed
-    step_mod.step_seed = lambda s: seed_of(s) ^ TM_REDRAW
+    step_mod.step_seed = lambda s: seed_of(s) ^ redraw
     try:
         tr = tm_trainer(cfg, qcfg, tcfg, data, TM_STEPS)
         state = tr.run()
@@ -3915,14 +3977,43 @@ def tm_redrawn(cfg, qcfg, tcfg, data):
 
 def tm_update_rel_l2(init, want_final, got_final) -> dict:
     """Each leaf's update (final - initial) of ``got_final`` against
-    ``want_final``'s, as a relative L2 (whole tensors on one process)."""
+    ``want_final``'s, as a relative L2 (whole tensors on one process;
+    ``init`` None: the tensors themselves, as gradients), computed on the
+    card where there is one."""
+    dev = _compare_device()
     out = {}
     for path, w in want_final.items():
-        i0 = init[path].float()
-        want = w.float() - i0
-        out[path] = float(torch_norm(got_final[path].float() - i0 - want)
+        i0 = 0.0 if init is None else init[path].to(dev).float()
+        want = w.to(dev).float() - i0
+        out[path] = float(torch_norm(got_final[path].to(dev).float() - i0
+                                     - want)
                           / max(float(torch_norm(want)), 1e-30))
     return out
+
+
+def _compare_device():
+    import torch
+    return torch.device("cuda", 0) if torch.cuda.is_available() \
+        else torch.device("cpu")
+
+
+def tm_envelope(init, finals) -> dict:
+    """Each leaf's SR noise envelope: the largest relative L2 between the
+    updates of any two of ``finals`` (one process's final flat params,
+    then its re-drawn runs'; ``init`` None: gradients themselves)."""
+    pairs = [tm_update_rel_l2(init, finals[i], finals[j])
+             for i in range(len(finals)) for j in range(i + 1, len(finals))]
+    return {p: max(d[p] for d in pairs) for p in pairs[0]}
+
+
+def tm_loss_bound(i, one, redrawn, rtol) -> float:
+    """The bound on a mesh run's step-``i`` loss distance from one
+    process's (histories ``one`` and ``redrawn``, a list): max(``rtol`` x
+    |loss|, the largest distance between any two of one process's and the
+    re-drawn runs' step-``i`` losses)."""
+    losses = [one[i]["loss"]] + [r[i]["loss"] for r in redrawn]
+    return max(rtol * abs(one[i]["loss"]),
+               max(abs(a - b) for a in losses for b in losses))
 
 
 def torch_norm(t):
@@ -4130,26 +4221,33 @@ def tm_norm_check(label, got, want, redrawn, failures) -> dict:
     return out
 
 
-def tm_compare_updates(label, shape, names, init, one_final, root) -> dict:
+def tm_compare_updates(label, shape, names, init, one_final, root,
+                       kind=None) -> dict:
     """Each leaf's update (final - initial) of the mesh run against one
     process's, as a relative L2 over the whole leaf from every rank's
-    shard (a replicated leaf counted once)."""
+    shard (a replicated leaf counted once).  ``kind``: the ranks' files
+    are ``{label}_{kind}_rank{r}.pt`` (``er_train_child``), and ``init``
+    None compares the tensors themselves (gradients)."""
     import torch
     from repro_torch.distributed import sharding
     from repro_torch.distributed.mesh import Mesh
     n = math.prod(shape)
+    dev = _compare_device()
     num, den = {}, {}
     for r in range(n):
         m = Mesh(shape, names, device=torch.device("cpu"), rank=r)
-        mine = torch.load(root / f"{label}_rank{r}.pt")
+        mine = torch.load(root / (f"{label}_rank{r}.pt" if kind is None
+                                  else f"{label}_{kind}_rank{r}.pt"))
         for path, got in mine.items():
             spec = sharding.placed_spec(path.rsplit("/", 1)[-1], got.ndim, m)
             if not sharding.is_owner(spec, m):
                 continue
-            i0 = sharding.local_shard(init[path], spec, m).float()
-            want = sharding.local_shard(one_final[path], spec, m).float() - i0
-            diff = got.to(i0.device).float() - i0 - want
-            num[path] = num.get(path, 0.0) + float((diff ** 2).sum())
+            i0 = (torch.zeros((), device=dev) if init is None else
+                  sharding.local_shard(init[path], spec, m).to(dev).float())
+            want = sharding.local_shard(one_final[path], spec, m).to(
+                dev).float() - i0
+            upd = got.to(dev).float() - i0
+            num[path] = num.get(path, 0.0) + float(((upd - want) ** 2).sum())
             den[path] = den.get(path, 0.0) + float((want ** 2).sum())
     return {p: math.sqrt(num[p]) / max(math.sqrt(den[p]), 1e-30)
             for p in num}
@@ -4184,7 +4282,10 @@ def phase_train_mesh(dev) -> dict:
     t_phase = time.perf_counter()
     failures, out = [], {}
     k1_step = sum(k1_step_gemms(cfg, qcfg, TM_BATCH * TM_SEQ).values())
+    # both waves at once since the cut to one layer (its four ranks' states
+    # fit beside the two's; run e still waits for wave A's checkpoint)
     wave_a = tm_start(2, root)
+    wave_b = tm_start(4, root)
     # one process: the reference of runs b-d, the like of run e
     torch.cuda.reset_peak_memory_stats(dev)
     counters.reset()
@@ -4207,17 +4308,18 @@ def phase_train_mesh(dev) -> dict:
     emit({"phase": "train_mesh", "run": "one", "seconds": one_s,
           "history": one_hist, "peak_allocated":
           torch.cuda.max_memory_allocated(dev)})
-    # the SR spread: one process again with every SR stream re-drawn
+    # the SR noise: one process again with every SR stream re-drawn, twice
     t0 = time.perf_counter()
-    red_hist, red_final = tm_redrawn(cfg, qcfg, tcfg, data)
-    spread = tm_update_rel_l2(init, one_final, red_final)
-    del red_final
+    reds = [tm_redrawn(cfg, qcfg, tcfg, data, redraw=x) for x in TM_REDRAWS]
+    red_hists = [h for h, _ in reds]
+    red_hist = red_hists[0]
+    spread = tm_envelope(init, [one_final] + [f for _, f in reds])
+    del reds
     emit({"phase": "train_mesh", "run": "one_redrawn",
-          "seconds": time.perf_counter() - t0, "history": red_hist,
-          "update_rel_l2": spread})
+          "seconds": time.perf_counter() - t0, "histories": red_hists,
+          "sr_envelope": spread})
     leaf_bytes = 4 * max(v.numel() for v in init.values())   # f32 master
     tm_join(wave_a)
-    wave_b = tm_start(4, root)
     # run e: run b's step-2 checkpoint restored in this process, step 3
     t0 = time.perf_counter()
     step, restored = ckpt.restore_latest(str(root / "ckpt"), one_state)
@@ -4267,14 +4369,16 @@ def phase_train_mesh(dev) -> dict:
         h, o = reps[0]["history"], one_hist
         loss0_equal = h[0]["loss"] == o[0]["loss"]
         rtol = TM_COMP_LOSS_RTOL if compressed else TM_LOSS_RTOL
+        split = "model" in names and shape[names.index("model")] > 1
         if abs(h[0]["loss"] - o[0]["loss"]) > TM_LOSS0_RTOL * abs(o[0]["loss"]):
             failures.append((label, "step-0 loss"))
         for i in range(1, TM_STEPS):
-            if abs(h[i]["loss"] - o[i]["loss"]) > rtol * abs(o[i]["loss"]):
-                failures.append((label, f"step-{i} loss"))
+            lim = (tm_loss_bound(i, o, red_hists, rtol) if split or compressed
+                   else rtol * abs(o[i]["loss"]))
+            if abs(h[i]["loss"] - o[i]["loss"]) > lim:
+                failures.append((label, f"step-{i} loss (limit {lim})"))
         upd = tm_compare_updates(label, shape, names, init, one_final, root)
         worst = max(upd.values())
-        split = "model" in names and shape[names.index("model")] > 1
         bound = {p: max(TM_UPDATE_REL_L2, spread[p]) if split or compressed
                  else TM_UPDATE_REL_L2 for p in upd}
         over = {p: (v, bound[p]) for p, v in upd.items() if v > bound[p]}
@@ -4302,7 +4406,8 @@ def phase_train_mesh(dev) -> dict:
                "worst_update_leaf": max(upd, key=upd.get),
                "worst_update_over_bound": max(upd[p] / bound[p]
                                               for p in upd),
-               "sr_spread_of_worst_leaf": spread[max(upd, key=upd.get)],
+               "sr_envelope_of_worst_leaf": spread[max(upd, key=upd.get)],
+               "redrawn_losses": [[x["loss"] for x in r] for r in red_hists],
                "grad_norm": [x["grad_norm"] for x in h],
                "one_process_grad_norm": [x["grad_norm"] for x in o],
                "redrawn_grad_norm": [x["grad_norm"] for x in red_hist],
@@ -4357,40 +4462,42 @@ def phase_train_mesh(dev) -> dict:
 #
 # Full width, cut depth, each run against one process on the same seeded
 # weights.  Serving (``launch.serve`` children, ranks sharing the card,
-# programs eager; the one-process runs graphed): a, Mixtral-8x7B at 4 of 32
-# layers, lockstep tp=2, batch 4 x 64, 32 new, nvfp4 KV; b, Qwen3-MoE at 2
+# programs eager; the one-process runs graphed): a, Mixtral-8x7B at 1 of 32
+# layers, lockstep tp=2, batch 4 x 64, 32 new, nvfp4 KV; b, Qwen3-MoE at 1
 # of 94 layers, ContinuousEngine tp=2, 8 slots, a 128-token shared prefix,
-# prefix cache, 64-token chunks; c, InternVL2-26B at 4 of 48 layers,
+# prefix cache, 64-token chunks; c, InternVL2-26B at 1 of 48 layers,
 # lockstep tp=2, batch 4 x (256 prefix + 64), 16 new.  Training (``Trainer``
 # on spawned ranks, then one process in this one: the memory does not hold
-# both): d, Mixtral at 2 layers, 1 x 1024, 3 steps at tp=2 (plus one
+# both): d, Mixtral at 1 layer, 1 x 1024, 3 steps at tp=2 (plus one
 # process with re-drawn SR streams, for the spread rule); e, Qwen3-MoE at 1
 # layer, 2 x 512, one step at fsdp=2 (the "local" route: 8 of 16 groups and
-# 64 capacity rows an expert a rank).
+# 64 capacity rows an expert a rank).  Every run at one layer since phase
+# mesh_encdec_recurrent joined the script: a, b, c, d at 4, 2, 4, 2
+# before.
 MF_SERVE = {
     "a": ("mixtral-8x7b", "tp=2", ["--batch", "4", "--prompt-len", "64",
                                    "--max-new", "32", "--max-len", "256",
-                                   "--layers", "4"]),
+                                   "--layers", "1"]),
     "b": ("qwen3-moe-235b-a22b", "tp=2", [
         "--queue", "8", "--max-slots", "8", "--batch", "4",
         "--shared-prefix", "128", "--prompt-len", "64", "--prefix-cache",
         "--prefill-chunk", "64", "--max-new", "32", "--max-len", "512",
-        "--layers", "2"]),
+        "--layers", "1"]),
     "c": ("internvl2-26b", "tp=2", ["--batch", "4", "--prompt-len", "64",
                                     "--max-new", "16", "--max-len", "384",
-                                    "--layers", "4"]),
+                                    "--layers", "1"]),
 }
 # the serving runs started together: the packers' build peaks (a whole
 # bf16 layer and its packing temporaries in every process: ~13 GB a
 # process for a Qwen3-MoE layer of 128 experts) do not fit the card at once
 MF_SERVE_WAVES = (("a", "c"), ("b",))
 # label: (arch, mesh shape, axes, layers, (batch, seq), steps)
-MF_TRAIN = {"d": ("mixtral-8x7b", (2,), ("model",), 2, (1, 1024), 3),
+MF_TRAIN = {"d": ("mixtral-8x7b", (2,), ("model",), 1, (1, 1024), 3),
             "e": ("qwen3-moe-235b-a22b", (2,), ("data",), 1, (2, 512), 1)}
 # The rules, written in PERF.md before the first card run: a-c as phase
 # mesh's (MESH_MARGIN, MESH_LOGITS_RTOL); d as train_mesh's for a run that
-# splits a contraction over "model" (TM_LOSS0_RTOL, TM_LOSS_RTOL, each
-# leaf's update within max(TM_UPDATE_REL_L2, its SR spread)); e: the step-0
+# splits a contraction over "model" (TM_LOSS0_RTOL, the later losses and
+# each leaf's update within the SR envelope); e: the step-0
 # loss within TM_LOSS0_RTOL and every rank's routing (expert ids, slots,
 # sorted tokens, kept entries of each of its groups; G and C) equal to one
 # process's; the moe layer's collectives a program call the same for E 8
@@ -4444,10 +4551,10 @@ def mf_setup(label):
             DataConfig(cfg.vocab_size, seq, batch))
 
 
-def mf_train(label, mesh=None, redrawn=False) -> tuple:
+def mf_train(label, mesh=None, redraw=0) -> tuple:
     """Run ``label`` through ``Trainer`` (on ``mesh``, or one process;
-    ``redrawn``: every SR stream re-drawn, ``tm_redrawn``'s rule):
-    (report, final flat params)."""
+    ``redraw``: every SR stream re-drawn, each step's seed XOR it,
+    ``tm_redrawn``'s rule): (report, final flat params)."""
     import torch
     from repro_torch.kernels import counters
     from repro_torch.models import moe
@@ -4458,8 +4565,8 @@ def mf_train(label, mesh=None, redrawn=False) -> tuple:
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     seed_of = step_mod.step_seed
-    if redrawn:
-        step_mod.step_seed = lambda s: seed_of(s) ^ TM_REDRAW
+    if redraw:
+        step_mod.step_seed = lambda s: seed_of(s) ^ redraw
     try:
         tr = tm_trainer(cfg, qcfg, tcfg, data, steps, mesh)
         marks = count_steps(tr)
@@ -4661,14 +4768,15 @@ def phase_mesh_families(dev) -> dict:
         cfg, qcfg, tcfg, _ = mf_setup(label)
         reps = tm_reports(root, label, 2)
         one, one_final = mf_train(label)
-        spread, red = None, None
+        spread, red, reds = None, None, []
         if label == "d":
-            red, red_final = mf_train(label, redrawn=True)
+            reds = [mf_train(label, redraw=x) for x in TM_REDRAWS]
+            red = reds[0][0]
         init = _flat_params(registry.init_params(cfg, seed=SEED,
                                                  device=dev))
         if label == "d":
-            spread = tm_update_rel_l2(init, one_final, red_final)
-            del red_final
+            spread = tm_envelope(init, [one_final] + [f for _, f in reds])
+            reds = [r["history"] for r, _ in reds]
         gc.collect()
         torch.cuda.empty_cache()
         want = {k: 0 for k in counters.COUNTS}
@@ -4695,9 +4803,9 @@ def phase_mesh_families(dev) -> dict:
                 o[0]["loss"]):
             failures.append((label, "step-0 loss"))
         for i in range(1, steps):
-            if abs(h[i]["loss"] - o[i]["loss"]) > TM_LOSS_RTOL * abs(
-                    o[i]["loss"]):
-                failures.append((label, f"step-{i} loss"))
+            lim = tm_loss_bound(i, o, reds, TM_LOSS_RTOL)
+            if abs(h[i]["loss"] - o[i]["loss"]) > lim:
+                failures.append((label, f"step-{i} loss (limit {lim})"))
         norm_dev = tm_norm_check(label, h, o, red and red["history"],
                                  failures)
         upd = tm_compare_updates(label, shape, names, init, one_final, root)
@@ -4745,13 +4853,14 @@ def phase_mesh_families(dev) -> dict:
             if over:
                 failures.append((label, f"update rel L2 over its bound "
                                  f"{over}"))
-            row.update(redrawn_losses=[x["loss"] for x in red["history"]],
+            row.update(redrawn_losses=[[x["loss"] for x in r]
+                                       for r in reds],
                        redrawn_grad_norm=[x["grad_norm"]
                                           for x in red["history"]],
                        redrawn_sigma_q=[x["sigma_q"]
                                         for x in red["history"]],
-                       sr_spread_of_worst_leaf=spread[max(upd,
-                                                          key=upd.get)],
+                       sr_envelope_of_worst_leaf=spread[max(upd,
+                                                            key=upd.get)],
                        worst_update_over_bound=max(upd[p] / bound[p]
                                                    for p in upd))
         row["update_rel_l2"] = {p: upd[p] for p in sorted(
@@ -4769,12 +4878,514 @@ def phase_mesh_families(dev) -> dict:
     return {"launches": launches, "runs": out}
 
 
+# ---- phase mesh_encdec_recurrent: the encdec, hybrid and ssm families on a
+# mesh, gloo ranks sharing the card --------------------------------------------
+#
+# Serving (``launch.serve --mesh tp=2``, each run beside its one-process run;
+# the eight launchers start together: these models are small): a,
+# whisper-base at full depth (6 + 6 layers), the lockstep Engine, batch 4 x
+# 32 with random frames, 16 new; b, whisper-base, ContinuousEngine (4 slots,
+# 16-token pages, 8 requests two a tick, 32-token prompts, 16 new, random
+# frames a request); c, zamba2-1.2b at 12 of 38
+# layers (two shared-attention groups), lockstep 4 x 64, 32 new; d,
+# xlstm-125m at full depth (12 blocks, sLSTM at 3, 7, 11), lockstep 4 x 64,
+# 32 new.  Training (``Trainer`` at tp=2 on one spawned rank pair, family
+# after family, while this process runs each family's one-process run and
+# its two runs with re-drawn SR streams on the same card, all of it beside
+# the serving runs): e, whisper-base at
+# full depth, 4 x 256 (zero frames: the encoder's 4 x 1500 rows); f,
+# zamba2-1.2b at 6 layers (one shared-attention group), 2 x 512; g,
+# xlstm-125m at 4 layers (its sLSTM the fourth), 2 x 256; ER_STEPS steps
+# each.  Depth is the only cut.  The rules, written in PERF.md before the
+# card runs that test them: a-d as phase mesh's (MESH_MARGIN,
+# MESH_LOGITS_RTOL); e-g: train_mesh's rules for a run that splits a
+# contraction over "model" (the step-0 loss within TM_LOSS0_RTOL; the
+# later losses and each leaf's update within the SR envelope of two
+# re-drawn runs, ``tm_loss_bound``, ``tm_envelope``; grad_norm and sigma_q
+# as ``tm_norm_check``), and each leaf's step-0 gradient (the same
+# weights and batch: one backward's rounding, not three steps' growth)
+# within max(TM_UPDATE_REL_L2, its envelope) but for the noise leaves,
+# which both redraws move by at least ER_NOISE_SPREAD of their norm
+# (whisper's key biases, whose gradient is 0 in exact arithmetic:
+# reported, held by no rule); every rank's launches as derived
+# (``er_expected``, ``k1_step_gemms``, ``er_probe_launches``).
+ER_SERVE = {
+    "a": ("whisper-base", ["--batch", "4", "--prompt-len", "32",
+                           "--max-new", "16", "--max-len", "128"]),
+    "b": ("whisper-base", ["--queue", "8", "--max-slots", "4", "--batch",
+                           "4", "--prompt-len", "32", "--max-new", "16",
+                           "--max-len", "128"]),
+    "c": ("zamba2-1.2b", ["--batch", "4", "--prompt-len", "64", "--max-new",
+                          "32", "--max-len", "256", "--layers", "12"]),
+    "d": ("xlstm-125m", ["--batch", "4", "--prompt-len", "64", "--max-new",
+                         "32", "--max-len", "256"]),
+}
+# label: (arch, layers (None: full depth), (batch, seq))
+ER_TRAIN = {"e": ("whisper-base", None, (4, 256)),
+            "f": ("zamba2-1.2b", 6, (2, 512)),
+            "g": ("xlstm-125m", 4, (2, 256))}
+ER_STEPS = 3
+# a leaf whose step-0 gradient moves under re-drawn SR streams by at least
+# its own norm (relative L2) is noise: no rule holds its direction
+ER_NOISE_SPREAD = 1.0
+
+
+def er_cfg(arch, layers=None):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def er_expected(cfg, rep, prompt_len) -> dict:
+    """Each kernel's launches on one rank of a serving run, from its
+    program calls: every rank runs every layer on its shards, so a rank
+    launches what one process launches -- ``expected_launches`` for the
+    ContinuousEngine, ``encdec_launches`` for whisper's lockstep run,
+    ``recurrent_launches`` (a decode step per prompt token) for zamba2's
+    and xLSTM's."""
+    calls = rep["calls"]
+    if "prefill_suffix" in calls:
+        return expected_launches(cfg, {f"_{k}": v for k, v in calls.items()})
+    if cfg.family == "encdec":
+        return encdec_launches(cfg, calls["prefill"], calls["decode"])
+    return recurrent_launches(cfg, prompt_len * calls["prefill"],
+                              calls["decode"])
+
+
+def er_probe_launches(cfg, shape, names) -> int:
+    """K2 launches of one step's sigma_q probe on a rank of the mesh: the
+    probe's rule (``train/step._estimate_sigma_q_mesh``: the reference's
+    leaves of 2+ dims whose last dim takes whole blocks, one call a leaf,
+    or a layer where a stacked leaf splits another dim than its last,
+    ``_probe_parts``) over the rank's placed parameter tree, built on the
+    meta device."""
+    import torch
+    from repro_torch.checkpoint.ckpt import reference_leaves
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.models import registry
+    from repro_torch.train import step as step_mod
+    meta = torch.device("meta")
+    mesh = Mesh(shape, names, device=meta)
+    params = sharding.place_train_params(registry.init_params(
+        cfg, generator=torch.Generator(), device=meta), mesh)
+    spec = probe_spec_of(step_mod.TrainConfig())
+    n = 0
+    for name, group, stacked in reference_leaves(params):
+        part = group[0]
+        pspec = sharding.placed_spec(step_mod._leaf_key(name), part.ndim,
+                                     mesh)
+        full = sharding.shard_offsets(pspec, part.shape, mesh)[0]
+        if part.ndim + int(stacked) < 2 or full[-1] % spec.block:
+            continue
+        n += len(step_mod._probe_parts(group, stacked, pspec, mesh))
+    return n
+
+
+def er_setup(label, seed=SEED):
+    """(cfg, qcfg, TrainConfig, DataConfig) of training run ``label``, its
+    data stream that of ``seed`` (seed 0: the default stream)."""
+    from repro_torch.core import fqt
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train import TrainConfig
+    arch, layers, (batch, seq) = ER_TRAIN[label]
+    cfg = er_cfg(arch, layers)
+    return (cfg, fqt.nvfp4_paper_config(), TrainConfig(remat=True),
+            DataConfig(cfg.vocab_size, seq, batch,
+                       seed=DataConfig.seed + seed))
+
+
+def er_train(label, mesh=None, redraw=0, seed=SEED, masters=False) -> tuple:
+    """Run ``label`` through ``Trainer`` (on ``mesh``, or one process) from
+    the weights and data of ``seed``; ``redraw``: every SR stream re-drawn
+    (each step's seed XOR ``redraw``, ``tm_redrawn``'s rule).  Returns
+    (report, trees): flat dicts of CPU tensors (this rank's shards on a
+    mesh) -- "params" the final parameters, "grad0" the step-0 gradients
+    (``loss_and_grads``' first, on the initial weights: the step's LR is
+    0, so they enter only AdamW's moments) and, with ``masters``, "master"
+    AdamW's final f32 master weights."""
+    import torch
+    from repro_torch.kernels import counters
+    from repro_torch.train import step as step_mod
+    cfg, qcfg, tcfg, data = er_setup(label, seed)
+    dev = torch.device("cuda", 0)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    seed_of, grads_of, grad0 = step_mod.step_seed, step_mod.loss_and_grads, {}
+
+    def first(*a, **kw):
+        out = grads_of(*a, **kw)
+        if not grad0:
+            grad0.update({k: v.clone() for k, v in _flat_params(
+                out[2]).items()})
+        return out
+    if redraw:
+        step_mod.step_seed = lambda s: seed_of(s) ^ redraw
+    step_mod.loss_and_grads = first
+    try:
+        tr = tm_trainer(cfg, qcfg, tcfg, data, ER_STEPS, mesh, seed=seed)
+        marks = count_steps(tr)
+        if mesh is not None:
+            mesh.reset_stats()
+        counters.reset()
+        t0 = time.perf_counter()
+        state = tr.run()
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        marks.append(counters.snapshot())
+    finally:
+        step_mod.step_seed, step_mod.loss_and_grads = seed_of, grads_of
+    rep = {"label": label, "seconds": seconds,
+           "step_ms": [h["dt"] * 1e3 for h in tr.history],
+           "launches": step_launches(marks), "history": tm_history([tr]),
+           "peak_allocated": torch.cuda.max_memory_allocated(dev)}
+    if mesh is not None:
+        rep.update(rank=mesh.rank, coords=dict(mesh.coords),
+                   stats=mesh.stats)
+    trees = {"params": _flat_params(state.params), "grad0": grad0}
+    if masters:
+        trees["master"] = _flat_params(state.opt.master)
+    trees = {k: {p: v.cpu() for p, v in t.items()} for k, t in trees.items()}
+    del state, tr, grad0
+    return rep, trees
+
+
+def er_train_child(rank, root, seed, masters) -> None:
+    """A rank of the training runs e-g, one after the other on one tp=2
+    mesh: each run's report and trees (``er_train``) under ``root``."""
+    import gc
+    import torch
+    from repro_torch.distributed.mesh import make_mesh
+    mesh = make_mesh((2,), ("model",), device=torch.device("cuda", 0),
+                     backend="gloo")
+    for label in ER_TRAIN:
+        rep, trees = er_train(label, mesh, seed=seed, masters=masters)
+        for kind, tree in trees.items():
+            torch.save(tree, Path(root) / f"{label}_{kind}_rank{rank}.pt")
+        (Path(root) / f"{label}_rank{rank}.json").write_text(json.dumps(rep))
+        del trees
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def er_start(root: Path, seed, masters):
+    """Start the training ranks (spawned, gloo over a file rendezvous; the
+    kernels built already), not waiting for them."""
+    import torch.multiprocessing as mp
+    from repro_torch.distributed.mesh import _rank_main
+    return mp.start_processes(
+        _rank_main, args=(er_train_child, 2, "gloo", "cuda:0",
+                          f"file://{root}/rendezvous_er",
+                          (str(root), seed, masters)),
+        nprocs=2, join=False, start_method="spawn")
+
+
+def er_one_process(label, dev, seed, probe) -> dict:
+    """Run ``label``'s one-process runs in this process: "one", "red" and
+    "red2" (every SR stream re-drawn, TM_REDRAWS) and, for ``probe``,
+    "repeat" (the one-process run again), each (report, trees), with its
+    f32 masters for ``probe``; plus "init", the initial parameters (flat,
+    on the CPU)."""
+    import gc
+    import torch
+    from repro_torch.models import registry
+    runs = {"one": er_train(label, seed=seed, masters=bool(probe))}
+    for key, x in zip(("red", "red2"), TM_REDRAWS):
+        runs[key] = er_train(label, redraw=x, seed=seed, masters=bool(probe))
+    if probe:
+        runs["repeat"] = er_train(label, seed=seed, masters=True)
+    runs["init"] = {k: v.cpu() for k, v in _flat_params(registry.init_params(
+        er_setup(label)[0], seed=seed, device=dev)).items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def er_probe(label, runs, root) -> dict:
+    """``--er-probe``: every leaf's relative L2 of the final parameters'
+    and the f32 masters' updates and of the step-0 gradients, each
+    [mesh, repeat, red, red2] against the one-process run and red2
+    against red, and each run's losses."""
+    init = runs["init"]
+    one = runs["one"][1]
+    out = {"losses": {k: [h["loss"] for h in runs[k][0]["history"]]
+                      for k in ("one", "red", "repeat", "red2")}}
+    for kind in ("params", "master", "grad0"):
+        i0 = None if kind == "grad0" else init
+        cols = [tm_compare_updates(label, (2,), ("model",), i0, one[kind],
+                                   root, kind=kind)]
+        cols += [tm_update_rel_l2(i0, one[kind], runs[k][1][kind])
+                 for k in ("repeat", "red", "red2")]
+        cols.append(tm_update_rel_l2(i0, runs["red"][1][kind],
+                                     runs["red2"][1][kind]))
+        out[kind] = {p: [c[p] for c in cols] for p in cols[0]}
+    return out
+
+
+def er_hold(label, runs, root, seed, failures, add, probe=None) -> dict:
+    """Training run ``label``'s ranks (their reports and trees under
+    ``root``) against its one-process ``runs`` (``er_one_process``): each
+    miss appended to ``failures``, each rank's launches passed to
+    ``add``; ``probe`` a dict to fill with ``er_probe``'s tables.  Returns
+    the run's row."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import counters
+    arch, layers, (batch, seq) = ER_TRAIN[label]
+    cfg, qcfg, tcfg, _ = er_setup(label)
+    (one, one_t), init = runs["one"], runs["init"]
+    reds = [runs["red"], runs["red2"]]
+    reps = tm_reports(root, label, 2)
+    want = {k: 0 for k in counters.COUNTS}
+    want.update(fused_quant_matmul=sum(k1_step_gemms(
+        cfg, qcfg, batch * seq, remat=tcfg.remat,
+        enc_tokens=batch * cfg.enc_seq).values()),
+        block_quantize=er_probe_launches(cfg, (2,), ("model",)))
+    want1 = dict(want, block_quantize=er_probe_launches(cfg, (1,),
+                                                        ("model",)))
+    for r in [one] + [r for r, _ in reds]:
+        if any(c != want1 for c in r["launches"]):
+            failures.append((label, f"one-process launches "
+                             f"{r['launches']} != {want1}"))
+    for rep in reps:
+        if rep["history"] != reps[0]["history"]:
+            failures.append((label, f"rank {rep['rank']} metrics"))
+        if any(c != want for c in rep["launches"]):
+            failures.append((label, f"rank {rep['rank']} launches "
+                             f"{rep['launches']} != {want}"))
+        for c in rep["launches"]:
+            add(c)
+    h, o = reps[0]["history"], one["history"]
+    rhs = [r["history"] for r, _ in reds]
+    if abs(h[0]["loss"] - o[0]["loss"]) > TM_LOSS0_RTOL * abs(
+            o[0]["loss"]):
+        failures.append((label, "step-0 loss"))
+    for i in range(1, ER_STEPS):
+        lim = tm_loss_bound(i, o, rhs, TM_LOSS_RTOL)
+        if abs(h[i]["loss"] - o[i]["loss"]) > lim:
+            failures.append((label, f"step-{i} loss (limit {lim})"))
+    norm_dev = tm_norm_check(label, h, o, rhs[0], failures)
+    # the step-0 gradients (the same weights and batch): a leaf that
+    # both re-drawn runs move by at least its own norm is noise (whisper's
+    # key biases: 0 in exact arithmetic), its direction held by no rule
+    g1 = [t["grad0"] for _, t in reds]
+    away = [tm_update_rel_l2(None, one_t["grad0"], g) for g in g1]
+    noise = sorted(p for p in away[0]
+                   if min(a[p] for a in away) >= ER_NOISE_SPREAD)
+    genv = tm_update_rel_l2(None, g1[0], g1[1])
+    genv = {p: max(v, *(a[p] for a in away)) for p, v in genv.items()}
+    grad0 = tm_compare_updates(label, (2,), ("model",), None,
+                               one_t["grad0"], root, kind="grad0")
+    gbound = {p: max(TM_UPDATE_REL_L2, genv[p]) for p in grad0
+              if p not in noise}
+    over = {p: (grad0[p], b) for p, b in gbound.items() if grad0[p] > b}
+    if over:
+        failures.append((label, f"step-0 gradient over its bound {over}"))
+    spread = tm_envelope(init, [one_t["params"]]
+                         + [t["params"] for _, t in reds])
+    upd = tm_compare_updates(label, (2,), ("model",), init,
+                             one_t["params"], root, kind="params")
+    bound = {p: max(TM_UPDATE_REL_L2, spread[p]) for p in upd
+             if p not in noise}
+    over = {p: (upd[p], b) for p, b in bound.items() if upd[p] > b}
+    if over:
+        failures.append((label, f"update rel L2 over its bound {over}"))
+    if probe is not None:
+        probe[label] = er_probe(label, runs, root)
+    del runs, one_t, reds, g1
+    worst = max(bound, key=lambda p: upd[p] / bound[p])
+    gworst = max(gbound, key=lambda p: grad0[p] / gbound[p])
+    row = {"phase": "mesh_encdec_recurrent", "run": label, "arch": arch,
+           "mesh": {"model": 2}, "ranks": 2,
+           "cut": {"n_layers": [get_config(arch).n_layers,
+                                cfg.n_layers],
+                   "batch": batch, "seq": seq}, "steps": ER_STEPS,
+           "seed": seed, "label": TM_LABEL,
+           "loss0_bit_equal": h[0]["loss"] == o[0]["loss"],
+           "losses": [x["loss"] for x in h],
+           "one_process_losses": [x["loss"] for x in o],
+           "redrawn_losses": [[x["loss"] for x in r] for r in rhs],
+           "grad_norm": [x["grad_norm"] for x in h],
+           "one_process_grad_norm": [x["grad_norm"] for x in o],
+           "sigma_q": [x["sigma_q"] for x in h],
+           "one_process_sigma_q": [x["sigma_q"] for x in o],
+           "norm_rel_dev_and_limit": norm_dev,
+           "noise_leaves": {p: [a[p] for a in away] for p in noise},
+           "grad0_worst_over_bound": [gworst, grad0[gworst],
+                                      gbound[gworst]],
+           "grad0_max_rel_l2": max(grad0[p] for p in gbound),
+           "update_worst_over_bound": [worst, upd[worst], bound[worst]],
+           "update_over_0.9_envelope": {
+               p: [upd[p], spread[p]] for p in upd
+               if upd[p] > 0.9 * spread[p] and p not in noise},
+           "update_rel_l2": {p: upd[p] for p in sorted(
+               upd, key=upd.get, reverse=True)[:8]},
+           "step_ms": [rep["step_ms"] for rep in reps],
+           "one_process_step_ms": one["step_ms"],
+           "launches_per_step": want,
+           "collectives_per_step": {
+               k: {"calls": v["calls"] / ER_STEPS,
+                   "bytes": v["bytes"] / ER_STEPS,
+                   "host_ms": v["seconds"] * 1e3 / ER_STEPS}
+               for k, v in reps[0]["stats"]["ops"].items()},
+           "peak_allocated_bytes": [rep["peak_allocated"]
+                                    for rep in reps],
+           "one_process_peak_allocated": one["peak_allocated"]}
+    return row
+
+
+def phase_mesh_encdec_recurrent(dev, seed=SEED, probe=None) -> dict:
+    """The encdec, hybrid and ssm families on gloo ranks sharing the card;
+    see the docstring at the top, ER_SERVE and ER_TRAIN.  ``seed``: the
+    training runs' weights and data (``--er-seed``); ``probe``: a file
+    for ``er_probe``'s tables (``--er-probe``)."""
+    import gc
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    _build.build_all()              # built once: the ranks load it
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = ROOT / "build" / "mesh_encdec_recurrent_phase"
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    emit({"phase": "mesh_encdec_recurrent", "card": card_line(),
+          "label": TM_LABEL, "card_used_mib": card_used_mib(),
+          "train_seed": seed})
+    t_phase = time.perf_counter()
+    failures, launches, out = [], {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # every run at once: the serving runs a-d (each mesh run beside its
+    # one-process run), the training ranks (e-g one after the other) and,
+    # in this process, each training run's one-process runs: the card
+    # idles under gloo's host-staged collectives
+    procs, logs = {}, {}
+    for label, (arch, args) in ER_SERVE.items():
+        for side in ("mesh", "one"):
+            procs[(label, side)] = _launcher(
+                arch, "tp=2" if side == "mesh" else None, args,
+                root / f"{label}_{side}")
+    ctx = er_start(root, seed, bool(probe))
+    ones = {label: er_one_process(label, dev, seed, probe)
+            for label in ER_TRAIN}
+    probes = {} if probe else None
+    for key, proc in procs.items():
+        try:
+            logs[key], _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            logs[key], _ = proc.communicate()
+            raise AssertionError(f"mesh_encdec_recurrent run {key} timed "
+                                 f"out:\n{logs[key][-3000:]}")
+        if proc.returncode != 0:
+            raise AssertionError(f"mesh_encdec_recurrent run {key} failed:"
+                                 f"\n{logs[key][-3000:]}")
+    serve_s = time.perf_counter() - t_phase
+    for label, (arch, args) in ER_SERVE.items():
+        layers = (int(args[args.index("--layers") + 1])
+                  if "--layers" in args else None)
+        cfg = er_cfg(arch, layers)
+        plen = int(args[args.index("--prompt-len") + 1])
+        reps = _reports(root / f"{label}_mesh", 2)
+        one = _reports(root / f"{label}_one", 1)[0]
+        for rep in reps:
+            if rep["streams"] != reps[0]["streams"]:
+                failures.append((label, f"rank {rep['rank']} streams"))
+            want = er_expected(cfg, rep, plen)
+            if rep["launches"] != want:
+                failures.append((label, f"rank {rep['rank']} launches "
+                                 f"{rep['launches']} != {want}"))
+            add(rep["launches"])
+        if one["launches"] != er_expected(cfg, one, plen):
+            failures.append((label, "one-process launches"))
+        cmp = mesh_compare(reps[0], one)
+        if not cmp["streams_ok"]:
+            failures.append((label, "stream parted at a decisive step"))
+        lg = np.load(root / f"{label}_mesh" / "prefill_logits.npy")
+        lw = np.load(root / f"{label}_one" / "prefill_logits.npy")
+        rel = float(np.linalg.norm(lg - lw) / np.linalg.norm(lw))
+        if not (np.isfinite(lg).all() and rel <= MESH_LOGITS_RTOL):
+            failures.append((label, f"prefill logits rel L2 {rel}"))
+        r0 = reps[0]
+        steps = max(1, r0["calls"]["decode"])
+        row = {"phase": "mesh_encdec_recurrent", "run": label, "arch": arch,
+               "mesh": "tp=2", "ranks": 2, "layers": cfg.n_layers,
+               "cut": {"n_layers": [get_config(arch).n_layers,
+                                    cfg.n_layers]},
+               "label": TM_LABEL, **cmp, "prefill_logits_rel_l2": rel,
+               "tokens": r0["tokens"], "seconds": r0["seconds"],
+               "tokens_per_s": r0["tokens"] / r0["seconds"],
+               "one_process_tokens_per_s": one["tokens"] / one["seconds"],
+               "program_calls": r0["calls"],
+               "collectives": [rep["collectives"] for rep in reps],
+               "collectives_per_decode_call": r0["collectives"]["calls"]
+               / (steps + r0["calls"].get("prefill", 0) * (
+                   plen if cfg.family in ("hybrid", "ssm") else 1)),
+               "peak_allocated_bytes": [rep["peak_allocated"]
+                                        for rep in reps],
+               "one_process_peak_allocated": one["peak_allocated"],
+               "weight_store_bytes": [rep["weight_store_bytes"]
+                                      for rep in reps],
+               "launches_rank0": r0["launches"]}
+        emit(row)
+        out[label] = row
+
+    # training, runs e-g: the ranks' reports
+    tm_join(ctx, timeout=900)
+    train_s = time.perf_counter() - t_phase
+    for label in ER_TRAIN:
+        out[label] = er_hold(label, ones.pop(label), root, seed, failures,
+                             add, probe=probes)
+        emit(out[label])
+    emit({"phase": "mesh_encdec_recurrent",
+          "wall_s": time.perf_counter() - t_phase, "serve_wall_s": serve_s,
+          "train_wall_s": train_s, "launches_main_path": launches,
+          "card": card_line()})
+    shutil.rmtree(root, ignore_errors=True)
+    if probe:
+        Path(probe).parent.mkdir(parents=True, exist_ok=True)
+        Path(probe).write_text(json.dumps(probes))
+    if failures:
+        raise AssertionError(f"mesh_encdec_recurrent phase: {failures}")
+    return {"launches": launches, "runs": out}
+
+
+# (name, K, N, M, row-parallel): K1's shard shapes (k1_tp_checks)
+K1_TP_CASES = (
+    ("wq", 4096, 4096, 1024, False), ("w_gate", 4096, 11008, 1024, False),
+    ("wo", 4096, 4096, 1024, True), ("w_down", 11008, 4096, 1024, True),
+    # a Mixtral expert's at its 320 capacity rows
+    ("expert w_gate", 4096, 14336, 320, False),
+    ("expert w_down", 14336, 4096, 320, True),
+    ("whisper w_in", 512, 2048, 6000, False),
+    ("whisper w_out", 2048, 512, 6000, True),
+    ("whisper head", 512, 51968, 1024, False),
+    ("zamba2 in_proj", 2048, 8384, 1024, False),
+    ("zamba2 out_proj", 4096, 2048, 1024, True),
+    ("zamba2 shared wq", 2048, 2048, 1024, False),
+    ("zamba2 shared w_down", 8192, 2048, 1024, True),
+    ("xlstm w_up", 768, 3072, 512, False),
+    ("xlstm w_q", 1536, 1536, 512, False),
+    ("xlstm w_down", 1536, 768, 512, True))
+
+
 def k1_tp_checks(dev, check) -> dict:
     """K1 with given global maxima (``a_amax`` / ``b_amax``) at llama2-7b's
-    tp=2 shard shapes of the train_mesh phase (M = 1024 tokens) and at a
-    Mixtral expert's of phase mesh_families (M = 320 capacity rows): for
-    each of wq and w_gate (column: N split) and wo and w_down (row: K
-    split),
+    tp=2 shard shapes of the train_mesh phase (M = 1024 tokens), at a
+    Mixtral expert's of phase mesh_families (M = 320 capacity rows) and at
+    the encdec, hybrid and ssm families' of phase mesh_encdec_recurrent
+    (whisper's w_in and w_out at its encoder's 4 x 1500 rows and its tied
+    head, N 25984 of 51968, at 4 x 256; zamba2's in_proj and out_proj and
+    its shared block's wq and w_down at 2 x 512; xLSTM's w_up, w_q and
+    w_down at 2 x 256): for each column weight (N split) and row weight
+    (K split),
     every rank's forward, dX and dW as ``core/fqt._ShardedFP4Matmul``
     launches them (the global maxima, the counters offset into the whole
     operand's bits: ``formats.counter_at``) against the plain version
@@ -4813,14 +5424,7 @@ def k1_tp_checks(dev, check) -> dict:
             a_counter=ca, b_counter=cb, a_amax=aa, b_amax=ab)
         return got, want
 
-    for name, K, N, M in (("wq", 4096, 4096, 1024),
-                          ("w_gate", 4096, 11008, 1024),
-                          ("wo", 4096, 4096, 1024),
-                          ("w_down", 11008, 4096, 1024),
-                          # a Mixtral expert's at its 320 capacity rows
-                          ("expert w_gate", 4096, 14336, 320),
-                          ("expert w_down", 14336, 4096, 320)):
-        row = name.endswith(("wo", "w_down"))
+    for name, K, N, M, row in K1_TP_CASES:
         g_ = gen(dev, SEED + K + N)
         x = (torch.randn((M, K), generator=g_, device=dev) * 2
              ).to(torch.bfloat16)
@@ -5715,6 +6319,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help=f"comma-separated subset of {PHASES}")
+    ap.add_argument("--er-seed", type=int, default=SEED,
+                    help="weights and data of phase mesh_encdec_recurrent's "
+                         "training runs e-g")
+    ap.add_argument("--er-probe", default=None, metavar="FILE",
+                    help="phase mesh_encdec_recurrent also runs each "
+                         "training run's one-process run again and a "
+                         "second re-drawn run, and writes every leaf's "
+                         "distances (parameters, f32 masters, step-0 "
+                         "gradients) to FILE as JSON")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -5753,6 +6366,9 @@ def main(argv=None) -> int:
                           "mesh": phase_mesh,
                           "train_mesh": phase_train_mesh,
                           "mesh_families": phase_mesh_families,
+                          "mesh_encdec_recurrent": functools.partial(
+                              phase_mesh_encdec_recurrent,
+                              seed=args.er_seed, probe=args.er_probe),
                           "ops": phase_ops,
                           "times": phase_times,
                           "times_full": functools.partial(
@@ -5777,7 +6393,7 @@ def main(argv=None) -> int:
         # recurrent families' (serve and train) and the encdec and vlm
         # families' (runs a-d)
         for ph in ("archs", "recurrent", "encdec_vlm", "mesh", "train_mesh",
-                   "mesh_families"):
+                   "mesh_families", "mesh_encdec_recurrent"):
             for name, n in results[ph]["launches"].items():
                 launches[name] = launches.get(name, 0) + n
         line = []

@@ -9,8 +9,9 @@
   python -m repro_torch.launch.serve --arch xlstm-125m --smoke --device cpu
 
   # the stub frontends: random frames for whisper's encoder, random patch
-  # embeddings before InternVL2's prompt (with --queue, whisper runs the
-  # ContinuousEngine without frames, as the reference's launcher does)
+  # embeddings before InternVL2's prompt (with --queue, whisper's
+  # ContinuousEngine gets random frames a request; the reference's
+  # launcher passes none)
   python -m repro_torch.launch.serve --arch whisper-base --batch 4
   python -m repro_torch.launch.serve --arch internvl2-26b --batch 4
 
@@ -31,6 +32,12 @@
       --dist-backend gloo --layers 4
   python -m repro_torch.launch.serve --arch internvl2-26b --mesh tp=2 \
       --dist-backend gloo --layers 4
+  # and the encdec, hybrid and ssm families (every rank gets whisper's
+  # frames; the recurrent families on the lockstep Engine, as on one rank)
+  python -m repro_torch.launch.serve --arch whisper-base --mesh tp=2 \
+      --dist-backend gloo --queue 8
+  python -m repro_torch.launch.serve --arch zamba2-1.2b --mesh tp=2 \
+      --dist-backend gloo --layers 12
 
 Initializes random parameters from a seeded ``torch.Generator``, packed to
 NVFP4 layer by layer as they are drawn (``packing.init_packed_params``), or
@@ -47,7 +54,8 @@ drawn, serves the same requests on them (the programs eagerly: a mesh's
 collectives are not captured in CUDA graphs), and rank 0 prints;
 ``--report DIR`` has every rank write ``DIR/rank<r>.json`` (its streams,
 launch counts, collectives, timings and memory) and rank 0 the prompts'
-last-token logits of one sharded prefill (``DIR/prefill_logits.npy``).
+last-token logits (B, V) of the run's sharded prefill
+(``DIR/prefill_logits.npy``).
 """
 from __future__ import annotations
 
@@ -256,6 +264,7 @@ def _serve(args):
                             graphs, say)
     eng = Engine(cfg, params, scfg, qcfg=qcfg, device=dev, mesh=mesh,
                  cuda_graphs=graphs)
+    eng.keep_prefill_logits = bool(args.report)
     del params
     prompts = [rng.integers(0, cfg.vocab_size, args.prompt_len)
                for _ in range(args.batch)]
@@ -301,9 +310,15 @@ def _serve_queue(args, cfg, params, scfg, qcfg, dev, rng, mesh, graphs,
                                               args.prompt_len)]),
                     max_new=args.max_new, arrival=i // 2)
             for i in range(args.queue)]
+    # whisper: every request its own random frames (as the lockstep path's
+    # rows), so a slot that read another's encoder output would change its
+    # stream
+    extras = {r.rid: {"frames": torch.from_numpy(rng.standard_normal(
+        (1, cfg.enc_seq, cfg.d_model))).to(torch.bfloat16)}
+        for r in reqs} if cfg.family == "encdec" else None
     counters.reset()
     t0 = time.perf_counter()
-    res = eng.run(reqs)
+    res = eng.run(reqs, extras=extras)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
@@ -345,7 +360,9 @@ def _serve_queue(args, cfg, params, scfg, qcfg, dev, rng, mesh, graphs,
         say(f"req {rid}: {res[rid][:16].tolist()} ...")
     if args.report:
         _report(args, eng, [r.prompt for r in reqs[:args.batch]], res, dt,
-                st["decode_steps"], ticks=ms["ticks"])
+                st["decode_steps"], ticks=ms["ticks"], extras=extras and {
+                    "frames": torch.cat([extras[r.rid]["frames"]
+                                         for r in reqs[:args.batch]])})
     return res
 
 
@@ -354,11 +371,12 @@ def _report(args, eng, prompts, streams, seconds, steps, ticks=None,
     """``--report``: this rank's streams and greedy margins, launch counts
     and program calls of the run, its collectives (calls, bytes sent, host
     seconds), the run's seconds, the weight bytes it stores and their wire
-    bytes a GEMM parameter, and peak memory; then one sharded prefill of
-    ``prompts`` (after the run's ``extras``: a vlm's patch prefix) on a
-    fresh lockstep cache, whose last-token logits rank 0 saves and whose
-    seconds are reported (a forward as the engines run it, left-padded as
-    ``Engine`` pads)."""
+    bytes a GEMM parameter, and peak memory; and the prompts' last-token
+    logits (B, V), which rank 0 saves: the lockstep ``Engine``'s own
+    prefill of the run (after its ``extras``), or for the
+    ``ContinuousEngine`` one sharded prefill of ``prompts`` on a fresh
+    lockstep cache, left-padded as ``Engine`` pads, whose seconds are
+    reported."""
     out = Path(args.report)
     out.mkdir(parents=True, exist_ok=True)
     dev, mesh, cfg = eng.device, eng.mesh, eng.cfg
@@ -370,24 +388,28 @@ def _report(args, eng, prompts, streams, seconds, steps, ticks=None,
     packed = [lf for lf in packing._leaves(eng.params)
               if isinstance(lf, PackedQuantizedTensor)]
     gemm_params = sum(math.prod(lf.shape) for lf in packed)
-    toks = np.zeros((len(prompts), max(len(p) for p in prompts)), np.int64)
-    for i, p in enumerate(prompts):
-        toks[i, toks.shape[1] - len(p):] = p
-    carry = registry.make_decode_state(
-        cfg, len(prompts), eng.scfg.max_len,
-        kv_cache_format=eng.scfg.kv_cache_format, device=dev, mesh=mesh)
-    with torch.no_grad():
-        t0 = time.perf_counter()
-        logits, _ = registry.prefill(
-            eng.params, cfg, eng.qcfg, torch.from_numpy(toks).to(dev), carry,
-            extras={k: v.to(dev) for k, v in (extras or {}).items()},
-            mesh=mesh)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        prefill_s = time.perf_counter() - t0
+    logits, prefill_s = getattr(eng, "prefill_logits", None), None
+    if logits is None:
+        toks = np.zeros((len(prompts), max(len(p) for p in prompts)),
+                        np.int64)
+        for i, p in enumerate(prompts):
+            toks[i, toks.shape[1] - len(p):] = p
+        carry = registry.make_decode_state(
+            cfg, len(prompts), eng.scfg.max_len,
+            kv_cache_format=eng.scfg.kv_cache_format, device=dev, mesh=mesh)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            logits, _ = registry.prefill(
+                eng.params, cfg, eng.qcfg, torch.from_numpy(toks).to(dev),
+                carry, extras={k: v.to(dev)
+                               for k, v in (extras or {}).items()},
+                mesh=mesh)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            prefill_s = time.perf_counter() - t0
     if mesh.rank == 0:
         np.save(out / "prefill_logits.npy",
-                logits[:, -1].to(torch.float32).cpu().numpy())
+                logits[:len(prompts)].to(torch.float32).cpu().numpy())
     rec = {
         "rank": mesh.rank, "mesh": dict(zip(mesh.axis_names, mesh.shape)),
         "backend": mesh.backend,

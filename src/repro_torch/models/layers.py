@@ -79,27 +79,47 @@ class QCtx:
         return fqt.dense(x, w, b, cfg=self.qcfg, seed=self.next_seed(),
                          mesh=self.mesh, kind=kind)
 
+    def hp_weight(self, w: torch.Tensor, kind: Optional[str] = None,
+                  shape: Optional[tuple] = None) -> torch.Tensor:
+        """``w`` as ``dense_hp`` multiplies it: on a multi-rank mesh the
+        whole weight from this rank's shard -- its d axis's "data" (FSDP)
+        split gathered, its gradient reduce-scattered (``fsdp_gather``)
+        and summed over "pod" where the backward sums the pods
+        (``sharding.grad_sum_axes``), as the embedding table's is; for
+        ``kind="io"`` (xLSTM's ``w_if`` and ``r_gates``, whose N the rule
+        table splits over "model") its columns gathered too
+        (``gather_from_tp``).  A loop that multiplies by ``w`` at every
+        step (the sLSTM's ``r_gates``) gathers it once, before the loop.
+        ``shape``: the whole weight's; a ``w`` of that shape (a serving
+        tree holds xLSTM's whole, ``packing.ENGINE_WHOLE``) is not
+        gathered."""
+        if kind not in (None, "d_rep", "io"):
+            raise ValueError(f"dense_hp: rule {kind!r} (the router's is "
+                             f"'d_rep', xLSTM's gate projections' 'io')")
+        if kind is not None and _multi(self.mesh):
+            w = _dp_summed(w, self.mesh)
+            if shape is None or tuple(w.shape) != tuple(shape):
+                w = fsdp_gather(w, self.mesh, dim=w.ndim - 2)
+                if kind == "io":
+                    w = gather_from_tp(w, self.mesh, dim=-1)
+        return w
+
     def dense_hp(self, x: torch.Tensor, w: torch.Tensor,
                  b: Optional[torch.Tensor] = None,
                  kind: Optional[str] = None) -> torch.Tensor:
-        """High-precision dense (routers; never quantized): the f32 product
-        of x and w (bf16 products are exact in f32), plus b, rounded to x's
-        dtype.  No call counter: it draws no SR stream.
+        """High-precision dense (routers, xLSTM's gate projections; never
+        quantized): the f32 product of x and w (bf16 products are exact in
+        f32), plus b, rounded to x's dtype.  No call counter: it draws no
+        SR stream.
 
-        ``kind="d_rep"`` (the moe router) on a multi-rank mesh: ``w`` is
-        this rank's shard, its d axis split over "data" (FSDP), replicated
-        over "model".  It is gathered before the product and its gradient
-        reduce-scattered (``fsdp_gather``), and summed over "pod" where the
-        backward sums the pods (``sharding.grad_sum_axes``), as the
-        embedding table is; its input is the replicated residual, so its
-        "model" ranks' gradients are whole already and nothing sums them
-        over "model"."""
-        if kind == "d_rep" and _multi(self.mesh):
-            w = _dp_summed(w, self.mesh)
-            w = fsdp_gather(w, self.mesh, dim=w.ndim - 2)
-        elif kind not in (None, "d_rep"):
-            raise ValueError(f"dense_hp: rule {kind!r} (the router's is "
-                             f"'d_rep')")
+        On a multi-rank mesh ``w`` is this rank's shard of rule ``kind``,
+        gathered whole by ``hp_weight`` (a weight the caller gathered is
+        passed with no kind), and every rank computes the whole product on
+        its (replicated) input: the 1-device bits on any GEMM backend (a
+        product of half the columns may take another kernel, summing in
+        another order), its gradients whole on every rank, so nothing sums
+        them over "model"."""
+        w = self.hp_weight(w, kind)
         y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
         if b is not None:
             y = y + b
@@ -169,6 +189,10 @@ class _EmbedLookup(torch.autograd.Function):
 #                    backward (the logits: every rank computes the same loss
 #                    from the same full logits, so a sum would count the
 #                    head's gradient tp times);
+#   scatter_to_tp    this rank's slice forward, all-gather backward: a
+#                    replicated tensor of which each rank's local
+#                    computation takes its own part (the recurrent
+#                    families' heads, a row-parallel GEMM's input);
 #   fsdp_gather      all-gather over "data" forward, reduce-scatter (f32
 #                    sum, this rank's slice) backward.
 #
@@ -210,6 +234,19 @@ class _GatherFromTP(torch.autograd.Function):
     def backward(ctx, g):
         r = ctx.mesh.axis_index("model")
         return g.narrow(ctx.dim, r * ctx.n, ctx.n).contiguous(), None, None
+
+
+class _ScatterToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        n = x.shape[dim] // mesh.axis_size("model")
+        return x.narrow(dim, mesh.axis_index("model") * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_gather(g.contiguous(), "model",
+                                   dim=ctx.dim), None, None
 
 
 class _GradSum(torch.autograd.Function):
@@ -261,6 +298,19 @@ def gather_from_tp(x: torch.Tensor, mesh, dim: int = -1) -> torch.Tensor:
     if not _multi(mesh) or mesh.axis_size("model") == 1:
         return x
     return _GatherFromTP.apply(x, mesh, dim % x.ndim)
+
+
+def scatter_to_tp(x: torch.Tensor, mesh, dim: int = -1) -> torch.Tensor:
+    """This rank's equal part of ``x`` along ``dim`` over "model" (its
+    heads or columns); ``x`` itself off a mesh.  A part that does not
+    divide raises ``ValueError``."""
+    if not _multi(mesh) or mesh.axis_size("model") == 1:
+        return x
+    dim %= x.ndim
+    if x.shape[dim] % mesh.axis_size("model"):
+        raise ValueError(f"{x.shape[dim]} along dim {dim} do not split over "
+                         f"tp={mesh.axis_size('model')}")
+    return _ScatterToTP.apply(x, mesh, dim)
 
 
 def fsdp_gather(w: torch.Tensor, mesh, dim: int) -> torch.Tensor:
@@ -1169,7 +1219,11 @@ def mlp_apply(p, x: torch.Tensor, ctx: QCtx, act: str) -> torch.Tensor:
     if act == "gelu":
         h = refnum.Gelu.apply(ctx.dense(x, p["w_in"], p["b_in"], "io").to(
             torch.float32))
-        return ctx.dense(h.to(x.dtype), p["w_out"], p["b_out"], "oi")
+        # ``b_out`` splits its d over "model" ("vec_out"), but the row-
+        # parallel output is whole: the whole bias is added once, after
+        # the reduce
+        return ctx.dense(h.to(x.dtype), p["w_out"],
+                         gather_from_tp(p["b_out"], ctx.mesh, dim=0), "oi")
     g = ctx.dense(x, p["w_gate"], kind="io")
     u = ctx.dense(x, p["w_up"], kind="io")
     if act == "smooth_swiglu":

@@ -20,6 +20,25 @@ Three-operand einsums run as the pairwise products the reference's
 ``jnp.einsum`` chooses (its contraction path depends on the sizes: the
 state dim N against the head dim P, ``_outer_first``); f32 sums inside a
 product run in torch's order, not XLA's.
+
+Under a mesh of more than one rank (``mesh=``: serving or training, the
+weights this rank's shards by the reference's rule table) a Mamba block
+runs Megatron-style on this rank's SSM heads.  ``in_proj`` is column-
+parallel, but its columns [z | x | B | C | dt] split over "model" are no
+rank's heads (at zamba2's width rank 0 of 2 holds all of z and 96 columns
+of x), so its output is all-gathered (exact: a column split leaves every
+output's contraction whole); the depthwise conv runs on all channels with
+the gathered ``conv_w`` (whose "vec_out" split is no head split either;
+a serving tree holds it whole, ``packing.ENGINE_WHOLE``), its state
+replicated; each rank takes its heads' x, dt, A and D and all of
+B and C, and runs the SSD on them (the SSM state holds its heads, as the
+reference's ``cache_specs`` splits it); y is all-gathered for the gated
+norm over the whole d_inner (the 1-device bits: an all-reduced sum of
+squares would round otherwise), and each rank's columns of the gated y
+enter the row-parallel ``out_proj``, whose rows are head-major.  The
+shared attention block is the dense Megatron block on local heads, its
+KV caches this rank's heads; the lm_head is column-parallel, its logits
+gathered.
 """
 from __future__ import annotations
 
@@ -33,9 +52,11 @@ from repro_torch.core.fqt import QuantConfig
 from repro_torch.models import refnum
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (QCtx, attn_apply, attn_params,
-                                       dense_init, embed_init, embed_lookup,
+                                       copy_to_tp, dense_init, embed_init,
+                                       embed_lookup, gather_from_tp,
                                        make_kv_cache, mlp_apply, mlp_params,
-                                       rmsnorm)
+                                       rmsnorm, scatter_to_tp)
+from repro_torch.models.transformer import local_heads, nll_count
 
 _SEED_STRIDE = 0x9E3779B9                   # per-layer SR seed stride
 _SHARED_SEED = 0x51ED2701                   # + group: the shared block's seed
@@ -51,6 +72,16 @@ def mamba_dims(cfg: ModelConfig):
     P = d_inner // H                       # head dim
     N = cfg.ssm_state                      # state dim
     return d_inner, H, P, N
+
+
+def local_ssm_heads(cfg: ModelConfig, mesh=None) -> int:
+    """This rank's SSM heads: the model's, split over "model"."""
+    H = mamba_dims(cfg)[1]
+    tp = 1 if mesh is None else mesh.axis_size("model")
+    if H % tp:
+        raise ValueError(f"{cfg.name}: {H} SSM heads do not split over "
+                         f"tp={tp}")
+    return H // tp
 
 
 def mamba_params(gen: torch.Generator, cfg: ModelConfig,
@@ -191,21 +222,33 @@ def mamba_apply(p, x, ctx: QCtx, cfg: ModelConfig, *, state=None,
                 chunk: int = 64):
     """One Mamba2 block.  ``state``: None (training: the chunked SSD) or
     {"conv", "ssm"} tensors of one layer (decode, S == 1: one recurrent
-    step), written IN PLACE.  Returns the block's output."""
+    step), written IN PLACE.  Returns the block's output.  On a multi-rank
+    ``ctx.mesh`` the SSD runs on this rank's heads (the module docstring);
+    the SSM state holds them."""
     B, S, d = x.shape
     d_inner, H, P, N = mamba_dims(cfg)
-    zxbcdt = ctx.dense(x, p["in_proj"])
+    mesh = ctx.mesh
+    zxbcdt = gather_from_tp(ctx.dense(x, p["in_proj"], kind="io"), mesh)
     z, xr, Bm, Cm, dt = torch.split(zxbcdt, [d_inner, d_inner, N, N, H],
                                     dim=-1)
     conv_in = torch.cat([xr, Bm, Cm], dim=-1)
     conv_state = state["conv"] if state is not None else None
-    conv_out, new_conv = _causal_conv(conv_in, p["conv_w"], conv_state)
+    conv_w = p["conv_w"]                  # a serving tree's is whole
+    if conv_w.shape[-1] != conv_in.shape[-1]:
+        conv_w = gather_from_tp(conv_w, mesh)
+    conv_out, new_conv = _causal_conv(conv_in, conv_w, conv_state)
     xr, Bm, Cm = torch.split(conv_out, [d_inner, N, N], dim=-1)
 
     dt = softplus(dt.to(torch.float32) + p["dt_bias"])             # (B,S,H)
     A = -torch.exp(p["A_log"])                                     # (H,)
-    xh = xr.reshape(B, S, H, P).to(torch.float32)
-    Bm32, Cm32 = Bm.to(torch.float32), Cm.to(torch.float32)
+    # this rank's heads (all of them off a mesh); B and C enter every
+    # rank's heads, so their gradients are summed over "model"
+    Hl = local_ssm_heads(cfg, mesh)
+    dt = scatter_to_tp(dt, mesh, dim=2)
+    A = scatter_to_tp(A, mesh, dim=0)
+    xh = scatter_to_tp(xr.reshape(B, S, H, P), mesh, dim=2).to(torch.float32)
+    Bm32 = copy_to_tp(Bm.to(torch.float32), mesh)
+    Cm32 = copy_to_tp(Cm.to(torch.float32), mesh)
 
     if state is None:
         c = min(chunk, S)
@@ -220,11 +263,11 @@ def mamba_apply(p, x, ctx: QCtx, cfg: ModelConfig, *, state=None,
         y = ssd_step(state["ssm"], dt[:, 0], A, Bm32[:, 0], Cm32[:, 0],
                      xh[:, 0])[:, None]
 
-    y = y + xh * p["D"][None, None, :, None]
-    y = y.reshape(B, S, d_inner).to(x.dtype)
+    y = y + xh * scatter_to_tp(p["D"], mesh, dim=0)[None, None, :, None]
+    y = gather_from_tp(y.reshape(B, S, Hl * P).to(x.dtype), mesh)
     y = rmsnorm(y, p["norm"], cfg.norm_eps)
     y = y * torch.nn.functional.silu(z.to(torch.float32)).to(x.dtype)
-    return ctx.dense(y, p["out_proj"])
+    return ctx.dense(scatter_to_tp(y, mesh), p["out_proj"], kind="oi")
 
 
 # ---- zamba2 hybrid backbone --------------------------------------------------------
@@ -238,15 +281,15 @@ def init(cfg: ModelConfig, gen: torch.Generator, dtype=torch.bfloat16,
     lm_head; ``finish`` (e.g. the serving packer) is applied to each layer,
     the shared block and the lm_head as soon as they are drawn."""
     finish = finish if finish is not None else (lambda tree: tree)
-    params = {
-        "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype,
-                            device=device),
+    params = finish({"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                         dtype, device=device)})
+    params.update({
         "mamba": [finish(mamba_params(gen, cfg, dtype, device))
                   for _ in range(cfg.n_layers)],
         "mamba_ln": torch.ones((cfg.n_layers, cfg.d_model), dtype=dtype,
                                device=device),
         "ln_f": torch.ones((cfg.d_model,), dtype=dtype, device=device),
-    }
+    })
     if cfg.attn_every:
         params["shared_attn"] = finish({
             "attn": attn_params(gen, cfg.d_model, cfg.n_heads,
@@ -267,15 +310,15 @@ def n_attn(cfg: ModelConfig) -> int:
     return (cfg.n_layers // cfg.attn_every) if cfg.attn_every else 0
 
 
-def _mamba_layer(cfg, qcfg, lp, ln_w, seed, x, state, chunk):
-    ctx = QCtx(qcfg, seed)
+def _mamba_layer(cfg, qcfg, lp, ln_w, seed, x, state, chunk, mesh=None):
+    ctx = QCtx(qcfg, seed, mesh)
     return x + mamba_apply(lp, rmsnorm(x, ln_w, cfg.norm_eps), ctx, cfg,
                            state=state, chunk=chunk)
 
 
 def _apply_backbone(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed,
                     *, states=None, caches=None, remat: bool = False,
-                    ssm_chunk: int = 64):
+                    ssm_chunk: int = 64, mesh=None):
     """The Mamba layers in groups of ``attn_every``, the shared attention
     and SwiGLU block after each full group with its own cache.  Decode
     (``states`` given) updates the states and caches in place.
@@ -285,7 +328,8 @@ def _apply_backbone(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed,
     attention's call counter.  ``remat``: each Mamba layer under
     ``torch.utils.checkpoint`` (its QCtx made inside, so the recompute
     draws the same SR streams); the shared block is not rematerialised, as
-    in the reference."""
+    in the reference.  ``mesh``: the mesh of the weights' shards (the
+    module docstring)."""
     L = cfg.n_layers
     ae = cfg.attn_every or L
     for l, lp in enumerate(params["mamba"]):
@@ -293,21 +337,23 @@ def _apply_backbone(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed,
         ln_w = params["mamba_ln"][l]
         if states is not None:
             st = {"conv": states["conv"][l], "ssm": states["ssm"][l]}
-            x = _mamba_layer(cfg, qcfg, lp, ln_w, s, x, st, ssm_chunk)
+            x = _mamba_layer(cfg, qcfg, lp, ln_w, s, x, st, ssm_chunk, mesh)
         elif remat and torch.is_grad_enabled():
             x = torch.utils.checkpoint.checkpoint(
                 lambda h, lp=lp, ln_w=ln_w, s=s: _mamba_layer(
-                    cfg, qcfg, lp, ln_w, s, h, None, ssm_chunk),
+                    cfg, qcfg, lp, ln_w, s, h, None, ssm_chunk, mesh),
                 x, use_reentrant=False)
         else:
-            x = _mamba_layer(cfg, qcfg, lp, ln_w, s, x, None, ssm_chunk)
+            x = _mamba_layer(cfg, qcfg, lp, ln_w, s, x, None, ssm_chunk,
+                             mesh)
         if cfg.attn_every and (l + 1) % ae == 0 and "shared_attn" in params:
             g = l // ae
             sp = params["shared_attn"]
-            ctx = QCtx(qcfg, (int(seed) + _SHARED_SEED + g) & M32)
+            ctx = QCtx(qcfg, (int(seed) + _SHARED_SEED + g) & M32, mesh)
+            n_heads, n_kv = local_heads(cfg, mesh)
             h, _ = attn_apply(
                 sp["attn"], rmsnorm(x, sp["ln1"], cfg.norm_eps), ctx,
-                n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
+                n_heads=n_heads, n_kv=n_kv, hd=cfg.hd,
                 rope_theta=cfg.rope_theta, chunk=cfg.attn_chunk,
                 cache=caches[g] if caches is not None else None)
             x = x + h
@@ -317,15 +363,17 @@ def _apply_backbone(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed,
 
 
 def init_state(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
-               device=None):
-    """The stacked per-layer conv and SSM states of decode."""
+               device=None, mesh=None):
+    """The stacked per-layer conv and SSM states of decode (under a
+    serving ``mesh`` the SSM states of this rank's heads; the conv state
+    whole, replicated)."""
     d_inner, H, P, N = mamba_dims(cfg)
     L = cfg.n_layers
     return {
         "conv": torch.zeros((L, batch, cfg.ssm_conv - 1, d_inner + 2 * N),
                             dtype=dtype, device=device),
-        "ssm": torch.zeros((L, batch, H, P, N), dtype=torch.float32,
-                           device=device),
+        "ssm": torch.zeros((L, batch, local_ssm_heads(cfg, mesh), P, N),
+                           dtype=torch.float32, device=device),
     }
 
 
@@ -338,51 +386,64 @@ def reset_state(states) -> None:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, kv_format: str = "bf16",
                page_size: Optional[int] = None,
-               total_pages: Optional[int] = None, device=None):
+               total_pages: Optional[int] = None, device=None, mesh=None):
     """One KV cache per application of the shared block (paged with
-    ``page_size``, the buffer rounded up to whole pages)."""
+    ``page_size``, the buffer rounded up to whole pages; under a serving
+    ``mesh`` this rank's KV heads)."""
     buf = max_len
     if page_size:
         buf = -(-buf // page_size) * page_size
-    return [make_kv_cache(batch, buf, cfg.n_kv_heads, cfg.hd, dtype,
+    return [make_kv_cache(batch, buf, local_heads(cfg, mesh)[1], cfg.hd,
+                          dtype,
                           kv_format, page_size=page_size,
                           total_pages=total_pages, device=device)
             for _ in range(n_attn(cfg))]
 
 
-def _logits(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed):
+def _logits(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed,
+            mesh=None):
+    """The lm_head (column-parallel over the vocabulary on a multi-rank
+    mesh, its logits gathered); the padded ids are not masked, as in the
+    reference."""
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     ctx = QCtx(qcfg if cfg.quantize_lm_head else QuantConfig(),
-               (int(seed) + _HEAD_SEED) & M32)
-    return ctx.dense(x, params["lm_head"])
+               (int(seed) + _HEAD_SEED) & M32, mesh)
+    return gather_from_tp(ctx.dense(x, params["lm_head"], kind="d_vocab"),
+                          mesh)
 
 
 def forward(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, *,
-            seed: int = 0, remat: bool = True, ssm_chunk: int = 64):
-    """Full-sequence forward (training).  Returns (logits, 0)."""
-    x = embed_lookup(params["embed"], tokens)
+            seed: int = 0, remat: bool = True, ssm_chunk: int = 64,
+            mesh=None):
+    """Full-sequence forward (training).  Returns (logits, 0).  ``mesh``:
+    the training mesh of the parameters' shards (tokens: this rank's
+    rows)."""
+    x = embed_lookup(params["embed"], tokens, mesh)
     x = _apply_backbone(params, cfg, qcfg, x, seed, remat=remat,
-                        ssm_chunk=ssm_chunk)
-    return (_logits(params, cfg, qcfg, x, seed),
+                        ssm_chunk=ssm_chunk, mesh=mesh)
+    return (_logits(params, cfg, qcfg, x, seed, mesh),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def decode_step(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, carry,
-                *, seed: int = 0):
+                *, seed: int = 0, mesh=None):
     """carry = (states, caches), both updated in place.  tokens: (B, 1).
-    Returns (logits, carry)."""
+    Returns (logits, carry).  ``mesh``: the serving mesh of the shards."""
     states, caches = carry
-    x = params["embed"][tokens]
+    x = embed_lookup(params["embed"], tokens, mesh)
     x = _apply_backbone(params, cfg, qcfg, x, seed, states=states,
-                        caches=caches)
-    return _logits(params, cfg, qcfg, x, seed), carry
+                        caches=caches, mesh=mesh)
+    return _logits(params, cfg, qcfg, x, seed, mesh), carry
 
 
 def loss_fn(params, cfg: ModelConfig, qcfg: QuantConfig, batch, *,
-            seed: int = 0, remat: bool = True, ssm_chunk: int = 64):
-    """Next-token cross-entropy.  Returns (loss, {"nll", "aux"})."""
+            seed: int = 0, remat: bool = True, ssm_chunk: int = 64,
+            mesh=None):
+    """Next-token cross-entropy.  Returns (loss, {"nll", "aux"}).
+    ``mesh``: the training mesh (``transformer.nll_count``)."""
     tokens = batch["tokens"].long()
     logits, aux = forward(params, cfg, qcfg, tokens[:, :-1], seed=seed,
-                          remat=remat, ssm_chunk=ssm_chunk)
-    loss = refnum.mean_nll(logits, tokens[:, 1:])
+                          remat=remat, ssm_chunk=ssm_chunk, mesh=mesh)
+    loss = refnum.mean_nll(logits, tokens[:, 1:],
+                           count=nll_count(tokens, mesh))
     return loss, {"nll": loss, "aux": aux}

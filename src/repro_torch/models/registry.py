@@ -23,9 +23,9 @@ raises, with the reference's reasons.
 
 Under a mesh of more than one rank (``mesh=``, this rank's view:
 ``distributed/mesh.py``) the serving entries and ``loss_fn`` (the training
-mesh) run the transformer families -- dense, moe and vlm -- on this rank's
-shards (``check_mesh``); the other families raise ``NotImplementedError``
-naming the module still to port.
+mesh) run every family on this rank's shards, Megatron-style (each
+module's docstring says how); ``check_mesh`` raises ``ValueError`` where a
+family's heads do not split over "model".
 """
 from __future__ import annotations
 
@@ -56,30 +56,17 @@ def _module(cfg: ModelConfig):
     return transformer
 
 
-# the module each family still needs before it serves or trains on a
-# multi-rank mesh
-_MESH_TODO = {
-    "hybrid": "models/mamba2.py under a mesh (SSM heads over 'model')",
-    "ssm": "models/xlstm.py under a mesh",
-    "encdec": "models/whisper.py under a mesh (encoder, cross-attention, "
-              "its biases)",
-}
-
-
-def check_mesh(cfg: ModelConfig, mesh, training: bool = False) -> None:
-    """A multi-rank mesh serves and trains the transformer families (dense,
-    moe, vlm), whose heads split evenly over "model"; any other family
-    raises ``NotImplementedError`` naming what is still to port
-    (``training``: the distributed training step's wording)."""
+def check_mesh(cfg: ModelConfig, mesh) -> None:
+    """A multi-rank mesh serves and trains every family whose heads split
+    evenly over "model": the query and KV heads (the hybrid family's
+    shared block, whisper's three attentions; the ssm family's mLSTM
+    heads are its ``n_heads``) and the hybrid family's SSM heads; any that
+    do not raise ``ValueError`` naming them."""
     if mesh is None or mesh.size == 1:
         return
-    if cfg.family in _MESH_TODO:
-        what = ("distributed training of" if training else "serving")
-        raise NotImplementedError(
-            f"{what} {cfg.family!r} on a mesh of {mesh.size} ranks needs "
-            f"{_MESH_TODO[cfg.family]}, not yet ported; the port serves and "
-            f"trains the dense, moe and vlm families on a mesh")
     transformer.local_heads(cfg, mesh)
+    if cfg.family == "hybrid":
+        mamba2.local_ssm_heads(cfg, mesh)
 
 
 def _paged_only(cfg: ModelConfig, what: str, why: str):
@@ -117,13 +104,13 @@ def loss_fn(params, cfg: ModelConfig, qcfg: QuantConfig, batch, *,
             seed: int = 0, remat: bool = True, mesh=None):
     """Next-token cross-entropy of ``batch["tokens"]``: (loss, aux).
     ``mesh``: the training mesh of the parameters' shards, the batch this
-    rank's rows (``transformer.loss_fn``; the transformer families only)."""
+    rank's rows and the loss its share (``transformer.nll_count``)."""
     if mesh is not None and mesh.size > 1:
-        check_mesh(cfg, mesh, training=True)
-        return transformer.loss_fn(params, cfg, qcfg, batch, seed=seed,
-                                   remat=remat, mesh=mesh)
+        check_mesh(cfg, mesh)
+    else:
+        mesh = None
     return _module(cfg).loss_fn(params, cfg, qcfg, batch, seed=seed,
-                                remat=remat)
+                                remat=remat, mesh=mesh)
 
 
 def forward(params, cfg: ModelConfig, qcfg: QuantConfig, batch, *,
@@ -154,7 +141,9 @@ def make_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     shared block); ssm: the per-layer recurrent states, which stay f32 (no
     KV cache); encdec: (the encoder output (B, enc_seq, d), the decoder's
     caches), allocated once and written in place by the prefills.  Under a
-    serving ``mesh`` the caches hold this rank's KV heads."""
+    serving ``mesh`` the caches hold this rank's KV heads, the SSM and
+    mLSTM states this rank's heads (the conv, sLSTM and encoder states
+    stay whole)."""
     check_mesh(cfg, mesh)
     dev = resolve_device(device)
     if cfg.family == "encdec":
@@ -162,14 +151,14 @@ def make_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                             device=dev),
                 whisper.init_cache(cfg, batch, max_len, dtype,
                                    kv_cache_format, page_size, total_pages,
-                                   device=dev))
+                                   device=dev, mesh=mesh))
     if cfg.family == "hybrid":
-        return (mamba2.init_state(cfg, batch, dtype, device=dev),
+        return (mamba2.init_state(cfg, batch, dtype, device=dev, mesh=mesh),
                 mamba2.init_cache(cfg, batch, max_len, dtype,
                                   kv_cache_format, page_size, total_pages,
-                                  device=dev))
+                                  device=dev, mesh=mesh))
     if cfg.family == "ssm":
-        return xlstm.init_state(cfg, batch, device=dev)
+        return xlstm.init_state(cfg, batch, device=dev, mesh=mesh)
     transformer.check_family(cfg)
     return transformer.init_cache(cfg, batch, max_len, dtype,
                                   kv_cache_format, page_size, total_pages,
@@ -211,15 +200,16 @@ def prefill(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, carry, *,
     if cfg.family in _RECURRENT:
         for t in range(tokens.shape[1]):
             logits, carry = decode_step(params, cfg, qcfg,
-                                        tokens[:, t:t + 1], carry)
+                                        tokens[:, t:t + 1], carry, mesh=mesh)
         return logits[:, -1], carry
     if cfg.family == "encdec":
         enc_out, caches = carry
         enc_out.copy_(whisper.encode(
             params, cfg, qcfg, _frames(cfg, extras, tokens.shape[0],
-                                       tokens.device), serving=True))
+                                       tokens.device), serving=True,
+            mesh=mesh))
         logits, _ = whisper.prefill(params, cfg, qcfg, tokens, enc_out,
-                                    caches)
+                                    caches, mesh=mesh)
         return logits[:, -1], carry
     transformer.check_family(cfg)
     logits, carry = transformer.prefill(
@@ -239,7 +229,8 @@ def decode_step(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, carry,
             f"decode_step write_mask: family {cfg.family!r} has no paged "
             f"cache write to mask (chunked prefill is dense/moe only)")
     if mod is not transformer:
-        return mod.decode_step(params, cfg, qcfg, tokens, carry, seed=seed)
+        return mod.decode_step(params, cfg, qcfg, tokens, carry, seed=seed,
+                               mesh=mesh)
     return transformer.decode_step(params, cfg, qcfg, tokens, carry,
                                    seed=seed, write_mask=write_mask,
                                    mesh=mesh)
@@ -259,12 +250,13 @@ def prefill_slot(params, cfg: ModelConfig, qcfg: QuantConfig, tokens,
     if cfg.family == "encdec":
         enc_out, caches = carry
         enc_slot = whisper.encode(params, cfg, qcfg, _frames(
-            cfg, extras, 1, tokens.device), seed=seed, serving=True)
+            cfg, extras, 1, tokens.device), seed=seed, serving=True,
+            mesh=mesh)
         enc_out.index_copy_(0, dyn_rows(slot, 1, enc_out.device),
                             enc_slot.to(enc_out.dtype))
         logits, _ = whisper.prefill_slot(params, cfg, qcfg, tokens,
                                          enc_slot, caches, slot, plen,
-                                         seed=seed)
+                                         seed=seed, mesh=mesh)
         return logits, carry
     _paged_only(cfg, "prefill_slot", "not supported (recurrent state "
                 "cannot be prefilled from a right-padded static shape)")

@@ -18,6 +18,7 @@ from typing import List, Optional
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.core import fqt
 from repro_torch.core.formats import M32
 from repro_torch.core.fqt import QuantConfig
 from repro_torch.models import moe as moe_mod
@@ -160,15 +161,25 @@ def _logits(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed=0,
     return head(cfg, qcfg, x, w, seed, mesh)
 
 
-def head(cfg: ModelConfig, qcfg: QuantConfig, x, w, seed=0, mesh=None):
+def head(cfg: ModelConfig, qcfg: QuantConfig, x, w, seed=0, mesh=None,
+         rows_whole: bool = False):
     """x @ w, the LM head, under ``qcfg`` where ``cfg.quantize_lm_head``
     (else bf16) with the head's SR seed; the padded vocabulary ids get
     -1e30.  Under a multi-rank ``mesh`` it is column-parallel over the
     vocabulary, and the logits are all-gathered (``gather_from_tp``): every
-    rank picks from, and computes its loss on, the same full logits."""
+    rank picks from, and computes its loss on, the same full logits.
+    ``rows_whole``: x is the whole batch on every rank, an unpacked ``w``
+    served on a mesh (whisper's tied ``embed.T``): its sharded GEMM's
+    layout says so (``fqt._ShardLayout``), as the moe layer's does."""
     head_cfg = qcfg if cfg.quantize_lm_head else QuantConfig()
-    logits = QCtx(head_cfg, (int(seed) + 0xABCDEF) & M32, mesh).dense(
-        x, w, kind="d_vocab")
+    s = (int(seed) + 0xABCDEF) & M32
+    if rows_whole and mesh is not None and mesh.size > 1:
+        from repro_torch.distributed.sharding import weight_kind
+        lay = fqt._ShardLayout(mesh, *weight_kind("d_vocab", mesh),
+                               rows_whole=True)
+        logits = fqt._ShardedFP4Matmul.apply(x, w, s, head_cfg, lay)
+    else:
+        logits = QCtx(head_cfg, s, mesh).dense(x, w, kind="d_vocab")
     logits = gather_from_tp(logits, mesh, dim=-1)
     if cfg.padded_vocab != cfg.vocab_size:        # mask padded ids
         pad = torch.arange(cfg.padded_vocab, device=logits.device) \
@@ -220,15 +231,23 @@ def loss_fn(params, cfg: ModelConfig, qcfg: QuantConfig, batch, *,
     logits, aux = forward(params, cfg, qcfg, tokens[:, :-1], seed=seed,
                           prefix_embeds=batch.get("prefix_embeds"),
                           remat=remat, mesh=mesh)
-    count = None
-    if mesh is not None and mesh.size > 1:
-        from repro_torch.distributed.sharding import grad_sum_axes
-        count = tokens[:, 1:].numel() * mesh.axes_size(grad_sum_axes(mesh))
     # on the CPU the reference's gradient of the mean nll: one logit
     # gradient a bf16 ulp off changes the tensor scale the lm_head's SR
     # update GEMM quantizes with (refnum.mean_nll)
-    loss = refnum.mean_nll(logits, tokens[:, 1:], count=count)
+    loss = refnum.mean_nll(logits, tokens[:, 1:],
+                           count=nll_count(tokens, mesh))
     return loss + cfg.router_aux_weight * aux, {"nll": loss, "aux": aux}
+
+
+def nll_count(tokens, mesh=None):
+    """The token count a rank's nll sum is divided by: None (its own
+    tokens' mean) off a mesh; on a multi-rank training mesh the count of
+    the DP axes the backward sums over (``sharding.grad_sum_axes``), so
+    the ranks' losses sum to the mean (every family's ``loss_fn``)."""
+    if mesh is None or mesh.size == 1:
+        return None
+    from repro_torch.distributed.sharding import grad_sum_axes
+    return tokens[:, 1:].numel() * mesh.axes_size(grad_sum_axes(mesh))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

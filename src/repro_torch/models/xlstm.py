@@ -16,6 +16,25 @@ Layout: ``params["layers"]`` is the reference's list of per-layer dicts,
 ``checkpoint.ckpt`` numbers its leaves per layer.  The decode state is a
 list of per-layer tuples ((C, n) or (c, n, h, m)), allocated once and
 updated IN PLACE by every decode step (``serve/graphs.py``).
+
+Under a mesh of more than one rank (``mesh=``: serving or training, the
+weights this rank's shards by the reference's rule table) the blocks run
+Megatron-style.  A concatenated column-parallel projection's output is
+all-gathered (exact: every output's contraction is whole), as its split
+over "model" is no rank's heads: ``w_up`` = [x arm | gate arm] (at tp=2
+rank 0 holds the whole x arm) and the sLSTM's ``w_gates`` (four gates
+stacked).  The high-precision gate projections ``w_if`` = [i | f] (at
+tp=2 rank 0 holds every input gate) and the sLSTM's recurrent
+``r_gates`` are small: their columns are gathered instead and every rank
+computes the whole product (``QCtx.hp_weight``; ``r_gates`` once a call,
+before the time loop; a serving tree holds both whole,
+``packing.ENGINE_WHOLE``).  The mLSTM's ``w_q`` / ``w_k`` / ``w_v`` split
+into whole heads: each rank runs the cell on its heads (its (C, n) state
+holds them), y is all-gathered for the norm over the whole d_inner (the
+1-device bits), and each rank's columns of the gated y enter the
+row-parallel ``w_down``.  The sLSTM's carry (c, n, h, m) stays
+replicated; its FFN is the Megatron pair (``w_ff_gate`` / ``w_ff_up``
+column, ``w_ff_down`` row).
 """
 from __future__ import annotations
 
@@ -27,7 +46,9 @@ from repro_torch.core.fqt import QuantConfig
 from repro_torch.models import refnum
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (QCtx, dense_init, embed_init,
-                                       embed_lookup, rmsnorm, swiglu)
+                                       embed_lookup, gather_from_tp,
+                                       rmsnorm, scatter_to_tp, swiglu)
+from repro_torch.models.transformer import nll_count
 
 _SEED_STRIDE = 0x9E3779B9
 _HEAD_SEED = 0xABCDEF
@@ -40,6 +61,15 @@ def _dims(cfg: ModelConfig):
     H = cfg.n_heads
     P = d_inner // H
     return d_inner, H, P
+
+
+def local_heads(cfg: ModelConfig, mesh=None) -> int:
+    """This rank's mLSTM heads: the model's, split over "model"."""
+    tp = 1 if mesh is None else mesh.axis_size("model")
+    if cfg.n_heads % tp:
+        raise ValueError(f"{cfg.name}: {cfg.n_heads} mLSTM heads do not "
+                         f"split over tp={tp}")
+    return cfg.n_heads // tp
 
 
 def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -158,18 +188,23 @@ def mlstm_step(state, q, k, v, li, lf):
 def mlstm_apply(p, x, ctx: QCtx, cfg: ModelConfig, *, state=None,
                 chunk: int = 64):
     """Pre-up-projected mLSTM block.  ``state``: None (training) or the
-    layer's (C, n), updated in place (decode, S == 1)."""
+    layer's (C, n), updated in place (decode, S == 1).  On a multi-rank
+    ``ctx.mesh`` the cell runs on this rank's heads (the module
+    docstring); the state holds them."""
     B, S, d = x.shape
     d_inner, H, P = _dims(cfg)
-    up = ctx.dense(x, p["w_up"])
+    mesh = ctx.mesh
+    Hl = local_heads(cfg, mesh)
+    up = gather_from_tp(ctx.dense(x, p["w_up"], kind="io"), mesh)
     xa, ga = torch.split(up, d_inner, dim=-1)
-    q = ctx.dense(xa, p["w_q"]).reshape(B, S, H, P)
-    k = ctx.dense(xa, p["w_k"]).reshape(B, S, H, P)
-    v = ctx.dense(xa, p["w_v"]).reshape(B, S, H, P)
-    gif = ctx.dense_hp(xa, p["w_if"]).to(torch.float32) + p["b_if"]
+    q = ctx.dense(xa, p["w_q"], kind="io").reshape(B, S, Hl, P)
+    k = ctx.dense(xa, p["w_k"], kind="io").reshape(B, S, Hl, P)
+    v = ctx.dense(xa, p["w_v"], kind="io").reshape(B, S, Hl, P)
+    gif = ctx.dense_hp(xa, ctx.hp_weight(p["w_if"], "io", (d_inner, 2 * H))
+                       ).to(torch.float32) + p["b_if"]
     gi, gf = torch.split(gif, H, dim=-1)                 # (B,S,H)
-    li = torch.clamp(gi, max=IGATE_CLAMP)                # log i (clamped)
-    lf = log_sigmoid(gf)                                 # log f
+    li = scatter_to_tp(torch.clamp(gi, max=IGATE_CLAMP), mesh)  # log i
+    lf = scatter_to_tp(log_sigmoid(gf), mesh)            # log f
 
     if state is None:
         c = min(chunk, S)
@@ -183,10 +218,10 @@ def mlstm_apply(p, x, ctx: QCtx, cfg: ModelConfig, *, state=None,
         y = mlstm_step(state, q[:, 0], k[:, 0], v[:, 0], li[:, 0],
                        lf[:, 0])[:, None]
 
-    y = y.reshape(B, S, d_inner).to(x.dtype)
+    y = gather_from_tp(y.reshape(B, S, Hl * P).to(x.dtype), mesh)
     y = rmsnorm(y, p["norm"], cfg.norm_eps)
     y = y * torch.nn.functional.silu(ga.to(torch.float32)).to(x.dtype)
-    return ctx.dense(y, p["w_down"])
+    return ctx.dense(scatter_to_tp(y, mesh), p["w_down"], kind="oi")
 
 
 # ---- sLSTM ----------------------------------------------------------------------
@@ -212,12 +247,13 @@ def slstm_params(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
-def slstm_cell(p, gin, carry, ctx: QCtx, dtype):
+def slstm_cell(p, gin, carry, ctx: QCtx, dtype, r_gates):
     """One sLSTM time step: gin (B, 4d) the input GEMM's row, carry (c, n,
-    h, m).  Returns the new carry."""
+    h, m), ``r_gates`` the recurrent weight as ``ctx.hp_weight`` gives it.
+    Returns the new carry."""
     c, n, h, m = carry
     pre = (gin.to(torch.float32) + p["b_gates"]
-           + ctx.dense_hp(h.to(dtype), p["r_gates"]).to(torch.float32))
+           + ctx.dense_hp(h.to(dtype), r_gates).to(torch.float32))
     z, i, f, o = torch.chunk(pre, 4, dim=-1)
     z = torch.tanh(z)
     o = torch.sigmoid(o)
@@ -236,9 +272,14 @@ def slstm_apply(p, x, ctx: QCtx, cfg: ModelConfig, *, state=None):
     The input GEMM runs once over the sequence (FQT); the recurrent matvec
     (``dense_hp``, no SR stream) runs in the time loop.  ``state``: None
     (training, from zeros and m = M_INIT) or the layer's (c, n, h, m),
-    updated in place (decode)."""
+    updated in place (decode).  On a multi-rank ``ctx.mesh`` the carry is
+    replicated and ``r_gates`` gathered whole once (the module
+    docstring)."""
     B, S, d = x.shape
-    gates_in = ctx.dense(x, p["w_gates"])                # (B,S,4d)
+    mesh = ctx.mesh
+    gates_in = gather_from_tp(ctx.dense(x, p["w_gates"], kind="io"),
+                              mesh)                      # (B,S,4d)
+    r_gates = ctx.hp_weight(p["r_gates"], "io", (d, 4 * d))
     if state is None:
         z = torch.zeros((B, d), dtype=torch.float32, device=x.device)
         carry = (z, z, z, z + M_INIT)
@@ -246,16 +287,17 @@ def slstm_apply(p, x, ctx: QCtx, cfg: ModelConfig, *, state=None):
         carry = state
     hs = []
     for t in range(S):
-        carry = slstm_cell(p, gates_in[:, t], carry, ctx, x.dtype)
+        carry = slstm_cell(p, gates_in[:, t], carry, ctx, x.dtype,
+                           r_gates)
         hs.append(carry[2])
     if state is not None:
         for dst, src in zip(state, carry):
             dst.copy_(src)
     y = torch.stack(hs, dim=1).to(x.dtype)               # (B,S,d)
     y = rmsnorm(y, p["norm"], cfg.norm_eps)
-    g = ctx.dense(y, p["w_ff_gate"])
-    u = ctx.dense(y, p["w_ff_up"])
-    return ctx.dense(swiglu(g, u), p["w_ff_down"])
+    g = ctx.dense(y, p["w_ff_gate"], kind="io")
+    u = ctx.dense(y, p["w_ff_up"], kind="io")
+    return ctx.dense(swiglu(g, u), p["w_ff_down"], kind="oi")
 
 
 # ---- backbone ---------------------------------------------------------------------
@@ -272,8 +314,8 @@ def init(cfg: ModelConfig, gen: torch.Generator, dtype=torch.bfloat16,
     layers, lm_head; ``finish`` (e.g. the serving packer) is applied to each
     layer and the lm_head as soon as they are drawn."""
     finish = finish if finish is not None else (lambda tree: tree)
-    params = {"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype,
-                                  device=device)}
+    params = finish({"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                         dtype, device=device)})
     params["layers"] = [
         finish({"slstm": slstm_params(gen, cfg, dtype, device)}
                if is_slstm(cfg, l) else
@@ -287,9 +329,11 @@ def init(cfg: ModelConfig, gen: torch.Generator, dtype=torch.bfloat16,
     return params
 
 
-def init_state(cfg: ModelConfig, batch: int, device=None):
-    """Per-layer decode states: (C, n) for mLSTM, (c, n, h, m) for sLSTM."""
-    d_inner, H, P = _dims(cfg)
+def init_state(cfg: ModelConfig, batch: int, device=None, mesh=None):
+    """Per-layer decode states: (C, n) for mLSTM (under a serving ``mesh``
+    this rank's heads), (c, n, h, m) for sLSTM (replicated)."""
+    d_inner, _, P = _dims(cfg)
+    H = local_heads(cfg, mesh)
     f32 = dict(dtype=torch.float32, device=device)
     states = []
     for l in range(cfg.n_layers):
@@ -313,8 +357,8 @@ def reset_state(states) -> None:
             st[3].fill_(M_INIT)
 
 
-def _block(cfg, qcfg, lp, ln_w, seed, x, state, chunk):
-    ctx = QCtx(qcfg, seed)
+def _block(cfg, qcfg, lp, ln_w, seed, x, state, chunk, mesh=None):
+    ctx = QCtx(qcfg, seed, mesh)
     xin = rmsnorm(x, ln_w, cfg.norm_eps)
     if "slstm" in lp:
         y = slstm_apply(lp["slstm"], xin, ctx, cfg, state=state)
@@ -324,10 +368,11 @@ def _block(cfg, qcfg, lp, ln_w, seed, x, state, chunk):
 
 
 def _backbone(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed, *,
-              states=None, remat: bool = False, chunk: int = 64):
+              states=None, remat: bool = False, chunk: int = 64, mesh=None):
     """The blocks in order; layer l's QCtx takes seed + l * 0x9E3779B9.
     ``remat`` (training): each block under ``torch.utils.checkpoint``, its
-    QCtx made inside so the recompute draws the same SR streams."""
+    QCtx made inside so the recompute draws the same SR streams.
+    ``mesh``: the mesh of the weights' shards."""
     for l, lp in enumerate(params["layers"]):
         s = (int(seed) + l * _SEED_STRIDE) & M32
         ln_w = params["ln"][l]
@@ -335,43 +380,53 @@ def _backbone(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed, *,
         if remat and st is None and torch.is_grad_enabled():
             x = torch.utils.checkpoint.checkpoint(
                 lambda h, lp=lp, ln_w=ln_w, s=s: _block(
-                    cfg, qcfg, lp, ln_w, s, h, None, chunk),
+                    cfg, qcfg, lp, ln_w, s, h, None, chunk, mesh),
                 x, use_reentrant=False)
         else:
-            x = _block(cfg, qcfg, lp, ln_w, s, x, st, chunk)
+            x = _block(cfg, qcfg, lp, ln_w, s, x, st, chunk, mesh)
     return x
 
 
-def _logits(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed):
+def _logits(params, cfg: ModelConfig, qcfg: QuantConfig, x, seed,
+            mesh=None):
+    """The lm_head (column-parallel over the vocabulary on a multi-rank
+    mesh, its logits gathered); the padded ids are not masked, as in the
+    reference."""
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     ctx = QCtx(qcfg if cfg.quantize_lm_head else QuantConfig(),
-               (int(seed) + _HEAD_SEED) & M32)
-    return ctx.dense(x, params["lm_head"])
+               (int(seed) + _HEAD_SEED) & M32, mesh)
+    return gather_from_tp(ctx.dense(x, params["lm_head"], kind="d_vocab"),
+                          mesh)
 
 
 def forward(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, *,
-            seed: int = 0, remat: bool = True, chunk: int = 64):
-    """Full-sequence forward (training).  Returns (logits, 0)."""
-    x = embed_lookup(params["embed"], tokens)
-    x = _backbone(params, cfg, qcfg, x, seed, remat=remat, chunk=chunk)
-    return (_logits(params, cfg, qcfg, x, seed),
+            seed: int = 0, remat: bool = True, chunk: int = 64, mesh=None):
+    """Full-sequence forward (training).  Returns (logits, 0).  ``mesh``:
+    the training mesh of the parameters' shards (tokens: this rank's
+    rows)."""
+    x = embed_lookup(params["embed"], tokens, mesh)
+    x = _backbone(params, cfg, qcfg, x, seed, remat=remat, chunk=chunk,
+                  mesh=mesh)
+    return (_logits(params, cfg, qcfg, x, seed, mesh),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def decode_step(params, cfg: ModelConfig, qcfg: QuantConfig, tokens, states,
-                *, seed: int = 0):
+                *, seed: int = 0, mesh=None):
     """One token per sequence (tokens (B, 1)); ``states`` updated in place.
-    Returns (logits, states)."""
-    x = params["embed"][tokens]
-    x = _backbone(params, cfg, qcfg, x, seed, states=states)
-    return _logits(params, cfg, qcfg, x, seed), states
+    Returns (logits, states).  ``mesh``: the serving mesh of the shards."""
+    x = embed_lookup(params["embed"], tokens, mesh)
+    x = _backbone(params, cfg, qcfg, x, seed, states=states, mesh=mesh)
+    return _logits(params, cfg, qcfg, x, seed, mesh), states
 
 
 def loss_fn(params, cfg: ModelConfig, qcfg: QuantConfig, batch, *,
-            seed: int = 0, remat: bool = True, chunk: int = 64):
-    """Next-token cross-entropy.  Returns (loss, {"nll", "aux"})."""
+            seed: int = 0, remat: bool = True, chunk: int = 64, mesh=None):
+    """Next-token cross-entropy.  Returns (loss, {"nll", "aux"}).
+    ``mesh``: the training mesh (``transformer.nll_count``)."""
     tokens = batch["tokens"].long()
     logits, aux = forward(params, cfg, qcfg, tokens[:, :-1], seed=seed,
-                          remat=remat, chunk=chunk)
-    loss = refnum.mean_nll(logits, tokens[:, 1:])
+                          remat=remat, chunk=chunk, mesh=mesh)
+    loss = refnum.mean_nll(logits, tokens[:, 1:],
+                           count=nll_count(tokens, mesh))
     return loss, {"nll": loss, "aux": aux}

@@ -28,8 +28,9 @@ Both engines serve on an explicit serving mesh (``ServeConfig.mesh``, or
 a ``distributed.mesh.Mesh`` passed in), the reference's one mesh-native
 path: the default is the 1-rank mesh, whose placement is the identity.  On
 a mesh of more than one rank every rank is a process running the same
-engine on its shards (the dense, moe and vlm families:
-``registry.check_mesh``); every
+engine on its shards (every family whose heads split over "model":
+``registry.check_mesh``; ``ContinuousEngine`` the dense, moe and encdec
+families, as on one rank); every
 collective gives each rank the same bits, so the host state (scheduler,
 page tables, prefix cache) evolves alike everywhere.
 
@@ -153,6 +154,10 @@ class Engine:
                                          self.device, self.mesh)
         self.margins: List[np.ndarray] = []   # per-step greedy margins
         self.steps = 0                        # decode steps of the last run
+        # set keep_prefill_logits for a copy of each run's prompts'
+        # last-token logits (B, V) in prefill_logits (a report's)
+        self.keep_prefill_logits = False
+        self.prefill_logits = None
         self._carry = None                    # one carry, reset per run
         self.programs = {"prefill": Program("prefill", self._prefill_impl,
                                             graphs),
@@ -214,6 +219,8 @@ class Engine:
         last_logits = self.programs["prefill"](toks, *(
             None if extras.get(k) is None else _as_tensor(extras[k]).to(dev)
             for k in ("frames", "prefix_embeds")))
+        if self.keep_prefill_logits:
+            self.prefill_logits = last_logits.clone()
         gen = None
         if scfg.temperature > 0:
             gen = torch.Generator(device=dev)

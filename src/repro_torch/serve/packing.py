@@ -21,7 +21,10 @@ Under a serving mesh (``mesh=``) both return THIS rank's shards
 (``distributed/sharding.place_serve_params``): each weight is packed whole
 -- its tensor scale is the weight's, as on one device -- and then sliced, so
 the streaming packer holds one bf16 layer and this rank's packed slices,
-never the whole packed model.
+never the whole packed model.  The few small high-precision weights that
+every rank multiplies whole (``ENGINE_WHOLE``: zamba2's ``conv_w``,
+xLSTM's ``w_if`` and ``r_gates``) are kept whole, so a decode step does
+not gather them (the models gather one that comes as a shard).
 """
 from __future__ import annotations
 
@@ -120,8 +123,24 @@ def pack_model_params(cfg: ModelConfig, params: Any,
         registry.check_mesh(cfg, mesh)
         if sharding.is_placed(params, cfg, mesh):
             return params
-        return sharding.place_serve_params(_pack(cfg, params, spec), mesh)
+        return _placed(cfg, params, spec, mesh)
     return _pack(cfg, params, spec)
+
+
+ENGINE_WHOLE = ("conv_w", "w_if", "r_gates")
+
+
+def _placed(cfg: ModelConfig, tree: Any, spec, mesh) -> Any:
+    """This rank's shards of ``tree`` packed (``place_serve_params``), the
+    ENGINE_WHOLE leaves kept whole: small high-precision weights that every
+    rank multiplies whole, which a decode step would otherwise gather
+    again at every layer."""
+    whole = {}
+    sharding.map_paths(tree, lambda path, x: whole.update({path: x})
+                       if path.rsplit("/", 1)[-1] in ENGINE_WHOLE else None)
+    return sharding.map_paths(
+        sharding.place_serve_params(_pack(cfg, tree, spec), mesh),
+        lambda path, x: whole.get(path, x))
 
 
 def init_packed_params(cfg: ModelConfig, gen: torch.Generator,
@@ -137,8 +156,7 @@ def init_packed_params(cfg: ModelConfig, gen: torch.Generator,
         registry.check_mesh(cfg, mesh)
         return registry.init_params(
             cfg, generator=gen, device=device,
-            finish=lambda tree: sharding.place_serve_params(
-                _pack(cfg, tree, spec), mesh))
+            finish=lambda tree: _placed(cfg, tree, spec, mesh))
     return registry.init_params(
         cfg, generator=gen, device=device,
         finish=lambda tree: _pack(cfg, tree, spec))

@@ -310,7 +310,7 @@ def make_train_step(cfg: ModelConfig, qcfg: fqt.QuantConfig,
     the same on every rank."""
     multi = mesh is not None and mesh.size > 1
     if multi:
-        registry.check_mesh(cfg, mesh, training=True)
+        registry.check_mesh(cfg, mesh)
     m = mesh if multi else None
     # the pods' gradients averaged after the backward, compressed; else
     # "pod" is summed in the backward as every DP axis (the global mean)

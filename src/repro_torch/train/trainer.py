@@ -36,8 +36,8 @@ ratio, the SIGTERM flag and the step time are all-reduced (MAX) together
 after each step, so every rank stops, and flags a straggler, at the same
 step.  Checkpoints gather the state and rank 0 writes them (a checkpoint
 restores on any mesh); rank 0 alone writes the telemetry and the packed
-export, which it packs from the gathered final parameters.  The dense,
-moe and vlm families (``registry.check_mesh``).
+export, which it packs from the gathered final parameters.  Every
+family whose heads split over "model" (``registry.check_mesh``).
 """
 from __future__ import annotations
 
@@ -83,7 +83,7 @@ class Trainer:
                  data_cfg: DataConfig, mesh=None, tracer=None, device=None):
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         if self.mesh is not None:
-            registry.check_mesh(cfg, self.mesh, training=True)
+            registry.check_mesh(cfg, self.mesh)
         self.tracer = tracer if tracer is not None else NULL_TRACER
         # on a mesh every rank computes the telemetry (its reductions are
         # collectives) and rank 0 writes it

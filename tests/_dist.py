@@ -209,7 +209,8 @@ def mesh_session(rank, shape, names, kinds, mm, state_np, batches):
 
 
 def _flat_tree(tree, prefix=""):
-    """{slash path: f32 numpy} of a port tree's tensors."""
+    """{slash path: f32 numpy} of a port tree's tensors (copies: AdamW
+    updates its f32 state in place)."""
     import torch
     out = {}
     if isinstance(tree, dict):
@@ -219,7 +220,7 @@ def _flat_tree(tree, prefix=""):
         for i, v in enumerate(tree):
             out.update(_flat_tree(v, f"{prefix}/{i}"))
     elif isinstance(tree, torch.Tensor):
-        out[prefix] = tree.detach().float().numpy()
+        out[prefix] = tree.detach().to(torch.float32, copy=True).numpy()
     return out
 
 
@@ -459,7 +460,7 @@ def _routing(log):
 
 
 def family_train(mesh, arch, state_np, batches, compression=False,
-                 ckpt_dir=None, **overrides):
+                 ckpt_dir=None, masters=False, **overrides):
     """``make_train_step(mesh=)`` on ``arch``'s smoke config from a JAX
     ``TrainState`` (numpy leaves), one step per global batch of
     ``batches`` (dicts of numpy arrays: tokens, and a vlm's
@@ -469,8 +470,9 @@ def family_train(mesh, arch, state_np, batches, compression=False,
     backward gave, after the DP sum (and the pod mean), gathered.
     ``ckpt_dir``: the final state is saved there (``ckpt.save(mesh=)``)
     and restored into this rank's shards, which must equal it bit for
-    bit ("ckpt_equal").  ``overrides``: fields of the config to replace
-    (the dispatch groups of a 1-rank comparison)."""
+    bit ("ckpt_equal").  ``masters``: AdamW's f32 master weights after
+    each step too, gathered.  ``overrides``: fields of the config to
+    replace (the dispatch groups of a 1-rank comparison)."""
     import dataclasses
     import torch
     from repro_torch.convert import (tensor_from_numpy,
@@ -502,7 +504,8 @@ def family_train(mesh, arch, state_np, batches, compression=False,
     st.loss_and_grads = lambda *a, **k: seen.append(take(*a, **k)) or \
         seen[-1]
     mesh.reset_stats()
-    out = {"coords": _coords(mesh), "metrics": [], "params": []}
+    out = {"coords": _coords(mesh), "metrics": [], "params": [],
+           "masters": []}
     try:
         for i, b in enumerate(batches):
             with moe.recording() as log:
@@ -512,6 +515,9 @@ def family_train(mesh, arch, state_np, batches, compression=False,
             out["metrics"].append({k: float(v) for k, v in m.items()})
             out["params"].append(_flat_tree(sharding.gather_tree(
                 state.params, mesh)))
+            if masters:
+                out["masters"].append(_flat_tree(sharding.gather_tree(
+                    state.opt.master, mesh)))
     finally:
         st.loss_and_grads = take
     stats = {k: v["calls"] for k, v in mesh.stats["ops"].items()}
@@ -584,5 +590,104 @@ def family_session(rank, shape, names, train, serve, pods, ckpt=None):
     if serve:
         spec, cases = serve
         out["serve"] = {a: family_serve(a, spec, *v)
+                        for a, v in cases.items()}
+    return out
+
+
+# ---- the encdec, hybrid and ssm families on a mesh --------------------------
+# (tests/test_torch_mesh_encdec_recurrent.py)
+
+
+def smoke_family_cfg(arch: str):
+    """The plain smoke config of ``arch`` (whisper-base, zamba2-1.2b and
+    xlstm-125m smoke configs have 4 query and 4 KV heads, and zamba2's and
+    xLSTM's 4 SSM / mLSTM heads: all split over "model" at tp=2)."""
+    from repro_torch.configs import get_config
+    return get_config(arch).smoke()
+
+
+def smoke_family_serve(arch, spec, params_np, prompts, max_new, fields,
+                       frames=None):
+    """The lockstep ``Engine`` on the serving mesh ``spec`` from the
+    JAX-initialised params (numpy), with whisper's ``frames`` (numpy,
+    one row a prompt), and for whisper the ``ContinuousEngine`` too, each
+    request with its row of the frames: streams, the collectives of the
+    lockstep run by operation, its program calls and the launches."""
+    import numpy as np
+    from repro_torch.convert import params_from_jax_numpy, tensor_from_numpy
+    from repro_torch.distributed.mesh import make_serve_mesh
+    from repro_torch.kernels import counters
+    from repro_torch.serve import ContinuousEngine, Engine, Request
+    from repro_torch.serve import ServeConfig
+    cfg = smoke_family_cfg(arch)
+    params = params_from_jax_numpy(params_np, cfg, device="cpu")
+    scfg = ServeConfig(mesh=spec, **fields)
+    mesh = make_serve_mesh(spec, device="cpu")
+    out = {}
+    extras = {}
+    if frames is not None:
+        extras = {"frames": tensor_from_numpy(frames, "cpu")}
+        cont = ContinuousEngine(cfg, params, scfg, device="cpu")
+        res = cont.run([Request(rid=i, prompt=np.asarray(p, np.int32),
+                                max_new=max_new)
+                        for i, p in enumerate(prompts)],
+                       extras={i: {"frames": extras["frames"][i:i + 1]}
+                               for i in range(len(prompts))})
+        out["cont"] = [np.asarray(res[i]) for i in range(len(prompts))]
+        out["cont_heads"] = cont._caches()[0].k_codes.shape[-2]
+    lock = Engine(cfg, params, scfg, device="cpu", mesh=mesh)
+    out["lock"] = [np.asarray(s) for s in
+                   lock.generate(prompts, max_new=max_new, extras=extras)]
+    out["ops"] = {k: v["calls"] for k, v in mesh.stats["ops"].items()}
+    out["decode_calls"] = lock.programs["decode"].calls
+    out["launches"] = counters.snapshot()
+    out["carry"] = _shapes(lock._carry)
+    out["engine_whole"] = _whole_shapes(lock.params)
+    return out
+
+
+def _whole_shapes(params):
+    """{path: shape} of a tree's ``packing.ENGINE_WHOLE`` leaves."""
+    from repro_torch.distributed.sharding import map_paths
+    from repro_torch.serve.packing import ENGINE_WHOLE
+    out = {}
+    map_paths(params, lambda path, x: out.update({path: tuple(x.shape)})
+              if path.rsplit("/", 1)[-1] in ENGINE_WHOLE else None)
+    return out
+
+
+def _shapes(carry):
+    """A decode carry's tensor shapes, nested as the carry (a KV cache as
+    {field: shape})."""
+    import dataclasses
+    import torch
+    if isinstance(carry, (list, tuple)):
+        return [_shapes(c) for c in carry]
+    if isinstance(carry, dict):
+        return {k: _shapes(v) for k, v in carry.items()}
+    if dataclasses.is_dataclass(carry):
+        return {f.name: tuple(getattr(carry, f.name).shape)
+                for f in dataclasses.fields(carry)
+                if isinstance(getattr(carry, f.name), torch.Tensor)}
+    return tuple(carry.shape)
+
+
+def smoke_family_session(rank, shape, names, train, serve, ckpt=None):
+    """One rank session of tests/test_torch_mesh_encdec_recurrent.py on
+    the mesh ``shape`` x ``names``: ``train`` {arch: (state_np, batches)}
+    through ``family_train`` on the plain smoke configs (``ckpt`` {arch:
+    directory}: checkpointed there); ``serve`` (spec, {arch: (params_np,
+    prompts, max_new, fields, frames)}) through ``smoke_family_serve``."""
+    from repro_torch.distributed.mesh import make_mesh
+    mesh = make_mesh(shape, names, device="cpu")
+    ckpt = ckpt or {}
+    out = {"train": {a: family_train(mesh, a, *v, ckpt_dir=ckpt.get(a),
+                                     masters=True,
+                                     n_kv_heads=smoke_family_cfg(
+                                         a).n_kv_heads)
+                     for a, v in train.items()}}
+    if serve:
+        spec, cases = serve
+        out["serve"] = {a: smoke_family_serve(a, spec, *v)
                         for a, v in cases.items()}
     return out

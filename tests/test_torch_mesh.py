@@ -23,9 +23,11 @@
     reference's 1-device engines, with one signature per program
     (``prefill_compiles == decode_compiles == 1``); the caches hold the
     rank's KV heads; the launcher's ``--mesh``.
-  * The refusals: the unported families (hybrid, ssm, encdec; the moe and
-    vlm families' meshes are tests/test_torch_mesh_families.py's),
-    ``cuda_graphs`` on a multi-rank
+  * The families beyond dense pass the gate: hybrid, ssm and encdec build
+    an engine at tp=2 and a decode carry of this rank's heads (their
+    streams are tests/test_torch_mesh_encdec_recurrent.py's, the moe and
+    vlm families' tests/test_torch_mesh_families.py's).
+  * The refusals: ``cuda_graphs`` on a multi-rank
     mesh on the card (from static facts, before any collective), too few
     ranks, heads that do not split, a leaf whose planned split does not
     divide.
@@ -444,12 +446,30 @@ def test_place_serve_params_is_the_reference_slice(models, spec):
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-125m",
                                   "whisper-base"])
 def test_unported_families_refuse_a_mesh(arch):
+    """Once refused, the hybrid, ssm and encdec families now pass the gate
+    at tp=2: an ``Engine`` builds on rank 0's shards (packing and slicing
+    need no collective) and the decode carry holds this rank's heads --
+    2 of the smoke config's 4 KV heads, zamba2's SSM heads, xLSTM's mLSTM
+    heads -- with the conv, sLSTM and encoder states whole."""
     cfg = get_config(arch).smoke()
     mesh = Mesh((2,), ("model",), device=torch.device("cpu"), rank=0)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        registry.check_mesh(cfg, mesh)
-    with pytest.raises(NotImplementedError, match="models/"):
-        Engine(cfg, {}, ServeConfig(**FIELDS), device="cpu", mesh=mesh)
+    registry.check_mesh(cfg, mesh)
+    eng = Engine(cfg, registry.init_params(cfg, device="cpu"),
+                 ServeConfig(**FIELDS), device="cpu", mesh=mesh)
+    assert eng.params["embed"].shape == (cfg.padded_vocab // 2,
+                                         cfg.d_model)
+    carry = registry.make_decode_state(cfg, 2, 64, kv_cache_format="nvfp4",
+                                       device="cpu", mesh=mesh)
+    if arch == "whisper-base":
+        assert carry[0].shape == (2, cfg.enc_seq, cfg.d_model)
+        assert {c.k_codes.shape[-2] for c in carry[1]} == {2}
+    elif arch == "zamba2-1.2b":
+        assert carry[0]["ssm"].shape[2] == cfg.n_ssm_heads // 2
+        assert {c.k_codes.shape[-2] for c in carry[1]} == {2}
+    else:
+        assert {st[0].shape[1] for st in carry if len(st) == 2} == {2}
+        assert {st[0].shape for st in carry if len(st) == 4} == {
+            (2, cfg.d_model)}
     registry.check_mesh(cfg, Mesh((1,), ("model",),
                                   device=torch.device("cpu")))
 

@@ -457,17 +457,25 @@ def test_trainer_qaf_switch_matches_jax():
 
 
 def test_unported_trainer_options_raise():
-    """Trainer(mesh=) trains the dense, moe and vlm families
-    (tests/test_torch_train_mesh.py, tests/test_torch_mesh_families.py);
-    the families still to port refuse a multi-rank mesh."""
+    """Trainer(mesh=) trains every family (tests/test_torch_train_mesh.py,
+    tests/test_torch_mesh_families.py,
+    tests/test_torch_mesh_encdec_recurrent.py): the hybrid family, once
+    refused a multi-rank mesh, builds its train step at tp=2; what the
+    Trainer's gate still refuses, before any collective, is a mesh its
+    heads do not split over (here 6 SSM heads at tp=4), naming them."""
+    import dataclasses
     from repro_torch.distributed.mesh import Mesh
     cfg = get_config("zamba2-1.2b").smoke()
+    cpu = torch.device("cpu")
+    assert callable(step_mod.make_train_step(
+        cfg, fqt.nvfp4_paper_config(), _tcfg_port(),
+        Mesh((2,), ("model",), device=cpu)))
     data = pipeline.DataConfig(vocab_size=cfg.vocab_size, seq_len=8,
                                global_batch=2)
-    with pytest.raises(NotImplementedError, match="distributed"):
-        Trainer(cfg, fqt.nvfp4_paper_config(), _tcfg_port(),
-                TrainerConfig(), data, device="cpu",
-                mesh=Mesh((2,), ("model",), device=torch.device("cpu")))
+    with pytest.raises(ValueError, match="6 SSM heads do not split"):
+        Trainer(dataclasses.replace(cfg, n_ssm_heads=6),
+                fqt.nvfp4_paper_config(), _tcfg_port(), TrainerConfig(),
+                data, device="cpu", mesh=Mesh((4,), ("model",), device=cpu))
 
 
 def test_train_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):

@@ -693,25 +693,24 @@ def test_reduce_scatter_sums_in_rank_order(tmp_path, shape, names):
 
 
 def test_training_mesh_refusals():
+    """The hybrid, ssm and encdec families, refused once, build a train
+    step at tp=2 and place their state there (their steps are
+    tests/test_torch_mesh_encdec_recurrent.py's); what still raises: an
+    undividable split, a block straddling two ranks, too few ranks."""
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import DataConfig
-    from repro_torch.train import Trainer, TrainerConfig
     from repro_torch.train import step as st
     from repro_torch.models import registry
     cpu = torch.device("cpu")
     two = Mesh((2,), ("model",), device=cpu)
     for arch in ("zamba2-1.2b", "xlstm-125m", "whisper-base"):
         cfg = get_config(arch).smoke()
-        with pytest.raises(NotImplementedError, match="distributed training"):
-            Trainer(cfg, fqt.nvfp4_paper_config(), st.TrainConfig(),
-                    TrainerConfig(), DataConfig(cfg.vocab_size, 8, 2),
-                    mesh=two, device="cpu")
-        with pytest.raises(NotImplementedError, match="models/"):
-            st.make_train_step(cfg, fqt.nvfp4_paper_config(),
-                               st.TrainConfig(), two)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            registry.loss_fn({}, cfg, fqt.nvfp4_paper_config(),
-                             {"tokens": torch.zeros(2, 9)}, mesh=two)
+        registry.check_mesh(cfg, two)
+        assert callable(st.make_train_step(cfg, fqt.nvfp4_paper_config(),
+                                           st.TrainConfig(), two))
+        state = sharding.place_train_state(
+            st.init_state(cfg, st.TrainConfig(), device="cpu"), two)
+        assert state.params["embed"].shape == (cfg.padded_vocab // 2,
+                                               cfg.d_model)
     # an undividable split names its leaf
     with pytest.raises(ValueError, match="mlp/w_up"):
         sharding.place_train_params({"mlp": {"w_up": torch.zeros(128, 33)}},

@@ -430,8 +430,8 @@ def test_refusals_are_the_reference_ones(model):
 
 def test_launchers_smoke():
     """``--arch whisper-base --smoke`` serves in lockstep with random
-    frames, through ContinuousEngine with ``--queue`` (no frames, as the
-    reference's launcher) and trains, on the CPU."""
+    frames, through ContinuousEngine with ``--queue`` (random frames a
+    request) and trains, on the CPU."""
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch import train as train_cli
     common = ["--arch", ARCH, "--smoke", "--device", "cpu", "--prompt-len",
